@@ -24,7 +24,28 @@ Phases (any failure exits non-zero and prints no result line):
    (host concat, copy in, kernel, spill), the kernel against its plain
    version at that shape (as in phase 3), and its time beside the plain
    version's, ``index_add_``'s and its byte bound; then the
-   narrow/scatter crossover table behind ``tuning.MATMUL_MAX_G``.
+   narrow/scatter crossover table behind ``tuning.MATMUL_MAX_G``;
+8. LM kernel parity: the flash-attention kernel (causal or not, window,
+   soft-cap, GQA and MQA, ragged S, D in {64, 128, 256}) and the RG-LRU
+   kernel (ragged S and N, B in {1, 8}) against their plain versions on the
+   card, bf16 against the plain version taken in f32;
+9. the serving path (the main path, part 3) at recurrentgemma-9b's full
+   width and depth (10,444,664,832 bf16 parameters from ``--seed``):
+   ``PrefillExecutor`` with buckets (1, 2, 4, 8) over prompts of 4,096
+   tokens, ``calibrate``, ``serve_single_job`` (24 prompts, ``single``) and
+   ``serve_multi_jobs`` (three jobs, LLF); logits finite and (n, 256000);
+   launches flash = 12 and RG-LRU = 26 per prefill call, plain versions
+   never called on a CUDA tensor; then one batch of 8 with the plain
+   versions swapped in at 3, 9 and 38 layers of the same weights: at 3
+   layers its logits within a relative L2 error of 5e-2 of the kernels'
+   (the deeper ones are reported: the seeded model's attention is nearly
+   one-hot, since the reference's init gives q rms 16 and k rms 64, so a
+   rounding difference can flip a near-tie, and depth amplifies it), the
+   RG-LRU kernel against its plain version on the inputs the model gave its
+   first call, and the flash kernel's reading on those of its first call;
+10. both LM kernels at the path's shapes: parity with the plain version,
+   kernel, plain and (flash) ``scaled_dot_product_attention`` times beside
+   the bound.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -45,6 +66,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 # Float sums: f32 atomics add in an order that changes from run to run; a
 # group summing m terms drifts by about sqrt(m) * 2^-24 relative (observed up
 # to 2e-5 for 13M rows into one group through scatter).  Counts are exact.
@@ -52,6 +74,16 @@ FLOAT_RTOL = 1e-4
 PARITY_FILES = 97           # N = 97 lineitem files = 1,261,000 rows, no block multiple
 CROSSOVER_GROUPS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096,
                     8192, 12288)
+# LM kernels: bf16 output against the plain version in f32 (bf16 rounds the
+# inputs, p and the output); the RG-LRU state stays f32 in both.
+BF16_TOL = 2e-2
+STATE_TOL = 2e-4
+LOGITS_REL_L2 = 5e-2        # kernel path against plain path, full width, 3 layers
+SERVE_ARCH = "recurrentgemma_9b"
+SERVE_SEQ = 4096            # twice the local-attention window
+SERVE_BUCKETS = (1, 2, 4, 8)
+# examples/multi_query_serving.py's jobs: (prompts, window s, slack)
+MULTI_JOBS = ((24, 30.0, 3.0), (16, 20.0, 2.0), (32, 40.0, 2.5))
 
 
 def log(*args) -> None:
@@ -185,6 +217,318 @@ def kernel_times(name: str, fn, keys, vals, g: int, exact: bool, segagg_ref,
     }
 
 
+# -- phase 8 -----------------------------------------------------------------
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| / (1 + |want|)."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (1.0 + want.abs())).max().item()
+
+
+def check_close(what: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """``got`` within ``tol`` of ``want`` (absolute plus relative, as
+    ``torch.allclose``); returns the largest absolute error."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)} "
+                             f"or non-finite values")
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        raise AssertionError(f"{what}: max abs err {(got - want).abs().max().item():.3e} "
+                             f"above {tol}")
+    return (got - want).abs().max().item()
+
+
+def sharpness(q: torch.Tensor, k: torch.Tensor, window: int) -> str:
+    """Attention-score statistics of batch row 0, head 0 (causal, windowed):
+    the share of query rows whose softmax puts over 0.99 on one key."""
+    s = (q[0, :, 0].float() @ k[0, :, 0].float().T) / q.shape[-1] ** 0.5
+    pos = torch.arange(q.shape[1], device=q.device)
+    ok = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    p = torch.softmax(s.masked_fill(~ok, float("-inf")), dim=-1)
+    return (f"first attention layer's inputs: q rms {q.float().pow(2).mean().sqrt().item():.1f}, "
+            f"k rms {k.float().pow(2).mean().sqrt().item():.1f}, score |max| "
+            f"{s[ok].abs().max().item():.0f}, rows with max p > 0.99: "
+            f"{(p.amax(-1) > 0.99).float().mean().item():.1%}")
+
+
+def lm_kernel_parity(flash_cuda, flash_plain, rglru_cuda, rglru_plain) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, device="cuda", generator=gen)
+
+    # (B, S, H, Hkv, D, causal, window, cap)
+    cases = [(2, 1000, 8, 8, 64, True, 0, 0.0), (2, 1000, 8, 8, 64, False, 0, 0.0),
+             (1, 777, 16, 2, 128, True, 256, 0.0), (1, 777, 16, 2, 128, True, 0, 50.0),
+             (2, 1500, 16, 1, 256, True, 512, 0.0), (1, 1500, 16, 1, 256, False, 0, 30.0),
+             (1, 4096, 16, 1, 256, True, 2048, 0.0)]
+    for B, S, H, Hkv, D, causal, window, cap in cases:
+        sc = 3.0 if cap else 1.0
+        q = randn(B, S, H, D, scale=sc).bfloat16()
+        k = randn(B, S, Hkv, D, scale=sc).bfloat16()
+        v = randn(B, S, Hkv, D).bfloat16()
+        got = flash_cuda(q, k, v, causal, window, cap)
+        want = flash_plain(q.float(), k.float(), v.float(), causal, window, cap)
+        err = check_close(f"flash B={B} S={S} H={H}/{Hkv} D={D}", got, want, BF16_TOL)
+        log(f"  parity flash_attention B={B} S={S:>4} H={H:>2} Hkv={Hkv} D={D:>3} "
+            f"causal={causal!s:5} window={window:>4} cap={cap:>4}: max abs err {err:.3e}")
+    for B, S, N in ((1, 1000, 4096), (8, 777, 4096), (1, 333, 1000), (8, 129, 33)):
+        x = randn(B, S, N)
+        r, i = torch.sigmoid(randn(B, S, N)), torch.sigmoid(randn(B, S, N))
+        a_param, h0 = randn(N), randn(B, N)
+        xb, rb, ib = x.bfloat16(), r.bfloat16(), i.bfloat16()
+        y, h = rglru_cuda(xb, rb, ib, a_param, h0)
+        y_ref, h_ref = rglru_plain(xb.float(), rb.float(), ib.float(), a_param, h0)
+        err_y = check_close(f"rglru y B={B} S={S} N={N}", y, y_ref, BF16_TOL)
+        err_h = check_close(f"rglru h_last B={B} S={S} N={N}", h, h_ref, STATE_TOL)
+        y32, h32 = rglru_cuda(x, r, i, a_param, None)
+        y_ref, h_ref = rglru_plain(x, r, i, a_param, None)
+        check_close(f"rglru f32 B={B} S={S} N={N}", y32, y_ref, STATE_TOL)
+        check_close(f"rglru f32 h_last B={B} S={S} N={N}", h32, h_ref, STATE_TOL)
+        log(f"  parity rglru           B={B} S={S:>4} N={N:>4}: bf16 y max abs err "
+            f"{err_y:.3e}, h_last {err_h:.3e}; f32 within {STATE_TOL}")
+
+
+# -- phase 9 -----------------------------------------------------------------
+
+def serving_path(args, cfg, lm, engine, core, counters):
+    """The LM serving main path at full width; returns the prefill executor,
+    one batch of prompts and the launch counts of the path."""
+    from repro_torch.models.params import init_params, num_params
+
+    specs = lm.build_specs(cfg)
+    t0 = time.perf_counter()
+    params = init_params(specs, seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    log(f"    {cfg.name}: {num_params(specs):,} parameters, bf16, seeded init on the "
+        f"card in {time.perf_counter() - t0:.1f} s; {len(cfg.segments)} segments, "
+        f"{cfg.num_layers} layers, window {cfg.window}, prompts of {SERVE_SEQ} tokens")
+    ex = engine.PrefillExecutor(cfg, params, buckets=SERVE_BUCKETS, device="cuda")
+    batches = []   # (n, wall s) of every run_batch call
+    run_batch = ex.run_batch
+
+    def recorded(prompts):
+        out, dt = run_batch(prompts)
+        if prompts.shape[0] <= SERVE_BUCKETS[-1]:
+            batches.append((prompts.shape[0], dt))
+        return out, dt
+
+    ex.run_batch = recorded
+    rng = np.random.default_rng(args.seed)
+    mk = lambda n: rng.integers(0, cfg.vocab_size, (n, SERVE_SEQ)).astype(np.int32)  # noqa: E731
+
+    counters.reset()
+    t0 = time.perf_counter()
+    cm = ex.calibrate(SERVE_SEQ, cfg.vocab_size)
+    t_cal = time.perf_counter() - t0
+    log(f"  calibrate {t_cal:.1f} s: cost(b) = "
+        + ", ".join(f"{b}: {cm.cost(b) * 1e3:.1f} ms" for b in SERVE_BUCKETS)
+        + f"; batch walls {[round(dt * 1e3, 1) for _, dt in batches]} ms")
+    jobs_out = []
+    n1 = MULTI_JOBS[0][0]
+    job = engine.WindowJob("single", mk(n1), core.UniformWindowArrival(0.0, 30.0, n1),
+                           deadline=30.0 + 1.0 * cm.cost(n1))
+    del batches[:]
+    t0 = time.perf_counter()
+    r = engine.serve_single_job(job, ex, cm, policy="single")
+    log(f"  serve_single_job {time.perf_counter() - t0:.1f} s: {r['num_batches']} batches "
+        f"{[b for b, _ in batches]}, walls {[round(dt * 1e3, 1) for _, dt in batches]} ms; "
+        f"modelled finish {r['modelled_finish']:.2f} vs deadline {r['deadline']:.2f}: "
+        f"{'met' if r['met_modelled'] else 'MISSED'}; processed {r['processed']}/{n1}")
+    jobs_out.append((job, r["met_modelled"]))
+    jobs = [engine.WindowJob(f"job{i}", mk(n), core.UniformWindowArrival(0.0, w, n),
+                             deadline=w + slack * cm.cost(n))
+            for i, (n, w, slack) in enumerate(MULTI_JOBS)]
+    del batches[:]
+    t0 = time.perf_counter()
+    report = engine.serve_multi_jobs(jobs, ex, cm, core.Strategy.LLF, delta_rsf=0.5)
+    log(f"  serve_multi_jobs (LLF) {time.perf_counter() - t0:.1f} s: "
+        f"{len(batches)} batches {[b for b, _ in batches]}, "
+        f"walls {[round(dt * 1e3, 1) for _, dt in batches]} ms")
+    for j in jobs:
+        o = report[j.job_id]
+        log(f"    {j.job_id}: {o['num_batches']} batches, modelled finish "
+            f"{o['completion']:.2f} vs deadline {o['deadline']:.2f}: "
+            f"{'met' if o['met_modelled'] else 'MISSED'}; processed "
+            f"{o['processed']}/{j.num_requests}; wall {o['wall_exec_seconds']:.2f} s")
+        jobs_out.append((j, o["met_modelled"]))
+    launches = counters.read()
+    met = sum(m for _, m in jobs_out)
+    log(f"  modelled deadlines met {met}/{len(jobs_out)}")
+    for j, _ in jobs_out:
+        out = np.concatenate(j.results)
+        if j.processed != j.num_requests or out.shape != (j.num_requests, cfg.vocab_size) \
+                or not np.isfinite(out).all():
+            raise AssertionError(f"{j.job_id}: processed {j.processed}, logits {out.shape}")
+    return ex, mk(SERVE_BUCKETS[-1]), launches
+
+
+# -- phase 10 ----------------------------------------------------------------
+
+def bound(ops: float, nbytes: float, ops_per_s: float):
+    byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
+
+
+def lm_kernel_times(flash_cuda, flash_plain, flash_fb, rglru_cuda, rglru_plain,
+                    rglru_fb) -> dict:
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    B, S, H, Hkv, D, W, N = 8, SERVE_SEQ, 16, 1, 256, 2048, 4096
+    q = torch.randn((B, S, H, D), device="cuda", generator=gen).bfloat16()
+    k = torch.randn((B, S, Hkv, D), device="cuda", generator=gen).bfloat16()
+    v = torch.randn((B, S, Hkv, D), device="cuda", generator=gen).bfloat16()
+    err = check_close("flash at the path's shape", flash_cuda(q, k, v, True, W),
+                      flash_plain(q, k, v, True, W), BF16_TOL)
+    pos = torch.arange(S, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    # the yardstick computes the same function (logged, not a gate of the port)
+    log(f"  SDPA yardstick max abs err against the plain version "
+        f"{(sdpa().transpose(1, 2).float() - flash_plain(q, k, v, True, W).float()).abs().max().item():.3e}")
+    b_ms, b_by = bound(*flash_fb(B, S, S, H, Hkv, D, True, W), BF16_OPS_PER_S)
+    out = {"flash_attention": {
+        "max_abs_err": err, "ms": cuda_ms(lambda: flash_cuda(q, k, v, True, W)),
+        "plain_ms": cuda_ms(lambda: flash_plain(q, k, v, True, W), reps=2),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(sdpa)}}
+    del q, k, v, qt, kt, vt
+    x = torch.randn((B, S, N), device="cuda", generator=gen).bfloat16()
+    r = torch.sigmoid(torch.randn((B, S, N), device="cuda", generator=gen)).bfloat16()
+    i = torch.sigmoid(torch.randn((B, S, N), device="cuda", generator=gen)).bfloat16()
+    a_param = torch.randn((N,), device="cuda", generator=gen)
+    h0 = torch.zeros((B, N), device="cuda")
+    y, h = rglru_cuda(x, r, i, a_param, h0)
+    y_ref, h_ref = rglru_plain(x, r, i, a_param, h0)
+    err = check_close("rglru at the path's shape", y, y_ref, BF16_TOL)
+    check_close("rglru h_last at the path's shape", h, h_ref, STATE_TOL)
+    b_ms, b_by = bound(*rglru_fb(B, S, N), F32_OPS_PER_S)
+    out["rglru"] = {
+        "max_abs_err": err, "ms": cuda_ms(lambda: rglru_cuda(x, r, i, a_param, h0)),
+        "plain_ms": cuda_ms(lambda: rglru_plain(x, r, i, a_param, h0), reps=2),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    return out
+
+
+def plain_swap(ex, batch, units, fa_ops, rg_ops, fa_plain, rg_plain):
+    """One batch through the first ``units`` units of segment 0 (all
+    segments when None), with the kernels and again with their plain
+    versions swapped in; also returns the inputs of the first call of each
+    kernel.  Returns (relative L2 error of the logits, argmax agreement,
+    kernel s, plain s, first inputs)."""
+    from repro_torch.models.config import Segment
+    from repro_torch.serve.engine import PrefillExecutor
+
+    cfg, params = ex.cfg, ex.params
+    if units is not None:
+        cfg = dataclasses.replace(cfg, segments=(Segment(cfg.segments[0].pattern, units),))
+        params = {k: (v[:units] if k.startswith("seg0/") else v)
+                  for k, v in params.items() if not k.startswith("seg") or
+                  k.startswith("seg0/")}
+    cut = PrefillExecutor(cfg, params, buckets=(batch.shape[0],), device="cuda")
+    kernels = fa_ops.flash_attention_cuda, rg_ops.rglru_cuda
+    first = {}
+
+    def rec_fa(*a):
+        first.setdefault("flash", tuple(t.clone() if torch.is_tensor(t) else t for t in a))
+        return kernels[0](*a)
+
+    def rec_rg(*a):
+        first.setdefault("rglru", tuple(t.clone() if torch.is_tensor(t) else t for t in a))
+        return kernels[1](*a)
+
+    fa_ops.flash_attention_cuda, rg_ops.rglru_cuda = rec_fa, rec_rg
+    try:
+        logits_k, t_k = cut.run_batch(batch)
+        fa_ops.flash_attention_cuda = (
+            lambda q, k, v, causal, window, cap: fa_plain(q, k, v, causal, window, cap))
+        rg_ops.rglru_cuda = rg_plain
+        logits_p, t_p = cut.run_batch(batch)
+    finally:
+        fa_ops.flash_attention_cuda, rg_ops.rglru_cuda = kernels
+    if not (np.isfinite(logits_k).all() and np.isfinite(logits_p).all()):
+        raise AssertionError("non-finite logits in the kernel/plain comparison")
+    rel = float(np.linalg.norm(logits_k - logits_p) / np.linalg.norm(logits_p))
+    agree = float((logits_k.argmax(-1) == logits_p.argmax(-1)).mean())
+    return rel, agree, t_k, t_p, first
+
+
+def profile_batch(ex, batch) -> None:
+    """Where one prefill batch's device time goes, by kernel class, and the
+    device's idle share of the batch's wall time (``torch.profiler``; the
+    kernels run on one stream, so busy time is the sum of kernel times).
+    Logged only: a profiler that records no device time is reported."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ex.run_batch(batch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ex.run_batch(batch)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    classes = {"flash_attention": 0.0, "rglru": 0.0, "matmul": 0.0, "other": 0.0}
+    count = 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        name, dt = evt.name, evt.time_range.elapsed_us()
+        count += 1
+        if "flash_fwd_kernel" in name:
+            classes["flash_attention"] += dt
+        elif "rglru_kernel" in name:
+            classes["rglru"] += dt
+        elif any(tag in name.lower() for tag in ("gemm", "xmma", "cutlass", "nvjet", "wgmma")):
+            classes["matmul"] += dt
+        else:
+            classes["other"] += dt
+    busy = sum(classes.values())
+    if not count or busy <= 0:
+        log("    profiler: no device time recorded")
+        return
+    log(f"    profile of one batch of {batch.shape[0]}: wall {wall_us / 1e3:.1f} ms, "
+        f"{count} kernels, device busy {busy / 1e3:.1f} ms, idle share "
+        f"{max(0.0, 1 - busy / wall_us):.1%}; by class (ms, share of busy): " + ", ".join(
+            f"{k} {v / 1e3:.1f} ({v / busy:.1%})" for k, v in classes.items()))
+
+
+class LaunchCounters:
+    """Launch counts of the two LM kernels and prefill calls, and calls of
+    the plain versions on CUDA tensors, over one run of the main path."""
+
+    def __init__(self, lm, flash_cuda, rglru_cuda, fa_ops, rg_ops):
+        self.flash_cuda, self.rglru_cuda = flash_cuda, rglru_cuda
+        self.prefills = self.plain_cuda = 0
+        prefill, fa_plain, rg_plain = lm.prefill, fa_ops.chunked_attention_ref, rg_ops.rglru_ref
+
+        def counted_prefill(*a, **kw):
+            self.prefills += 1
+            return prefill(*a, **kw)
+
+        def counted_fa(q, *a, **kw):
+            self.plain_cuda += q.is_cuda
+            return fa_plain(q, *a, **kw)
+
+        def counted_rg(x, *a, **kw):
+            self.plain_cuda += x.is_cuda
+            return rg_plain(x, *a, **kw)
+
+        lm.prefill, fa_ops.chunked_attention_ref, rg_ops.rglru_ref = (
+            counted_prefill, counted_fa, counted_rg)
+
+    def reset(self):
+        self.flash_cuda.launches = self.rglru_cuda.launches = 0
+        self.prefills = self.plain_cuda = 0
+
+    def read(self) -> dict:
+        return {"flash_attention": self.flash_cuda.launches,
+                "rglru": self.rglru_cuda.launches, "prefill_calls": self.prefills,
+                "plain_on_cuda": self.plain_cuda}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--files", type=int, default=4500,
@@ -207,6 +551,17 @@ def main(argv=None) -> int:
         segagg_narrow_cuda, segagg_scatter_cuda)
     from repro_torch.serve.analytics import (
         AnalyticsRuntimeExecutor, concat_files, measure_cost_model, run_plan)
+    from repro_torch import core
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda, flops_bytes as flash_flops_bytes)
+    from repro_torch.kernels.flash_attention.ref import chunked_attention_ref
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.rglru.ref import rglru_ref
+    from repro_torch.kernels.rglru.rglru import flops_bytes as rglru_flops_bytes, rglru_cuda
+    from repro_torch.models import lm
+    from repro_torch.models.base import get_config
+    from repro_torch.serve import engine
 
     t_start = time.perf_counter()
     # 1. environment
@@ -220,11 +575,12 @@ def main(argv=None) -> int:
     # 2. build
     t0 = time.perf_counter()
     _build.build_all()
-    log(f"[2] built the kernels in {time.perf_counter() - t0:.2f} s "
+    log(f"[2] built {sorted(_build.LIBRARIES)} in {time.perf_counter() - t0:.2f} s "
         f"into {_build.build_dir()}")
-    for line in _build.build_logs.get("segagg", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log("    " + line.strip())
+    for lib_name, build_log in _build.build_logs.items():
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    {lib_name}: " + line.strip())
 
     # 3. kernel parity
     sc = StreamScale(1.0)
@@ -386,6 +742,83 @@ def main(argv=None) -> int:
     log(f"    narrow wins up to G={min(crossings)} (per N: {crossings}); "
         f"tuning.MATMUL_MAX_G = {tuning.MATMUL_MAX_G}")
 
+    # 8. LM kernel parity
+    del streams, oneshot, rex
+    torch.cuda.empty_cache()
+    log(f"[8] LM kernel parity against the plain version (bf16 within {BF16_TOL} of "
+        f"the plain version in f32, f32 RG-LRU and h_last within {STATE_TOL})")
+    lm_kernel_parity(flash_attention_cuda, chunked_attention_ref, rglru_cuda, rglru_ref)
+    torch.cuda.synchronize()
+
+    # 9. the serving path; counts from the calibration to the last job
+    log(f"[9] serving path: {SERVE_ARCH} at full width, prompts of {SERVE_SEQ} tokens")
+    counters = LaunchCounters(lm, flash_attention_cuda, rglru_cuda, fa_ops, rg_ops)
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    ex, batch8, lm_launches = serving_path(args, cfg, lm, engine, core, counters)
+    t_serve = time.perf_counter() - t0
+    n_attn = sum(seg.pattern.count("attn") * seg.num_units for seg in cfg.segments)
+    n_rglru = sum(seg.pattern.count("rglru") * seg.num_units for seg in cfg.segments)
+    calls = lm_launches["prefill_calls"]
+    log(f"  serving path {t_serve:.1f} s wall; launches {lm_launches}; expected "
+        f"flash {n_attn} x {calls}, rglru {n_rglru} x {calls}")
+    if (calls <= 0 or lm_launches["flash_attention"] != n_attn * calls
+            or lm_launches["rglru"] != n_rglru * calls or lm_launches["plain_on_cuda"]):
+        raise AssertionError("the serving path must run through both LM kernels only")
+    launches.update({k: lm_launches[k] for k in ("flash_attention", "rglru")})
+    # The same batch of 8 with the plain versions swapped in, at three depths
+    # of the same weights; the gate is the first unit (both kernels, 3
+    # layers), since this random-weight model amplifies any rounding
+    # difference with depth (the deeper readings are reported, not gated).
+    log("  kernel path against the plain versions on one batch of 8, by depth: "
+        "logits relative L2 error, argmax agreement, wall ms (kernels / plain)")
+    for units in (1, 3, None):
+        rel, agree, t_k, t_p, first = plain_swap(ex, batch8, units, fa_ops, rg_ops,
+                                                 chunked_attention_ref, rglru_ref)
+        layers = cfg.num_layers if units is None else 3 * units
+        log(f"    {layers:2d} layers: rel L2 {rel:.3e}, argmax agreement {agree:.3f}, "
+            f"{t_k * 1e3:.1f} / {t_p * 1e3:.1f} ms")
+        if units == 1:
+            if not rel < LOGITS_REL_L2:
+                raise AssertionError(f"kernel path and plain path disagree at 3 layers: "
+                                     f"rel L2 {rel:.3e} (limit {LOGITS_REL_L2})")
+            # each kernel against its plain version on the inputs the model gave it
+            q, k, v, causal, window, cap = first["flash"]
+            got = flash_attention_cuda(q, k, v, causal, window, cap).float()
+            want = chunked_attention_ref(q.float(), k.float(), v.float(), causal, window, cap)
+            if not torch.isfinite(got).all():
+                raise AssertionError("flash on the model's inputs: non-finite output")
+            share = ((got - want).abs() > BF16_TOL + BF16_TOL * want.abs()).any(-1)
+            share = share.float().mean().item()
+            rel_o = ((got - want).norm() / want.norm()).item()
+            log("    " + sharpness(q, k, window))
+            x, r, i, a_param, h0 = first["rglru"]
+            y, h = rglru_cuda(x, r, i, a_param, h0)
+            y_ref, h_ref = rglru_ref(x.float(), r.float(), i.float(), a_param, h0)
+            err_y = check_close("rglru y on the model's inputs", y, y_ref, BF16_TOL)
+            err_h = check_close("rglru h_last on the model's inputs", h, h_ref, STATE_TOL)
+            log(f"    on the first layers' own inputs: rglru y max abs err {err_y:.3e}, "
+                f"h_last {err_h:.3e}; flash (a reading, not a gate: the softmax is "
+                f"nearly one-hot) relative L2 {rel_o:.3e}, {share:.2e} of rows beyond "
+                f"{BF16_TOL}")
+    try:
+        profile_batch(ex, batch8)
+    except Exception as exc:  # the profiler is a reading, not a gate
+        log(f"    profiler failed: {exc!r}")
+    del ex
+    torch.cuda.empty_cache()
+
+    # 10. LM kernel times at the path's shapes
+    log("[10] LM kernels at the path's shapes: flash (B=8, S=4096, H=16, Hkv=1, D=256, "
+        "window 2048), rglru (B=8, S=4096, N=4096); ms, CUDA events")
+    lm_times = lm_kernel_times(flash_attention_cuda, chunked_attention_ref,
+                               flash_flops_bytes, rglru_cuda, rglru_ref, rglru_flops_bytes)
+    for kname, r in lm_times.items():
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"  {kname:15s} kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}, library {lib}, "
+            f"bound {r['bound_ms']:.4f} by {r['bound_by']} ({r['bound_ms'] / r['ms']:.1%} "
+            f"of it reached), max abs err {r['max_abs_err']:.3g}")
+
     replaces = {"segagg_narrow": "src/repro/kernels/segagg/segagg.py:48",
                 "segagg_scatter": "src/repro/kernels/segagg/segagg.py:75"}
     kernels = []
@@ -396,6 +829,14 @@ def main(argv=None) -> int:
                         "source": "src/repro_torch/csrc/segagg.cu",
                         "replaces": replaces[kname], "launches": launches[kname],
                         **r})
+    lm_sources = {
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/flash_attention.py:29"),
+        "rglru": ("src/repro_torch/csrc/rglru.cu", "src/repro/kernels/rglru/rglru.py:27")}
+    for kname, (source, replaced) in lm_sources.items():
+        kernels.append({"name": kname, "route": "cuda", "source": source,
+                        "replaces": replaced, "launches": launches[kname],
+                        **lm_times[kname]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

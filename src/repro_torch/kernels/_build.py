@@ -28,6 +28,7 @@ NVCC_FLAGS = (
 )
 
 _I32, _I64, _PTR = ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p
+_F32, _I64P = ctypes.c_float, ctypes.POINTER(ctypes.c_int64)
 
 # Library name -> (source file, {C function: argtypes}).  Every launcher
 # returns cudaGetLastError() as an int, and each library exports
@@ -36,6 +37,17 @@ LIBRARIES: Dict[str, tuple] = {
     "segagg": ("segagg.cu", {
         "segagg_scatter": (_PTR, _PTR, _PTR, _I64, _I32, _I64, _PTR),
         "segagg_narrow": (_PTR, _PTR, _PTR, _I64, _I32, _I32, _PTR),
+    }),
+    "flash_attention": ("flash_attention.cu", {
+        # q, k, v, o, strides[12], batch, sq, sk, heads, kv_heads, d, scale,
+        # causal, window, cap, stream
+        "flash_attention_fwd": (_PTR, _PTR, _PTR, _PTR, _I64P, _I32, _I32, _I32,
+                                _I32, _I32, _I32, _F32, _I32, _I32, _F32, _PTR),
+    }),
+    "rglru": ("rglru.cu", {
+        # x, r, i, a_param, h0, y, h_last, batch, seq, width, is_bf16, stream
+        "rglru_scan": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32,
+                       _I32, _I32, _PTR),
     }),
 }
 

@@ -1,0 +1,38 @@
+"""Public flash-attention op in the model's (B, S, H, D) layout.
+
+Dispatch follows the tensors: a CUDA tensor launches the Hopper kernel
+(``flash_attention_cuda``) or raises; a CPU tensor takes the plain PyTorch
+version (``ref.chunked_attention_ref``).  No path runs the plain version on
+a CUDA tensor.  What the kernel does not take (a ``q_offset``, a
+``kv_valid_len``, a dtype other than bf16) raises on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .flash_attention import flash_attention_cuda
+from .ref import chunked_attention_ref
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0, logit_cap: float = 0.0,
+                    *, chunk: int = 256, q_offset: int = 0,
+                    kv_valid_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B, Sq, H, D), k/v (B, Sk, Hkv, D) -> (B, Sq, H, D) in q's dtype.
+    ``chunk`` is the KV chunk of the plain version; ``q_offset`` and
+    ``kv_valid_len`` are taken on the CPU only."""
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(f"query heads {q.shape[2]} are not a multiple of KV "
+                         f"heads {k.shape[2]}")
+    if q.device.type == "cuda":
+        if q_offset != 0 or kv_valid_len is not None:
+            raise NotImplementedError(
+                "the flash-attention kernel takes neither q_offset nor "
+                "kv_valid_len (prefill continuation and decode are not ported)")
+        return flash_attention_cuda(q, k, v, causal, window, logit_cap)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
+    return chunked_attention_ref(q, k, v, causal, window, logit_cap, chunk,
+                                 q_offset, kv_valid_len)

@@ -1,0 +1,104 @@
+"""Shared layer primitives: norms, RoPE, MLPs (the JAX package's
+``layers/common.py`` in PyTorch).
+
+Conventions kept from the reference: both norms scale by ``(1 + scale)``
+(zero-initialised scales are the identity), RoPE rotates interleaved pairs
+``x[..., 0::2]`` / ``x[..., 1::2]``, and ``"gelu"`` is the tanh
+approximation (``jax.nn.gelu``'s default).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    out = out * (1.0 + scale.float()) + bias.float()
+    return out.to(dt)
+
+
+def rope_frequencies(head_dim: int, theta: float = 10_000.0,
+                     device: Optional[torch.device] = None) -> torch.Tensor:
+    """Inverse frequencies for the rotating half of the head dim."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)  # (head_dim/2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0, rotary_frac: float = 1.0) -> torch.Tensor:
+    """Rotary embedding.  x: (..., S, H, D); positions: broadcastable to
+    (..., S).  ``rotary_frac`` < 1 rotates only the leading fraction of the
+    head dim (ChatGLM's "2d RoPE")."""
+    d = x.shape[-1]
+    rot_d = int(d * rotary_frac)
+    if rot_d == 0:
+        return x
+    rot_d -= rot_d % 2
+    x_rot, x_pass = x[..., :rot_d], x[..., rot_d:]
+    inv = rope_frequencies(rot_d, theta, device=x.device)
+    ang = positions.float()[..., None, None] * inv  # (..., S, 1, rot_d/2)
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = x_rot[..., 0::2].float(), x_rot[..., 1::2].float()
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    out = torch.stack([o1, o2], dim=-1).reshape(x_rot.shape).to(x.dtype)
+    return torch.cat([out, x_pass], dim=-1) if x_pass.shape[-1] else out
+
+
+def gated_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+              w_down: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """SwiGLU/GeGLU feed-forward: down( act(x@gate) * (x@up) )."""
+    h = _activate(x @ w_gate, act) * (x @ w_up)
+    return h @ w_down
+
+
+def mlp(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+        b_up: Optional[torch.Tensor] = None, b_down: Optional[torch.Tensor] = None,
+        act: str = "gelu") -> torch.Tensor:
+    """Plain two-matrix feed-forward (whisper, starcoder-style)."""
+    h = x @ w_up
+    if b_up is not None:
+        h = h + b_up
+    out = _activate(h, act) @ w_down
+    if b_down is not None:
+        out = out + b_down
+    return out
+
+
+def sinusoidal_at(positions: torch.Tensor, d_model: int,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Sinusoidal absolute-position embeddings: (S,) -> (S, d_model)."""
+    pos = positions.float()[:, None]
+    dim = torch.arange(d_model // 2, dtype=torch.float32,
+                       device=positions.device)[None, :]
+    inv = torch.exp(-math.log(10_000.0) * dim / max(d_model // 2 - 1, 1))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def _activate(x: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "silu":
+        return F.silu(x)
+    if act in ("gelu", "gelu_tanh"):
+        return F.gelu(x, approximate="tanh")
+    if act == "relu":
+        return F.relu(x)
+    raise ValueError(f"unknown activation {act!r}")

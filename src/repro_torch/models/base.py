@@ -1,0 +1,55 @@
+"""Architecture registry and the assigned shape cells (a copy of the JAX
+package's ``models/base.py``; ``input_specs``, for the dry run, waits for the
+launch package)."""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Dict, List, Optional
+
+from .config import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    kind: str          # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeCell("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeCell("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeCell("long_500k", "decode", 524_288, 1),
+}
+
+ARCH_IDS: List[str] = [
+    "recurrentgemma_9b",
+    "yi_6b",
+    "starcoder2_7b",
+    "granite_8b",
+    "chatglm3_6b",
+    "olmoe_1b_7b",
+    "mixtral_8x22b",
+    "internvl2_76b",
+    "whisper_medium",
+    "mamba2_370m",
+]
+
+
+def get_config(arch: str) -> ModelConfig:
+    arch = arch.replace("-", "_")
+    if arch not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    return mod.config()
+
+
+def cell_supported(cfg: ModelConfig, cell: ShapeCell) -> Optional[str]:
+    """None if the (arch x shape) cell runs; else the skip reason."""
+    if cell.name == "long_500k" and not cfg.sub_quadratic:
+        return (f"{cfg.name}: pure full-attention arch — long_500k needs "
+                "sub-quadratic attention (see DESIGN.md)")
+    return None

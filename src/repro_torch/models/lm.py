@@ -1,0 +1,437 @@
+"""Decoder-only LM, prefill (the JAX package's ``models/lm.py`` in PyTorch).
+
+One code path, driven by ``ModelConfig.segments``.  Conventions kept from
+the reference, so that its parameters carry across as a copy:
+
+* params: flat dict ``"seg{i}/l{j}/<block>/<leaf>"`` -> (U, ...) tensors
+  stacked over the segment's U units;
+* cache:  flat dict ``"seg{i}/l{j}/<leaf>"`` -> (U, B, ...) stacked.
+
+The reference's ``lax.scan`` over units is a Python loop over the unit
+index; its sharding constraints have no counterpart here.  Ported kinds:
+``attn`` (attention + MLP) and ``rglru`` (RG-LRU + MLP).  ``ssm``, ``moe``
+and ``xattn`` blocks raise ``NotImplementedError``: their specs are data and
+are built, but their layers come with later slices of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import DeviceLike
+from ..layers.attention import AttnSpec, chunked_attention
+from ..layers.common import apply_rope, gated_mlp, layer_norm, mlp, rms_norm, sinusoidal_at
+from ..layers.rglru import rglru_scan, short_conv1d
+from .config import ModelConfig
+from .params import ParamSpec, Params, Specs, init_params, params_from_numpy
+
+Cache = Dict[str, torch.Tensor]
+
+PORTED_KINDS = ("attn", "rglru")
+_NOT_PORTED = {
+    "ssm": "the Mamba-2 SSD block comes with the port's SSD slice "
+           "(layers/ssd.py and the SSD kernel)",
+    "moe": "the MoE block (layers/moe.py) is not ported yet",
+    "xattn": "the cross-attention decoder (whisper) is not ported yet",
+}
+
+
+# ===========================================================================
+# Parameter specs
+# ===========================================================================
+
+def _attn_specs(cfg: ModelConfig, u: int, p: str) -> Specs:
+    D, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s: Specs = {
+        f"{p}/norm": ParamSpec((u, D), ("layers", "embed"), init="zeros"),
+        f"{p}/wq": ParamSpec((u, D, H, Dh), ("layers", "embed", "heads", None)),
+        f"{p}/wk": ParamSpec((u, D, Hkv, Dh), ("layers", "embed", "kv_heads", None)),
+        f"{p}/wv": ParamSpec((u, D, Hkv, Dh), ("layers", "embed", "kv_heads", None)),
+        f"{p}/wo": ParamSpec((u, H, Dh, D), ("layers", "heads", None, "embed"),
+                             fan_in_axis=1),
+    }
+    if cfg.norm == "ln":
+        s[f"{p}/norm_bias"] = ParamSpec((u, D), ("layers", "embed"), init="zeros")
+    if cfg.bias:
+        s[f"{p}/bq"] = ParamSpec((u, H, Dh), ("layers", "heads", None), init="zeros")
+        s[f"{p}/bk"] = ParamSpec((u, Hkv, Dh), ("layers", "kv_heads", None), init="zeros")
+        s[f"{p}/bv"] = ParamSpec((u, Hkv, Dh), ("layers", "kv_heads", None), init="zeros")
+        s[f"{p}/bo"] = ParamSpec((u, D), ("layers", "embed"), init="zeros")
+    return s
+
+
+def _mlp_specs(cfg: ModelConfig, u: int, p: str) -> Specs:
+    D, F_ = cfg.d_model, cfg.d_ff
+    s: Specs = {
+        f"{p}/norm": ParamSpec((u, D), ("layers", "embed"), init="zeros"),
+    }
+    if cfg.norm == "ln":
+        s[f"{p}/norm_bias"] = ParamSpec((u, D), ("layers", "embed"), init="zeros")
+    if cfg.mlp_gated:
+        s[f"{p}/w_gate"] = ParamSpec((u, D, F_), ("layers", "embed", "ffn"))
+        s[f"{p}/w_up"] = ParamSpec((u, D, F_), ("layers", "embed", "ffn"))
+        s[f"{p}/w_down"] = ParamSpec((u, F_, D), ("layers", "ffn", "embed"))
+    else:
+        s[f"{p}/w_up"] = ParamSpec((u, D, F_), ("layers", "embed", "ffn"))
+        s[f"{p}/w_down"] = ParamSpec((u, F_, D), ("layers", "ffn", "embed"))
+        if cfg.bias:
+            s[f"{p}/b_up"] = ParamSpec((u, F_), ("layers", "ffn"), init="zeros")
+            s[f"{p}/b_down"] = ParamSpec((u, D), ("layers", "embed"), init="zeros")
+    return s
+
+
+def _moe_specs(cfg: ModelConfig, u: int, p: str) -> Specs:
+    D, E, F_ = cfg.d_model, cfg.num_experts, cfg.expert_d_ff or cfg.d_ff
+    return {
+        f"{p}/norm": ParamSpec((u, D), ("layers", "embed"), init="zeros"),
+        f"{p}/router": ParamSpec((u, D, E), ("layers", "embed", None)),
+        f"{p}/w_gate": ParamSpec((u, E, D, F_), ("layers", "experts", "embed", "ffn")),
+        f"{p}/w_up": ParamSpec((u, E, D, F_), ("layers", "experts", "embed", "ffn")),
+        f"{p}/w_down": ParamSpec((u, E, F_, D), ("layers", "experts", "ffn", "embed"),
+                                 fan_in_axis=2),
+    }
+
+
+def _rglru_specs(cfg: ModelConfig, u: int, p: str) -> Specs:
+    D, N, T = cfg.d_model, cfg.lru_width, cfg.conv_width
+    return {
+        f"{p}/norm": ParamSpec((u, D), ("layers", "embed"), init="zeros"),
+        f"{p}/w_x": ParamSpec((u, D, N), ("layers", "embed", "rnn")),
+        f"{p}/w_gate": ParamSpec((u, D, N), ("layers", "embed", "rnn")),
+        f"{p}/conv_w": ParamSpec((u, T, N), ("layers", None, "rnn")),
+        f"{p}/w_r": ParamSpec((u, N, N), ("layers", "rnn_in", "rnn")),
+        f"{p}/w_i": ParamSpec((u, N, N), ("layers", "rnn_in", "rnn")),
+        f"{p}/a_param": ParamSpec((u, N), ("layers", "rnn"), init="rglru_a"),
+        f"{p}/w_out": ParamSpec((u, N, D), ("layers", "rnn", "embed")),
+    }
+
+
+def _ssm_specs(cfg: ModelConfig, u: int, p: str) -> Specs:
+    D, Din, N = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state
+    H, T = cfg.ssm_num_heads, cfg.conv_width
+    return {
+        f"{p}/norm": ParamSpec((u, D), ("layers", "embed"), init="zeros"),
+        f"{p}/w_z": ParamSpec((u, D, Din), ("layers", "embed", "rnn")),
+        f"{p}/w_x": ParamSpec((u, D, Din), ("layers", "embed", "rnn")),
+        f"{p}/w_B": ParamSpec((u, D, N), ("layers", "embed", "state")),
+        f"{p}/w_C": ParamSpec((u, D, N), ("layers", "embed", "state")),
+        f"{p}/w_dt": ParamSpec((u, D, H), ("layers", "embed", None)),
+        f"{p}/dt_bias": ParamSpec((u, H), ("layers", None), init="ssm_dt"),
+        f"{p}/a_log": ParamSpec((u, H), ("layers", None), init="ones"),
+        f"{p}/d_skip": ParamSpec((u, H), ("layers", None), init="ones"),
+        f"{p}/conv_w": ParamSpec((u, T, Din), ("layers", None, "rnn")),
+        f"{p}/gate_norm": ParamSpec((u, Din), ("layers", "rnn"), init="zeros"),
+        f"{p}/w_out": ParamSpec((u, Din, D), ("layers", "rnn", "embed")),
+    }
+
+
+_KIND_SPECS = {
+    "attn": lambda cfg, u, p: {**_attn_specs(cfg, u, f"{p}/attn"),
+                               **_mlp_specs(cfg, u, f"{p}/mlp")},
+    "moe": lambda cfg, u, p: {**_attn_specs(cfg, u, f"{p}/attn"),
+                              **_moe_specs(cfg, u, f"{p}/moe")},
+    "rglru": lambda cfg, u, p: {**_rglru_specs(cfg, u, f"{p}/rglru"),
+                                **_mlp_specs(cfg, u, f"{p}/mlp")},
+    "ssm": lambda cfg, u, p: _ssm_specs(cfg, u, p + "/ssm"),
+    "xattn": lambda cfg, u, p: {**_attn_specs(cfg, u, f"{p}/attn"),
+                                **_attn_specs(cfg, u, f"{p}/xattn"),
+                                **_mlp_specs(cfg, u, f"{p}/mlp")},
+}
+
+
+def build_specs(cfg: ModelConfig) -> Specs:
+    specs: Specs = {
+        "embed/tokens": ParamSpec((cfg.vocab_size, cfg.d_model),
+                                  ("vocab", "embed"), fan_in_axis=1),
+        "final_norm": ParamSpec((cfg.d_model,), ("embed",), init="zeros"),
+    }
+    if cfg.norm == "ln":
+        specs["final_norm_bias"] = ParamSpec((cfg.d_model,), ("embed",), init="zeros")
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ParamSpec((cfg.d_model, cfg.vocab_size),
+                                     ("embed", "vocab"))
+    for si, seg in enumerate(cfg.segments):
+        for li, kind in enumerate(seg.pattern):
+            specs.update(_KIND_SPECS[kind](cfg, seg.num_units, f"seg{si}/l{li}"))
+    return specs
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` if ``cfg`` has a block kind the port
+    cannot run yet."""
+    for seg in cfg.segments:
+        for kind in seg.pattern:
+            if kind not in PORTED_KINDS:
+                raise NotImplementedError(
+                    f"{cfg.name}: layer kind {kind!r} is not ported: "
+                    f"{_NOT_PORTED.get(kind, 'unknown kind')}")
+
+
+# ===========================================================================
+# Blocks (per-unit application; params already sliced to this unit)
+# ===========================================================================
+
+def _norm(cfg: ModelConfig, x, p, prefix):
+    if cfg.norm == "ln":
+        return layer_norm(x, p[f"{prefix}/norm"], p[f"{prefix}/norm_bias"])
+    return rms_norm(x, p[f"{prefix}/norm"])
+
+
+def _attn_spec(cfg: ModelConfig, causal: bool = True) -> AttnSpec:
+    return AttnSpec(causal=causal, window=cfg.window,
+                    logit_cap=cfg.logit_cap, chunk=cfg.attn_chunk)
+
+
+def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk"): one (D, H*K) matmul."""
+    D, H, K = w.shape
+    return (x @ w.reshape(D, H * K)).unflatten(-1, (H, K))
+
+
+def _qkv(cfg, p, prefix, x, positions, rope=True):
+    q = _proj_heads(x, p[f"{prefix}/wq"])
+    k = _proj_heads(x, p[f"{prefix}/wk"])
+    v = _proj_heads(x, p[f"{prefix}/wv"])
+    if cfg.bias:
+        q = q + p[f"{prefix}/bq"]
+        k = k + p[f"{prefix}/bk"]
+        v = v + p[f"{prefix}/bv"]
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_frac)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_frac)
+    return q, k, v
+
+
+def _attn_out(cfg, p, prefix, o):
+    """einsum("bshk,hkd->bsd"): one (H*K, D) matmul."""
+    w = p[f"{prefix}/wo"]
+    H, K, D = w.shape
+    y = o.flatten(-2) @ w.reshape(H * K, D)
+    if cfg.bias:
+        y = y + p[f"{prefix}/bo"]
+    return y
+
+
+def _mlp_block(cfg, p, prefix, x):
+    h = _norm(cfg, x, p, prefix)
+    if cfg.mlp_gated:
+        y = gated_mlp(h, p[f"{prefix}/w_gate"], p[f"{prefix}/w_up"],
+                      p[f"{prefix}/w_down"], cfg.act)
+    else:
+        y = mlp(h, p[f"{prefix}/w_up"], p[f"{prefix}/w_down"],
+                p.get(f"{prefix}/b_up"), p.get(f"{prefix}/b_down"), cfg.act)
+    return x + y
+
+
+def _rglru_block(cfg, p, prefix, x, conv_state=None, h_state=None):
+    """Griffin recurrent block.  Returns (y, (conv_state, h_state))."""
+    h = _norm(cfg, x, p, prefix)
+    xb = h @ p[f"{prefix}/w_x"]
+    gate = F.gelu(h @ p[f"{prefix}/w_gate"], approximate="tanh")
+    xb, conv_state = short_conv1d(xb, p[f"{prefix}/conv_w"], conv_state)
+    r = torch.sigmoid(xb @ p[f"{prefix}/w_r"])
+    i = torch.sigmoid(xb @ p[f"{prefix}/w_i"])
+    y, h_last = rglru_scan(xb, r, i, p[f"{prefix}/a_param"], h_state)
+    y = y * gate
+    return x + y @ p[f"{prefix}/w_out"], (conv_state, h_last)
+
+
+# ===========================================================================
+# Embedding, unembedding, cache
+# ===========================================================================
+
+def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    w = params["embed/tokens"]
+    x = F.embedding(tokens.long(), w)
+    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+
+
+def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "ln":
+        x = layer_norm(x, params["final_norm"], params["final_norm_bias"])
+    else:
+        x = rms_norm(x, params["final_norm"])
+    if cfg.tie_embeddings:
+        return x @ params["embed/tokens"].T
+    return x @ params["unembed"]
+
+
+def cache_shape_specs(cfg: ModelConfig, batch: int, cache_size: int,
+                      dtype: torch.dtype = torch.bfloat16
+                      ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """(shape, dtype) of every decode-cache leaf.  Attention KV caches are
+    ring buffers of min(cache_size, window) slots when the arch is
+    windowed."""
+    out: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
+    attn_S = min(cache_size, cfg.window) if cfg.window > 0 else cache_size
+    for si, seg in enumerate(cfg.segments):
+        U = seg.num_units
+        for li, kind in enumerate(seg.pattern):
+            pref = f"seg{si}/l{li}"
+            if kind in ("attn", "moe", "xattn"):
+                kv = (U, batch, attn_S, cfg.num_kv_heads, cfg.head_dim)
+                out[f"{pref}/k"] = (kv, dtype)
+                out[f"{pref}/v"] = (kv, dtype)
+                if kind == "xattn":
+                    xkv = (U, batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+                    out[f"{pref}/xk"] = (xkv, dtype)
+                    out[f"{pref}/xv"] = (xkv, dtype)
+            elif kind == "rglru":
+                N, T = cfg.lru_width, cfg.conv_width
+                out[f"{pref}/conv"] = ((U, batch, T - 1, N), dtype)
+                out[f"{pref}/h"] = ((U, batch, N), torch.float32)
+            elif kind == "ssm":
+                Din, T = cfg.ssm_d_inner, cfg.conv_width
+                Hs, N, P = cfg.ssm_num_heads, cfg.ssm_state, cfg.ssm_head_dim
+                out[f"{pref}/conv"] = ((U, batch, T - 1, Din), dtype)
+                out[f"{pref}/h"] = ((U, batch, Hs, N, P), torch.float32)
+    return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_size: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: Optional[torch.device] = None) -> Cache:
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in cache_shape_specs(cfg, batch, cache_size,
+                                                    dtype).items()}
+
+
+# ===========================================================================
+# Prefill
+# ===========================================================================
+
+@torch.inference_mode()
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            cache_size: int, patches: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Cache, int]:
+    """Run the full prompt, build the decode cache.  Returns (last-position
+    logits (B, V) f32, cache, cache_len).  Runs on the device of
+    ``tokens`` (the parameters must be there too).
+
+    With cfg.prefill_row_chunks > 1 the batch rows are processed in
+    sequential chunks, bounding activation memory."""
+    check_ported(cfg)
+    nchunks = max(cfg.prefill_row_chunks, 1)
+    if nchunks > 1 and tokens.shape[0] % nchunks == 0:
+        return _prefill_row_chunked(cfg, params, tokens, cache_size, patches, nchunks)
+    B = tokens.shape[0]
+    x = embed_tokens(cfg, params, tokens)
+    if cfg.frontend == "vision" and patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+    S_total = x.shape[1]
+    positions = torch.arange(S_total, device=x.device)
+    if cfg.abs_positions:
+        x = x + sinusoidal_at(positions, cfg.d_model, x.dtype)
+    # The cache dtype follows the embedding table, as in the reference.  Each
+    # unit writes its slot of the zeroed cache in place; the RG-LRU blocks
+    # start from the zero states they overwrite.
+    cache = init_cache(cfg, B, cache_size, dtype=params["embed/tokens"].dtype,
+                       device=x.device)
+
+    for si, seg in enumerate(cfg.segments):
+        pref_seg = f"seg{si}/"
+        sp = {k: v for k, v in params.items() if k.startswith(pref_seg)}
+        for u in range(seg.num_units):
+            unit_params = {k: v[u] for k, v in sp.items()}
+            for li, kind in enumerate(seg.pattern):
+                pref = f"seg{si}/l{li}"
+                if kind == "attn":
+                    hh = _norm(cfg, x, unit_params, f"{pref}/attn")
+                    q, k, v = _qkv(cfg, unit_params, f"{pref}/attn", hh, positions)
+                    o = chunked_attention(q, k, v, _attn_spec(cfg, True))
+                    x = x + _attn_out(cfg, unit_params, f"{pref}/attn", o)
+                    kc, vc = cache[f"{pref}/k"][u], cache[f"{pref}/v"][u]
+                    size = kc.shape[1]
+                    ins = min(size, S_total)
+                    # Ring buffer: slot t % size holds token t, so decode's
+                    # write pointer (cache_len % size) evicts the oldest.
+                    slots = torch.arange(S_total - ins, S_total, device=x.device) % size
+                    kc[:, slots] = k[:, -ins:].to(kc.dtype)
+                    vc[:, slots] = v[:, -ins:].to(vc.dtype)
+                    x = _mlp_block(cfg, unit_params, f"{pref}/mlp", x)
+                elif kind == "rglru":
+                    conv, hst = cache[f"{pref}/conv"][u], cache[f"{pref}/h"][u]
+                    x, (conv_new, h_new) = _rglru_block(
+                        cfg, unit_params, f"{pref}/rglru", x, conv_state=conv,
+                        h_state=hst)
+                    conv.copy_(conv_new)
+                    hst.copy_(h_new)
+                    x = _mlp_block(cfg, unit_params, f"{pref}/mlp", x)
+
+    logits = unembed(cfg, params, x[:, -1:]).float()[:, 0]
+    return logits, cache, S_total
+
+
+def _prefill_row_chunked(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                         cache_size: int, patches, nchunks: int):
+    """Sequential batch-row chunks; each writes its rows (dim 1) of every
+    cache leaf."""
+    B = tokens.shape[0]
+    Bc = B // nchunks
+    inner_cfg = dataclasses.replace(cfg, prefill_row_chunks=1)
+    cache = init_cache(cfg, B, cache_size, dtype=params["embed/tokens"].dtype,
+                       device=tokens.device)
+    logits = []
+    S_total = tokens.shape[1]
+    for idx in range(nchunks):
+        rows = slice(idx * Bc, (idx + 1) * Bc)
+        pat = patches[rows] if patches is not None else None
+        logits_c, cache_c, S_total = prefill(inner_cfg, params, tokens[rows],
+                                             cache_size, pat)
+        for k in cache:
+            cache[k][:, rows] = cache_c[k].to(cache[k].dtype)
+        logits.append(logits_c)
+    return torch.cat(logits, dim=0), cache, S_total
+
+
+# ===========================================================================
+# Module
+# ===========================================================================
+
+def _param_name(key: str) -> str:
+    """A JAX key as an ``nn.Module`` parameter name ('/' -> '__'); the keys
+    hold no '__', so the map is one to one."""
+    return key.replace("/", "__")
+
+
+class CausalLM(nn.Module):
+    """The LM's parameters as an ``nn.Module``: every JAX key
+    ``seg{i}/l{j}/<block>/<leaf>`` is the parameter ``seg{i}__l{j}__...``.
+    ``prefill`` is the entry point."""
+
+    def __init__(self, cfg: ModelConfig, params: Optional[Params] = None, *,
+                 seed: int = 0, device: DeviceLike = None):
+        super().__init__()
+        check_ported(cfg)
+        self.cfg = cfg
+        if params is None:
+            params = init_params(build_specs(cfg), seed, device)
+        for k, v in params.items():
+            self.register_parameter(_param_name(k), nn.Parameter(v, requires_grad=False))
+
+    @classmethod
+    def from_numpy(cls, cfg: ModelConfig, np_params, device: DeviceLike = None,
+                   dtype: Optional[torch.dtype] = None) -> "CausalLM":
+        """The JAX package's parameters (numpy arrays by JAX key)."""
+        return cls(cfg, params_from_numpy(np_params, device, dtype))
+
+    def params(self) -> Params:
+        """The parameters keyed by their JAX keys."""
+        return {n.replace("__", "/"): p for n, p in self.named_parameters()}
+
+    def prefill(self, tokens: torch.Tensor, cache_size: Optional[int] = None):
+        """``prefill`` on this model's parameters; ``cache_size`` defaults to
+        the prompt length."""
+        if not torch.is_tensor(tokens):
+            tokens = torch.as_tensor(tokens)
+        device = next(self.parameters()).device
+        tokens = tokens.to(device)
+        return prefill(self.cfg, self.params(), tokens,
+                       tokens.shape[1] if cache_size is None else cache_size)
+
+    forward = prefill
