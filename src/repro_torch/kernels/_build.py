@@ -49,6 +49,12 @@ LIBRARIES: Dict[str, tuple] = {
         "rglru_scan": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32,
                        _I32, _I32, _PTR),
     }),
+    "ssd": ("ssd.cu", {
+        # x, dt, A, Bm, Cm, D, h0, y, h_last, strides[6], batch, seq, heads,
+        # head_dim, state, is_bf16, stream
+        "ssd_fwd": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64P,
+                    _I32, _I32, _I32, _I32, _I32, _I32, _PTR),
+    }),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,37 @@
+"""Public SSD op: the Mamba-2 chunked forward with the dt weighting and the
+D skip, as the model's layer (``layers/ssd.py`` ``ssd_chunked``) computes it.
+
+Dispatch follows the tensors: a CUDA tensor launches the Hopper kernel
+(``ssd_cuda``) or raises; a CPU tensor takes the plain PyTorch version
+(``ref.ssd_chunked_ref``).  No path runs the plain version on a CUDA tensor.
+Unlike the JAX package's Pallas op, nothing is rounded to x's dtype before
+the chunk math or before the D skip (the model's layer keeps xw, la, B, C
+and h in f32 and rounds only y).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .ref import ssd_chunked_ref
+from .ssd import ssd_cuda
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+        Cm: torch.Tensor, D: torch.Tensor, h0: Optional[torch.Tensor] = None,
+        chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, H, P), dt (B, S, H) positive, A (H,) negative, Bm/Cm
+    (B, S, H, N), D (H,), h0 (B, H, N, P) or None.  Returns (y (B, S, H, P)
+    in x's dtype, h_last (B, H, N, P) f32).  ``chunk`` is the plain
+    version's chunk; the kernel's is 128 (the result does not depend on it
+    beyond rounding)."""
+    if x.device.type == "cuda":
+        # A, D and h0 widen to f32 (bf16 to f32 is exact); x, dt, B and C go
+        # as they are, B and C through their strides.
+        return ssd_cuda(x.contiguous(), dt.contiguous(), A.float().contiguous(), Bm, Cm,
+                        D.float().contiguous(),
+                        None if h0 is None else h0.float().contiguous())
+    if x.device.type != "cpu":
+        raise ValueError(f"ssd runs on CUDA or CPU tensors, not {x.device}")
+    return ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk, h0)

@@ -1,0 +1,111 @@
+"""ctypes wrapper of the Hopper SSD kernel (``csrc/ssd.cu``).
+
+``ssd_cuda`` replaces the JAX package's ``_ssd_kernel``
+(``repro/kernels/ssd/ssd.py:26``) together with the dt weighting and the D
+skip of its public op: one block per (batch, head, P-tile) loops over
+128-step chunks with the (N, P) state in shared memory.  B and C are read
+through their strides, so the model's head-shared projections come as
+stride-0 ``expand`` views.  It checks device, dtype, shape and layout,
+allocates the outputs, launches on the current stream, raises on a launch
+error and counts its launches in ``.launches`` (a plain int, reset by the
+caller).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from .. import _build
+
+DTYPES = (torch.bfloat16, torch.float32)
+CHUNK = 128      # the kernel's chunk length
+MAX_STATE = 128  # the largest N its shared-memory plan holds
+
+
+def _check(x, dt, A, Bm, Cm, D, h0) -> None:
+    what = "ssd"
+    tensors = [("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm), ("D", D)]
+    if h0 is not None:
+        tensors.append(("h0", h0))
+    if x.device.type != "cuda" or any(t.device != x.device for _, t in tensors):
+        raise ValueError(f"{what}: all inputs must be on one CUDA device "
+                         f"(got {[str(t.device) for _, t in tensors]})")
+    if x.dtype not in DTYPES or any(t.dtype != x.dtype for t in (dt, Bm, Cm)):
+        raise TypeError(f"{what}: x, dt, Bm and Cm must share one dtype of {DTYPES} "
+                        f"(got {x.dtype}, {dt.dtype}, {Bm.dtype}, {Cm.dtype})")
+    if any(t is not None and t.dtype != torch.float32 for t in (A, D, h0)):
+        raise TypeError(f"{what}: A, D and h0 must be float32")
+    if x.dim() != 4:
+        raise ValueError(f"{what}: needs x (B, S, H, P) (got {tuple(x.shape)})")
+    B, S, H, P = x.shape
+    N = Bm.shape[-1] if Bm.dim() == 4 else -1
+    if dt.shape != (B, S, H) or Bm.dim() != 4 or Bm.shape[:3] != (B, S, H) \
+            or Cm.shape != Bm.shape:
+        raise ValueError(f"{what}: needs dt (B, S, H) and Bm, Cm (B, S, H, N) for x "
+                         f"{tuple(x.shape)} (got {tuple(dt.shape)}, {tuple(Bm.shape)}, "
+                         f"{tuple(Cm.shape)})")
+    if not 1 <= N <= MAX_STATE:
+        raise ValueError(f"{what}: state size N = {N} must be in [1, {MAX_STATE}]")
+    if A.shape != (H,) or D.shape != (H,):
+        raise ValueError(f"{what}: needs A and D ({H},) (got {tuple(A.shape)}, "
+                         f"{tuple(D.shape)})")
+    if h0 is not None and h0.shape != (B, H, N, P):
+        raise ValueError(f"{what}: needs h0 ({B}, {H}, {N}, {P}) (got {tuple(h0.shape)})")
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("D", D), ("h0", h0)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    for name, t in (("Bm", Bm), ("Cm", Cm)):
+        if t.stride(3) != 1 and N > 1:
+            raise ValueError(f"{what}: {name} needs a contiguous last dim "
+                             f"(got strides {t.stride()})")
+
+
+def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, D: torch.Tensor, h0: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, H, P), dt (B, S, H), Bm/Cm (B, S, H, N) (any (b, s, h)
+    strides), all bf16 or all f32 on the card; A, D (H,) f32; h0 (B, H, N, P)
+    f32 or None (zeros) -> (y (B, S, H, P) in x's dtype, h_last (B, H, N, P)
+    f32) of h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t^T,
+    y_t = C_t h_t + D x_t."""
+    _check(x, dt, A, Bm, Cm, D, h0)
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    y = torch.empty_like(x)
+    h_last = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
+    if B == 0 or H == 0 or P == 0:
+        return y, h_last
+    strides = (ctypes.c_int64 * 6)(*Bm.stride()[:3], *Cm.stride()[:3])
+    lib = _build.load("ssd")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.ssd_fwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            D.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
+            h_last.data_ptr(), strides, B, S, H, P, N,
+            int(x.dtype == torch.bfloat16), stream)
+    _build.check("ssd", code, "ssd_fwd")
+    ssd_cuda.launches += 1
+    return y, h_last
+
+
+ssd_cuda.launches = 0
+
+
+def flops_bytes(B: int, S: int, H: int, P: int, N: int, itemsize: int = 2) -> tuple:
+    """(operations, device-memory bytes) of one call.  Operations: per
+    (b, h) and chunk of q steps, the causal half of C B^T (q(q+1)/2 · N
+    multiply-adds) and of G xw (q(q+1)/2 · P), and C h and B^T xw
+    (q · N · P each), two operations a multiply-add.  Bytes: x and dt read
+    and y written in ``itemsize``, B and C read once each (shared by the H
+    heads), A and D, and h0 read and h_last written in f32."""
+    mac = 0.0
+    for lo in range(0, S, CHUNK):
+        q = min(CHUNK, S - lo)
+        mac += q * (q + 1) / 2 * (N + P) + 2.0 * q * N * P
+    ops = 2.0 * B * H * mac
+    nbytes = (itemsize * (2.0 * B * S * H * P + B * S * H + 2.0 * B * S * N)
+              + 4.0 * 2 * H + 4.0 * 2 * B * H * N * P)
+    return ops, nbytes

@@ -9,9 +9,10 @@ the reference, so that its parameters carry across as a copy:
 
 The reference's ``lax.scan`` over units is a Python loop over the unit
 index; its sharding constraints have no counterpart here.  Ported kinds:
-``attn`` (attention + MLP) and ``rglru`` (RG-LRU + MLP).  ``ssm``, ``moe``
-and ``xattn`` blocks raise ``NotImplementedError``: their specs are data and
-are built, but their layers come with later slices of the port.
+``attn`` (attention + MLP), ``rglru`` (RG-LRU + MLP) and ``ssm`` (the
+Mamba-2 block).  ``moe`` and ``xattn`` blocks raise ``NotImplementedError``:
+their specs are data and are built, but their layers come with later slices
+of the port.
 """
 from __future__ import annotations
 
@@ -27,15 +28,14 @@ from ..device import DeviceLike
 from ..layers.attention import AttnSpec, chunked_attention
 from ..layers.common import apply_rope, gated_mlp, layer_norm, mlp, rms_norm, sinusoidal_at
 from ..layers.rglru import rglru_scan, short_conv1d
+from ..layers.ssd import ssd_chunked
 from .config import ModelConfig
 from .params import ParamSpec, Params, Specs, init_params, params_from_numpy
 
 Cache = Dict[str, torch.Tensor]
 
-PORTED_KINDS = ("attn", "rglru")
+PORTED_KINDS = ("attn", "rglru", "ssm")
 _NOT_PORTED = {
-    "ssm": "the Mamba-2 SSD block comes with the port's SSD slice "
-           "(layers/ssd.py and the SSD kernel)",
     "moe": "the MoE block (layers/moe.py) is not ported yet",
     "xattn": "the cross-attention decoder (whisper) is not ported yet",
 }
@@ -241,6 +241,30 @@ def _rglru_block(cfg, p, prefix, x, conv_state=None, h_state=None):
     return x + y @ p[f"{prefix}/w_out"], (conv_state, h_last)
 
 
+def _ssm_block(cfg, p, prefix, x, conv_state=None, h_state=None):
+    """Mamba-2 block.  Returns (y, (conv_state, h_state)).  B and C are
+    shared by the heads: they go to the SSD as stride-0 head views."""
+    B_, S, _ = x.shape
+    Hs, P, N = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state
+    h = _norm(cfg, x, p, prefix)
+    z = h @ p[f"{prefix}/w_z"]
+    xi = h @ p[f"{prefix}/w_x"]
+    xi, conv_state = short_conv1d(xi, p[f"{prefix}/conv_w"], conv_state)
+    xi = F.silu(xi)
+    Bm = h @ p[f"{prefix}/w_B"]
+    Cm = h @ p[f"{prefix}/w_C"]
+    dt = F.softplus(h @ p[f"{prefix}/w_dt"] + p[f"{prefix}/dt_bias"])
+    A = -F.softplus(p[f"{prefix}/a_log"].float())
+    xh = xi.reshape(B_, S, Hs, P)
+    Bh = Bm[:, :, None, :].expand(B_, S, Hs, N)
+    Ch = Cm[:, :, None, :].expand(B_, S, Hs, N)
+    y, h_last = ssd_chunked(xh, dt, A, Bh, Ch, p[f"{prefix}/d_skip"],
+                            chunk=cfg.ssm_chunk, h0=h_state)
+    y = y.reshape(B_, S, -1)
+    y = rms_norm(y, p[f"{prefix}/gate_norm"]) * F.silu(z)
+    return x + y @ p[f"{prefix}/w_out"], (conv_state, h_last)
+
+
 # ===========================================================================
 # Embedding, unembedding, cache
 # ===========================================================================
@@ -328,8 +352,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     if cfg.abs_positions:
         x = x + sinusoidal_at(positions, cfg.d_model, x.dtype)
     # The cache dtype follows the embedding table, as in the reference.  Each
-    # unit writes its slot of the zeroed cache in place; the RG-LRU blocks
-    # start from the zero states they overwrite.
+    # unit writes its slot of the zeroed cache in place; the RG-LRU and SSM
+    # blocks start from the zero states they overwrite.
     cache = init_cache(cfg, B, cache_size, dtype=params["embed/tokens"].dtype,
                        device=x.device)
 
@@ -362,6 +386,13 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                     conv.copy_(conv_new)
                     hst.copy_(h_new)
                     x = _mlp_block(cfg, unit_params, f"{pref}/mlp", x)
+                elif kind == "ssm":
+                    conv, hst = cache[f"{pref}/conv"][u], cache[f"{pref}/h"][u]
+                    x, (conv_new, h_new) = _ssm_block(
+                        cfg, unit_params, f"{pref}/ssm", x, conv_state=conv,
+                        h_state=hst)
+                    conv.copy_(conv_new)
+                    hst.copy_(h_new)
 
     logits = unembed(cfg, params, x[:, -1:]).float()[:, 0]
     return logits, cache, S_total

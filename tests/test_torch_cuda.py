@@ -175,3 +175,88 @@ class TestRGLRUOnCard:
         assert rglru_cuda.launches == before
         rglru_ops.rglru(x.bfloat16(), x.bfloat16(), x.bfloat16(), a.bfloat16())
         assert rglru_cuda.launches == before + 1
+
+
+# -- Mamba-2 SSD ---------------------------------------------------------------
+
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref  # noqa: E402
+from repro_torch.kernels.ssd.ssd import ssd_cuda  # noqa: E402
+
+# The JAX package's SSD tolerances (tests/test_kernels.py TestSSD): y 2e-4 in
+# f32 and 3e-2 in bf16 (one rounding of y; the inputs are the same bf16
+# values on both sides); h_last rtol 2e-3 with atol 2e-3 (f32) or 5e-3 (bf16).
+SSD_Y_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+SSD_H_ATOL = {torch.float32: 2e-3, torch.bfloat16: 5e-3}
+
+
+def _ssd_inputs(cuda, B, S, H, P, N, dtype, shared, with_h0, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)  # noqa: E731
+    x = (0.5 * f(B, S, H, P)).to(dtype)
+    dt = torch.nn.functional.softplus(f(B, S, H)).to(dtype)
+    A = -f(H).abs() - 0.1
+    if shared:
+        Bm = (0.3 * f(B, S, N)).to(dtype)[:, :, None].expand(B, S, H, N)
+        Cm = (0.3 * f(B, S, N)).to(dtype)[:, :, None].expand(B, S, H, N)
+    else:
+        Bm, Cm = (0.3 * f(B, S, H, N)).to(dtype), (0.3 * f(B, S, H, N)).to(dtype)
+    return x, dt, A, Bm, Cm, f(H), (f(B, H, N, P) if with_h0 else None)
+
+
+@pytest.mark.cuda
+class TestSSDOnCard:
+    # mamba2's (H 32, P 64, N 128) at B = 1, 2 and 8 runs P-tiles of 16, 32
+    # and 64 columns.
+    @pytest.mark.parametrize("B, S, H, P, N", [
+        (1, 1000, 32, 64, 128), (2, 300, 32, 64, 128), (8, 512, 32, 64, 128),
+        (1, 256, 2, 16, 8),
+        (2, 200, 4, 32, 16), (8, 77, 3, 40, 5)])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shared", [True, False])
+    @pytest.mark.parametrize("with_h0", [False, True])
+    def test_kernel_matches_plain_version(self, cuda, B, S, H, P, N, dtype, shared,
+                                          with_h0):
+        x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(cuda, B, S, H, P, N, dtype, shared,
+                                              with_h0, seed=B * S + N)
+        y, h = ssd_cuda(x, dt, A, Bm, Cm, D, h0)
+        y_ref, h_ref = ssd_chunked_ref(x.float(), dt.float(), A, Bm.float(), Cm.float(),
+                                       D, 128, h0)
+        assert y.dtype == dtype and h.dtype == torch.float32
+        tol = SSD_Y_TOL[dtype]
+        torch.testing.assert_close(y.float(), y_ref, rtol=tol, atol=tol)
+        torch.testing.assert_close(h, h_ref, rtol=2e-3, atol=SSD_H_ATOL[dtype])
+
+    def test_stride0_b_and_c_equal_materialised(self, cuda):
+        a = _ssd_inputs(cuda, 2, 300, 8, 64, 128, torch.bfloat16, True, True, seed=1)
+        y_v, h_v = ssd_cuda(*a)
+        y_m, h_m = ssd_cuda(a[0], a[1], a[2], a[3].contiguous(), a[4].contiguous(), a[5],
+                            a[6])
+        assert torch.equal(y_v, y_m) and torch.equal(h_v, h_m)
+
+    def test_ops_on_card_launches_the_kernel_only(self, cuda, monkeypatch):
+        x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(cuda, 1, 130, 4, 16, 8, torch.bfloat16,
+                                              True, True, seed=2)
+        monkeypatch.setattr(ssd_ops, "ssd_chunked_ref", None)  # never called on the card
+        before = ssd_cuda.launches
+        y, h = ssd_ops.ssd(x, dt, A.bfloat16(), Bm, Cm, D.bfloat16(), h0, chunk=16)
+        assert ssd_cuda.launches == before + 1
+        assert y.shape == x.shape and h.shape == (1, 4, 8, 16)
+
+    def test_refusals(self, cuda):
+        x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(cuda, 2, 40, 4, 16, 8, torch.float32,
+                                              False, True, seed=3)
+        before = ssd_cuda.launches
+        with pytest.raises(ValueError, match="CUDA"):
+            ssd_cuda(*(t.cpu() for t in (x, dt, A, Bm, Cm, D, h0)))
+        with pytest.raises(TypeError, match="dtype"):
+            ssd_cuda(x.half(), dt.half(), A, Bm.half(), Cm.half(), D, h0)
+        with pytest.raises(TypeError, match="float32"):
+            ssd_cuda(x, dt, A.bfloat16(), Bm, Cm, D, h0)
+        with pytest.raises(ValueError, match="contiguous"):
+            ssd_cuda(x.transpose(0, 1).contiguous().transpose(0, 1), dt, A, Bm, Cm, D, h0)
+        with pytest.raises(ValueError, match="h0"):
+            ssd_cuda(x, dt, A, Bm, Cm, D, h0[:, :, :4])
+        with pytest.raises(ValueError, match="state size"):
+            ssd_cuda(x, dt, A, *(torch.zeros(2, 40, 4, 129, device=cuda),) * 2, D)
+        assert ssd_cuda.launches == before

@@ -48,7 +48,9 @@ def test_scan_covers_the_port():
                    "kernels/flash_attention/flash_attention.py",
                    "kernels/flash_attention/ref.py", "kernels/rglru/ops.py",
                    "kernels/rglru/rglru.py", "kernels/rglru/ref.py",
-                   "configs/recurrentgemma_9b.py"):
+                   "kernels/ssd/ops.py", "kernels/ssd/ssd.py", "kernels/ssd/ref.py",
+                   "layers/ssd.py", "configs/recurrentgemma_9b.py",
+                   "configs/mamba2_370m.py"):
         assert f"src/repro_torch/{module}" in names
     assert len(FILES) >= 50
 

@@ -2,7 +2,8 @@
 parameter tables for all ten archs, parameter carry-over (bf16 included),
 the layer primitives, and ``prefill`` (last-position logits and every
 cache leaf) for reduced recurrentgemma-9b (S = 24 > window 16, so the ring
-buffer and the window mask run) and reduced yi-6b.
+buffer and the window mask run), reduced yi-6b and reduced mamba2-370m
+(chunk 16 < S = 24, so the last SSD chunk is ragged).
 
 Tolerances: parameters in f32 give 2e-4 (summation order only).  With bf16
 parameters the two frameworks round at other places (XLA keeps fused
@@ -11,7 +12,9 @@ layers amplify the difference from layer to layer: the bf16 case holds the
 relative L2 error of the logits under 5e-2 (the bar the card's smoke run
 uses) with equal argmax, the first segment's cache leaves under 5e-2 and
 every later one under 2.5e-1 (measured on this case: 0-1% in the first
-segment, up to 15% in the last RG-LRU state).
+segment, up to 15% in the last RG-LRU state).  Mamba-2 in bf16, three
+units: logits under 5e-2 with equal argmax and every cache leaf under 5e-2
+(measured: logits 7.6e-3, leaves up to 1.8e-2 in the third unit's state).
 """
 import dataclasses
 
@@ -25,10 +28,12 @@ from repro.layers import common as JC
 from repro.models import base as JB
 from repro.models import lm as JL
 from repro.models import params as JP
+from repro.models.config import Segment as JSegment
 from repro_torch.layers import common as TC
 from repro_torch.models import base as TB
 from repro_torch.models import lm as TL
 from repro_torch.models import params as TP
+from repro_torch.models.config import Segment as TSegment
 
 CPU = "cpu"
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -67,6 +72,10 @@ def test_configs_and_specs_equal(arch):
 def test_recurrentgemma_full_width_param_count():
     assert TP.num_params(TL.build_specs(TB.get_config("recurrentgemma_9b"))) \
         == 10_444_664_832
+
+
+def test_mamba2_full_width_param_count():
+    assert TP.num_params(TL.build_specs(TB.get_config("mamba2_370m"))) == 368_178_688
 
 
 def test_unknown_arch_raises():
@@ -182,7 +191,7 @@ def _tokens(vocab, B=2, S=24, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, (B, S)).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "yi_6b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "yi_6b", "mamba2_370m"])
 def test_prefill_matches_jax_f32(arch):
     jcfg, tcfg, jp, tp = _both_params(arch)
     toks = _tokens(jcfg.vocab_size)
@@ -212,6 +221,46 @@ def test_prefill_matches_jax_bf16():
     for k, v in j_cache.items():
         assert t_cache[k].dtype == (torch.float32 if k.endswith("/h") else torch.bfloat16)
         assert _rel_l2(_np(t_cache[k]), v) < (5e-2 if k.startswith("seg0/") else 2.5e-1), k
+
+
+def test_mamba2_prefill_matches_jax_bf16():
+    """Three Mamba-2 units in bf16: the block's own dtypes (bf16 projections,
+    dt and gate; f32 A, SSD state and norm) against the JAX block's."""
+    jcfg = dataclasses.replace(JB.get_config("mamba2_370m").reduced(),
+                               segments=(JSegment(("ssm",), 3),))
+    tcfg = dataclasses.replace(TB.get_config("mamba2_370m").reduced(),
+                               segments=(TSegment(("ssm",), 3),))
+    jp = JP.init_params(JL.build_specs(jcfg), jax.random.PRNGKey(1))
+    tp = TP.params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, device=CPU)
+    toks = _tokens(jcfg.vocab_size, seed=1)
+    j_logits, j_cache, _ = JL.prefill(jcfg, jp, jnp.asarray(toks), 24)
+    t_logits, t_cache, _ = TL.prefill(tcfg, tp, torch.from_numpy(toks), 24)
+    assert _rel_l2(t_logits.numpy(), j_logits) < 5e-2
+    assert np.array_equal(t_logits.numpy().argmax(-1), np.asarray(j_logits).argmax(-1))
+    assert sorted(t_cache) == ["seg0/l0/conv", "seg0/l0/h"]
+    for k, v in j_cache.items():
+        assert tuple(t_cache[k].shape) == v.shape, k
+        assert t_cache[k].dtype == (torch.float32 if k.endswith("/h") else torch.bfloat16)
+        assert _rel_l2(_np(t_cache[k]), v) < 5e-2, k
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_params_from_numpy_carries_the_ssm_leaves(dtype):
+    """Every leaf of the Mamba-2 block crosses one to one: dt_bias, a_log and
+    d_skip (U, H), conv_w (U, T, Din) among them."""
+    cfg = JB.get_config("mamba2_370m").reduced()
+    jp = JP.init_params(JL.build_specs(cfg), jax.random.PRNGKey(5))
+    if dtype == "float32":
+        jp = {k: v.astype(jnp.float32) for k, v in jp.items()}
+    tp = TP.params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, device=CPU)
+    assert sorted(tp) == sorted(jp)
+    U, H, T, Din = 1, cfg.ssm_num_heads, cfg.conv_width, cfg.ssm_d_inner
+    for leaf, shape in (("dt_bias", (U, H)), ("a_log", (U, H)), ("d_skip", (U, H)),
+                        ("conv_w", (U, T, Din))):
+        assert tuple(tp[f"seg0/l0/ssm/{leaf}"].shape) == shape, leaf
+    for k, v in jp.items():
+        assert tp[k].dtype == getattr(torch, dtype)
+        np.testing.assert_array_equal(tp[k].float().numpy(), np.asarray(v, np.float32))
 
 
 def test_prefill_cache_longer_than_prompt_and_logit_cap():
@@ -244,7 +293,7 @@ def test_prefill_row_chunks_and_vision_prefix():
         np.testing.assert_allclose(_np(t_cache[k]), np.asarray(v), err_msg=k, **TOL)
 
 
-@pytest.mark.parametrize("arch, kind", [("mamba2_370m", "ssm"), ("olmoe_1b_7b", "moe"),
+@pytest.mark.parametrize("arch, kind", [("olmoe_1b_7b", "moe"),
                                         ("mixtral_8x22b", "moe"),
                                         ("whisper_medium", "xattn")])
 def test_unported_kinds_raise(arch, kind):
