@@ -47,7 +47,9 @@ Phases (any failure exits non-zero and prints no result line):
    first call, and the flash kernel's reading on those of its first call;
 10. the LM kernels at their paths' shapes: parity with the plain version,
    kernel, plain and (flash) ``scaled_dot_product_attention`` times beside
-   the bound;
+   the bound; the bf16 SSD kernel also against the plain version of its own
+   arithmetic (``ssd_chunked_bf16ops_ref``), and its time beside PR 13's
+   CUDA-core kernel's;
 11. the serving path (the main path, part 4) at mamba2-370m's full width
    and depth (368,178,688 bf16 parameters from ``--seed``, 48 SSM layers):
    the same entry points over prompts of 32,768 tokens (``prefill_32k``'s
@@ -104,6 +106,11 @@ SSM_GATE_UNITS = 8          # the absolute LOGITS_REL_L2 gate: 8 of the 48 layer
 SSD_Y_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 SSD_H_ATOL = {torch.float32: 2e-3, torch.bfloat16: 5e-3}
 SSD_H_RTOL = 2e-3
+# The bf16 SSD kernel against the plain version of its own arithmetic
+# (tests/test_torch_cuda.py): y within 1e-2.
+SSD_BF16OPS_Y_TOL = 1e-2
+SSD_PR13_MS = 45.6586       # PERF.md: the f32 CUDA-core kernel at the path's shape
+SSD_DESIGN = "CUDA C++ sm_90a, mma.sync bf16 (f32: CUDA cores)"
 SERVE_ARCH = "recurrentgemma_9b"
 SERVE_SEQ = 4096            # twice the local-attention window
 SERVE_BUCKETS = (1, 2, 4, 8)
@@ -502,18 +509,23 @@ def lm_kernel_times(flash_cuda, flash_plain, flash_fb, rglru_cuda, rglru_plain,
     return out
 
 
-def ssd_kernel_times(ssd_cuda, ssd_plain, ssd_fb) -> dict:
+def ssd_kernel_times(ssd_cuda, ssd_plain, ssd_bf16ops, ssd_fb) -> dict:
     """The SSD at mamba2-370m's prefill shape (B 8, S 32,768, H 32, P 64,
     N 128, bf16, B and C head-shared, a zero h0 as prefill passes it):
-    parity with the plain version in f32, then kernel and plain times."""
+    parity with the plain version in f32 and with the plain version of the
+    bf16 kernel's arithmetic, then kernel and plain times."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     B, S, H, P, N = SERVE_BUCKETS[-1], SSM_SEQ, 32, 64, 128
     x, dt, A, Bm, Cm, D, _ = ssd_inputs(gen, B, S, H, P, N, torch.bfloat16, True, False)
     h0 = torch.zeros((B, H, N, P), device="cuda")  # prefill's zeroed cache state
     args = (x, dt, A, Bm, Cm, D, h0)
     err, _ = check_ssd("ssd at the path's shape", ssd_cuda, ssd_plain, args)
+    err_ops = check_close("ssd at the path's shape against its arithmetic", ssd_cuda(*args)[0],
+                          ssd_bf16ops(*args[:6], 128, h0)[0], SSD_BF16OPS_Y_TOL)
+    log(f"  ssd against the plain version of its arithmetic: y max abs err {err_ops:.3e} "
+        f"(limit {SSD_BF16OPS_Y_TOL})")
     b_ms, b_by = bound(*ssd_fb(B, S, H, P, N), BF16_OPS_PER_S)
-    return {"max_abs_err": err, "ms": cuda_ms(lambda: ssd_cuda(*args)),
+    return {"design": SSD_DESIGN, "max_abs_err": err, "ms": cuda_ms(lambda: ssd_cuda(*args)),
             "plain_ms": cuda_ms(lambda: ssd_plain(x, dt, A, Bm, Cm, D, 128, h0), reps=2),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
@@ -576,7 +588,7 @@ def profile_batch(ex, batch) -> None:
         ex.run_batch(batch)
         wall_us = (time.perf_counter() - t0) * 1e6
     ours = {"flash_fwd_kernel": "flash_attention", "rglru_kernel": "rglru",
-            "ssd_kernel": "ssd"}
+            "ssd_kernel": "ssd", "ssd_mma_kernel": "ssd"}
     classes = dict.fromkeys([*ours.values(), "matmul", "other"], 0.0)
     count = 0
     for evt in prof.events():
@@ -681,7 +693,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.rglru.ref import rglru_ref
     from repro_torch.kernels.rglru.rglru import flops_bytes as rglru_flops_bytes, rglru_cuda
     from repro_torch.kernels.ssd import ops as ssd_ops
-    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+    from repro_torch.kernels.ssd.ref import ssd_chunked_bf16ops_ref, ssd_chunked_ref
     from repro_torch.kernels.ssd.ssd import flops_bytes as ssd_flops_bytes, ssd_cuda
     from repro_torch.models import lm
     from repro_torch.models.base import SHAPES, get_config
@@ -939,12 +951,17 @@ def main(argv=None) -> int:
         "N=128); ms, CUDA events")
     lm_times = lm_kernel_times(flash_attention_cuda, chunked_attention_ref,
                                flash_flops_bytes, rglru_cuda, rglru_ref, rglru_flops_bytes)
-    lm_times["ssd"] = ssd_kernel_times(ssd_cuda, ssd_chunked_ref, ssd_flops_bytes)
+    lm_times["ssd"] = ssd_kernel_times(ssd_cuda, ssd_chunked_ref, ssd_chunked_bf16ops_ref,
+                                       ssd_flops_bytes)
     for kname, r in lm_times.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {kname:15s} kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}, library {lib}, "
             f"bound {r['bound_ms']:.4f} by {r['bound_by']} ({r['bound_ms'] / r['ms']:.1%} "
             f"of it reached), max abs err {r['max_abs_err']:.3g}")
+    r = lm_times["ssd"]
+    log(f"  ssd ({SSD_DESIGN}) {r['ms']:.4f} ms, {r['bound_ms'] / r['ms']:.1%} of its bound; "
+        f"PR 13's f32 CUDA-core kernel {SSD_PR13_MS} ms "
+        f"({r['bound_ms'] / SSD_PR13_MS:.1%}), {SSD_PR13_MS / r['ms']:.2f}x")
     torch.cuda.empty_cache()
 
     # 11. the mamba2-370m serving path; counts from the calibration to the

@@ -12,11 +12,10 @@
 // grid whose chunk axis is sequential on the TPU, with the (N, P) state in
 // VMEM scratch, on inputs padded to a chunk multiple and rounded to x's dtype.
 // Here one block of 256 threads owns one (batch, head, P-tile) and loops over
-// the chunks with the state in shared memory, so nothing carries between
-// blocks.  As the model's layer does (src/repro/layers/ssd.py), and unlike
-// the Pallas op, x and dt are read in the model's dtype and widened in
-// registers, la, xw, cum, B, C, the state and every accumulator stay f32, and
-// only y is rounded.  B and C are read through (b, s, h) strides, so the
+// the chunks with the state on chip, so nothing carries between blocks.  As
+// the model's layer does (src/repro/layers/ssd.py), and unlike the Pallas
+// op, la, cum, the state and every accumulator stay f32 and x dt is never
+// rounded.  B and C are read through (b, s, h) strides, so the
 // model's head-shared (B, S, N) projections come in as stride-0 views and are
 // never copied per head.  The ragged last chunk is masked here (zeros for B,
 // C, x and la past S), so nothing is padded in device memory.  The initial
@@ -25,28 +24,59 @@
 // overflow).
 //
 // The columns of P are independent (y[:, p] needs only xw[:, p] and h[:, p]),
-// so the launcher splits P into tiles of 64, 32 or 16 columns.  Each P-tile
-// recomputes C B^T, which costs Q x Q x N multiply-adds per chunk and tile, so
-// the launcher takes the tile with the least waves of blocks times work per
-// block: at mamba2-370m's H = 32, P = 64 that is 64 columns at B = 8 and 4
-// (256 and 128 blocks), 32 at B = 2 (128 blocks) and 16 at B = 1 (128).
+// so the launcher splits P into tiles of 64, 32 or 16 columns; each P-tile
+// recomputes C B^T.  Two kernels, chosen by dtype:
 //
-// Per chunk the block runs four products out of shared memory, in f32 on the
-// CUDA cores, each thread holding a register tile: C h (rows x 4 columns),
-// C B^T (8 x 8, written over C once every read of C is done), G xw, and the
-// state update B^T (w xw).  Shared memory: B and C (Q x N, odd row strides so
-// that the rows neighbouring threads read fall in distinct banks), xw
-// (Q x P-tile), h (N x P-tile) and four Q-vectors: 195 KB at N = 128 and a
-// P-tile of 64, granted above the 48 KB default with cudaFuncSetAttribute.
+// bf16 (the model's dtype): ssd_mma_kernel runs the four chunk products as
+// mma.sync m16n8k16 (bf16 operands, f32 accumulators) on the tensor cores.
+// Each of the 8 warps owns a 16-row strip i of the chunk's steps t:
+//   * y = exp(cum_t) (C h): C rows from shared memory as the A operand, the
+//     state's copy h^T (P-tile x N) as the B operand;
+//   * S = C B^T over the s-tiles 0..i only: the tiles above the diagonal are
+//     skipped by loop bounds (strips do 1 to 8 tiles of 16 steps, in pairs
+//     for two independent accumulator chains), and G = S exp(cum_t - cum_s)
+//     dt_s (zero for s > t, the exponential taken only for s <= t) is packed
+//     from the accumulators into A fragments, as flash packs P;
+//   * y += G x with x (Q x P-tile) read transposed as the B operand: x stays
+//     exact (dt is folded into G's columns), then y + D x is rounded once;
+//   * h' = exp(cum_Q) h + Bw^T x, Bw = B exp(cum_Q - cum_s) dt_s: the A
+//     operand (n, s) is read from B's (s, n) rows with ldmatrix.trans and
+//     scaled in registers.  The f32 state lives in registers as the
+//     accumulators of the warp that owns its 16 rows of n; only its copy h^T
+//     goes through shared memory.
+// x, B and C are bf16 already, so C B^T is exact.  G, h^T and Bw are f32
+// values: each goes in as a bf16 part and the bf16 part of its remainder
+// (two mmas, about 16 bits).  Rounded once, G puts y beyond the bf16
+// tolerance on the model's own inputs (B and C of unit scale make G's terms
+// large against y), h^T adds to that, and Bw takes h_last to the edge of
+// its tolerance (scripts/torch_ssd_probe.py attributes it;
+// ``ref.ssd_chunked_bf16ops_ref`` repeats this arithmetic).  Fragments come
+// through ldmatrix; C, B and x rows through cp.async, all of a chunk in
+// flight at once, while warp 0 reads dt and takes the cumsum.  Shared
+// memory: C, B (Q x N, padded to 16 and by 8 bf16 per row), x, both parts of
+// h^T and four f32 Q-vectors, 122 KB at N = 128 and 64 columns.
+//
+// f32: ssd_kernel runs the four products in f32 on the CUDA cores, each
+// thread holding a register tile: C h (rows x 4 columns), the full square
+// of C B^T (8 x 8, written over C once every read of C is done), G xw, and
+// the state update B^T (w xw).  Shared memory: B and C (Q x N, odd row
+// strides so that the rows neighbouring threads read fall in distinct
+// banks), xw (Q x P-tile), h (N x P-tile) and four Q-vectors: 195 KB at
+// N = 128 and a P-tile of 64.  It holds the f32 parity of 2e-4.
+//
+// Each launcher grants its shared memory above the 48 KB default with
+// cudaFuncSetAttribute and takes the P-tile with the least waves of blocks
+// times work per block.
 //
 // Bound on this card: bytes.  At mamba2-370m's prefill (B = 8, S = 32768,
 // H = 32, P = 64, N = 128) the function moves 2.3 GB (x and y in bf16, B and C
 // once, dt, h0 and h_last), 0.69 ms at 3.35 TB/s, against 4.8e11 operations
 // for the causal half of the chunk products, 0.49 ms on bf16 tensor cores.
-// This kernel does 6.9e11 f32 operations on the CUDA cores (the full square,
-// P-tiles' repeats of C B^T aside), so it reaches a small share of that
-// bound: mma/wgmma on bf16 fragments, skipping the upper triangle and a
-// chunk-parallel state pass are left for later work.
+// The bf16 kernel issues 8.6e11 (the diagonal tiles whole, three operands
+// split); what holds it from the bound is the unoverlapped load of each
+// chunk with one block per SM and mma.sync's operands read from shared
+// memory (wgmma, a prefetch of the next chunk and a chunk-parallel state
+// pass for B = 1 are left for later work).
 //
 // C interface, loaded with ctypes.  The launcher returns cudaGetLastError()
 // right after the launch; it never synchronises and allocates nothing.
@@ -72,9 +102,7 @@ struct Strides {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // Row strides in floats.  Odd strides put the same column of neighbouring
 // rows in distinct banks.
@@ -86,6 +114,8 @@ __host__ __device__ inline size_t smem_floats(int n, int pt) {
   return (size_t)kQ * ld + (size_t)kQ * (ld > kLdG ? ld : kLdG) + (size_t)kQ * pt +
          (size_t)n * pt + 4 * kQ;
 }
+
+// -- f32: the chunk products on the CUDA cores (instantiated for float) ------
 
 template <typename T, int PT>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -312,11 +342,371 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* __res
   }
 }
 
-template <typename T, int PT>
-int launch(const void* x, const void* dt, const void* A, const void* bm, const void* cm,
-           const void* D, const void* h0, void* y, void* h_last, const int64_t* st,
-           int batch, int seq, int heads, int P, int N, cudaStream_t stream) {
-  auto kernel = ssd_kernel<T, PT>;
+// -- bf16: the chunk products on the tensor cores ----------------------------
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kPad = 8;  // bf16 pad per shared row: ldmatrix rows in distinct banks
+static_assert(kWarps * 16 == kQ, "each warp owns 16 steps of the chunk");
+static_assert(kWarps * 16 == kMaxN, "each warp owns 16 rows of the largest state");
+
+__host__ __device__ inline int pad16(int n) { return (n + 15) & ~15; }
+
+// C and B (kQ x ldn), x (kQ x (pt + kPad)) and h^T's two parts (pt x ldn
+// each) in bf16, with ldn = N padded to 16 plus kPad, and four f32 Q-vectors.
+__host__ __device__ inline size_t mma_smem_bytes(int n, int pt) {
+  const size_t ldn = pad16(n) + kPad;
+  return (2 * kQ * ldn + (size_t)kQ * (pt + kPad) + 2 * (size_t)pt * ldn) * sizeof(bf16) +
+         4 * kQ * sizeof(float);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// Two floats as a bf16 pair ``hi`` and the bf16 pair of what its rounding
+// left out, ``lo``: hi + lo holds about 16 bits of each.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  const float2 r = unpack_bf16(hi);
+  lo = pack_bf16(a - r.x, b - r.y);
+}
+
+// Two bf16 scaled by (f0, f1), split.
+__device__ __forceinline__ void scale_split(uint32_t v, float f0, float f1, uint32_t& hi,
+                                            uint32_t& lo) {
+  const float2 f = unpack_bf16(v);
+  split_bf16(f.x * f0, f.y * f1, hi, lo);
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; each lane gives the address
+// of one row (lanes 8m..8m+7 the rows of matrix m), ``trans`` transposes.
+template <bool trans>
+__device__ __forceinline__ void ldsm4(uint32_t* r, const bf16* row) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(row);
+  if (trans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+}
+
+// 16 bytes from global to shared memory without passing through registers;
+// zeros when !valid (``src`` must still be a mapped address).
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Rows r < len and columns c < w of a row-major bf16 matrix (row stride ss)
+// into a kQ x ld tile, zero from there to kQ rows and wpad columns.  vec:
+// w % 8 == 0 or w >= wpad, and 16-byte aligned rows: cp.async, all in flight
+// at once (the caller waits); else element by element.
+__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src, int64_t ss,
+                                          int len, int w, int wpad, bool vec, int tid) {
+  if (vec) {
+    const int per = wpad / 8;
+    for (int i = tid; i < kQ * per; i += kThreads) {
+      const int r = i / per, c = (i % per) * 8;
+      const bool ok = r < len && c < w;
+      cp_async16(dst + r * ld + c, ok ? src + r * ss + c : src, ok);
+    }
+  } else {
+    for (int i = tid; i < kQ * wpad; i += kThreads) {
+      const int r = i / wpad, c = i % wpad;
+      dst[r * ld + c] = (r < len && c < w) ? src[r * ss + c] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+template <int PT>
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dt,
+               const float* __restrict__ A, const bf16* __restrict__ bm,
+               const bf16* __restrict__ cm, const float* __restrict__ dskip,
+               const float* __restrict__ h0, bf16* __restrict__ y,
+               float* __restrict__ h_last, Strides sb, Strides sc, int seq, int heads, int P,
+               int N, int vec) {
+  constexpr int kNt = PT / 8;       // 8-column tiles of y and of the state
+  constexpr int kLdX = PT + kPad;   // x rows
+  static_assert(kNt % 2 == 0, "B operands come two column tiles at a time");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int npad = pad16(N), ldn = npad + kPad;
+  bf16* cs = reinterpret_cast<bf16*>(smem_raw);  // C rows (kQ x ldn)
+  bf16* bs = cs + kQ * ldn;                      // B rows (kQ x ldn)
+  bf16* xs = bs + kQ * ldn;                      // x rows (kQ x kLdX)
+  bf16* ht = xs + kQ * kLdX;                     // the state's copy h^T (PT x ldn) ...
+  bf16* hl = ht + PT * ldn;                      // ... and its remainder
+  float* dts = reinterpret_cast<float*>(hl + PT * ldn);  // dt in f32
+  float* cum = dts + kQ;                         // cumsum of la
+  float* ecum = cum + kQ;                        // exp(cum)
+  float* fw = ecum + kQ;                         // exp(cum_Q - cum) dt
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // the mma fragments' row group, place in it
+  // This lane's row and column in the 16 x 16 ldmatrix quads: (ra, ca) for
+  // A operands and for B operands read transposed, (rb, cb) for B operands
+  // and for A operands read transposed.
+  const int ra = (lane & 7) + ((lane >> 3) & 1) * 8, ca = (lane >> 4) * 8;
+  const int rb = (lane & 7) + (lane >> 4) * 8, cb = ((lane >> 3) & 1) * 8;
+  const int r0 = warp * 16;  // this warp's steps of the chunk and rows of the state
+  const int p0 = blockIdx.x * PT;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int np = P - p0;  // columns of this tile inside P
+  const float a_h = A[h];
+  const float d_h = dskip[h];
+
+  // x, y (B, S, H, P) and dt (B, S, H) are contiguous.
+  const int64_t row = (int64_t)heads * P;
+  const bf16* xb = x + ((int64_t)b * seq * heads + h) * P + p0;
+  bf16* yb = y + ((int64_t)b * seq * heads + h) * P + p0;
+  const bf16* dtb = dt + (int64_t)b * seq * heads + h;
+  const bf16* bb = bm + b * sb.b + h * sb.h;
+  const bf16* cbm = cm + b * sc.b + h * sc.h;
+  const int64_t hoff = ((int64_t)b * heads + h) * N * P + p0;
+
+  // The f32 state as mma accumulators: rows n = r0 + g (+ 8), columns
+  // p = 8 nt + 2t (+ 1).  Warps past N hold zeros and never update them.
+  const bool owns_state = r0 < npad;
+  float hacc[kNt][4];
+#pragma unroll
+  for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = r0 + g + 8 * (e >> 1), p = nt * 8 + 2 * t + (e & 1);
+      hacc[nt][e] = (h0 != nullptr && n < N && p < np) ? h0[hoff + (int64_t)n * P + p] : 0.f;
+    }
+
+  const int nchunks = (seq + kQ - 1) / kQ;
+  for (int c = 0; c < nchunks; ++c) {
+    const int t0 = c * kQ;
+    const int len = min(kQ, seq - t0);
+    __syncthreads();  // the previous chunk's reads of shared memory are done
+
+    // C, B and x rows, zero past the sequence, past N (to npad) and past P.
+    load_rows(cs, ldn, cbm + (int64_t)t0 * sc.s, sc.s, len, N, npad, vec, tid);
+    load_rows(bs, ldn, bb + (int64_t)t0 * sb.s, sb.s, len, N, npad, vec, tid);
+    load_rows(xs, kLdX, xb + (int64_t)t0 * row, row, len, np, PT, vec, tid);
+    if (owns_state) {  // h^T in two bf16 parts for this chunk's C h
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = (nt * 8 + 2 * t + (e & 1)) * ldn + r0 + g + 8 * (e >> 1);
+          const bf16 hi = __float2bfloat16_rn(hacc[nt][e]);
+          ht[i] = hi;
+          hl[i] = __float2bfloat16_rn(hacc[nt][e] - __bfloat162float(hi));
+        }
+    }
+    if (warp == 0) {
+      // dt, and cum = cumsum(dt A): 4 steps per lane, then a scan of the
+      // lane sums.  Zero past the end of the sequence.
+      float d[4], v[4], run = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int s = 4 * lane + j;
+        d[j] = s < len ? __bfloat162float(dtb[(int64_t)(t0 + s) * heads]) : 0.f;
+        run += d[j] * a_h;
+        v[j] = run;
+      }
+      float incl = run;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += u;
+      }
+      const float excl = incl - run;
+      const float total = __shfl_sync(0xffffffffu, incl, 31);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int s = 4 * lane + j;
+        const float cj = v[j] + excl;
+        dts[s] = d[j];
+        cum[s] = cj;
+        ecum[s] = expf(cj);
+        fw[s] = expf(total - cj) * d[j];
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+
+    // h' = exp(cum_Q) h + Bw^T x on this warp's 16 rows of the state, over
+    // the steps inside the sequence.  Bw^T is read from B's rows with
+    // ldmatrix.trans, scaled in registers and split (two mmas on the same x
+    // fragments).
+    if (owns_state) {
+      const float decay = ecum[kQ - 1];  // la is zero past the sequence
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hacc[nt][e] *= decay;
+      for (int s0 = 0; s0 < len; s0 += 16) {
+        uint32_t a[4], hi[4], lo[4];
+        ldsm4<true>(a, bs + (s0 + rb) * ldn + r0 + cb);
+        const float f0 = fw[s0 + 2 * t], f1 = fw[s0 + 2 * t + 1];
+        const float f2 = fw[s0 + 8 + 2 * t], f3 = fw[s0 + 9 + 2 * t];
+        scale_split(a[0], f0, f1, hi[0], lo[0]);
+        scale_split(a[1], f0, f1, hi[1], lo[1]);
+        scale_split(a[2], f2, f3, hi[2], lo[2]);
+        scale_split(a[3], f2, f3, hi[3], lo[3]);
+#pragma unroll
+        for (int nt = 0; nt < kNt; nt += 2) {
+          uint32_t bx[4];
+          ldsm4<true>(bx, xs + (s0 + ra) * kLdX + nt * 8 + ca);
+          mma_bf16(hacc[nt], hi, bx[0], bx[1]);
+          mma_bf16(hacc[nt], lo, bx[0], bx[1]);
+          mma_bf16(hacc[nt + 1], hi, bx[2], bx[3]);
+          mma_bf16(hacc[nt + 1], lo, bx[2], bx[3]);
+        }
+      }
+    }
+
+    // y on this warp's 16 steps, unless they are all past the sequence.
+    if (r0 < len) {
+      const bf16* cw = cs + (r0 + ra) * ldn + ca;  // this lane's row of C's A operands
+      float yacc[kNt][4];
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) yacc[nt][0] = yacc[nt][1] = yacc[nt][2] = yacc[nt][3] = 0.f;
+      // exp(cum) (C h): the incoming state, both parts.
+      for (int kk = 0; kk < npad; kk += 16) {
+        uint32_t a[4];
+        ldsm4<false>(a, cw + kk);
+#pragma unroll
+        for (int nt = 0; nt < kNt; nt += 2) {
+          uint32_t bh[4], bl[4];
+          ldsm4<false>(bh, ht + (nt * 8 + rb) * ldn + kk + cb);
+          ldsm4<false>(bl, hl + (nt * 8 + rb) * ldn + kk + cb);
+          mma_bf16(yacc[nt], a, bh[0], bh[1]);
+          mma_bf16(yacc[nt + 1], a, bh[2], bh[3]);
+          mma_bf16(yacc[nt], a, bl[0], bl[1]);
+          mma_bf16(yacc[nt + 1], a, bl[2], bl[3]);
+        }
+      }
+      const float cum0 = cum[r0 + g], cum1 = cum[r0 + g + 8];
+      const float e0 = ecum[r0 + g], e1 = ecum[r0 + g + 8];
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+        yacc[nt][0] *= e0;
+        yacc[nt][1] *= e0;
+        yacc[nt][2] *= e1;
+        yacc[nt][3] *= e1;
+      }
+
+      // + G x over the s-tiles 0..warp (16 steps each), two at a time: S =
+      // C B^T for the pair, then G per tile in registers and its product.
+      for (int j = 0; j <= warp; j += 2) {
+        const bool two = j + 1 <= warp;  // the pair's second tile is on or below the diagonal
+        float sacc[4][4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) sacc[q][0] = sacc[q][1] = sacc[q][2] = sacc[q][3] = 0.f;
+        for (int kk = 0; kk < npad; kk += 16) {
+          uint32_t a[4], bq[4];
+          ldsm4<false>(a, cw + kk);
+          ldsm4<false>(bq, bs + (16 * j + rb) * ldn + kk + cb);
+          mma_bf16(sacc[0], a, bq[0], bq[1]);
+          mma_bf16(sacc[1], a, bq[2], bq[3]);
+          if (two) {
+            ldsm4<false>(bq, bs + (16 * j + 16 + rb) * ldn + kk + cb);
+            mma_bf16(sacc[2], a, bq[0], bq[1]);
+            mma_bf16(sacc[3], a, bq[2], bq[3]);
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          if (jj == 1 && !two) break;
+          const int s0 = 16 * (j + jj);
+          float gv[2][4];
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int tt = r0 + g + 8 * (e >> 1);
+              const int ss = s0 + 8 * q + 2 * t + (e & 1);
+              gv[q][e] = ss <= tt ? sacc[2 * jj + q][e] * expf((e >> 1 ? cum1 : cum0) - cum[ss]) *
+                                        dts[ss]
+                                  : 0.f;
+            }
+          uint32_t gh[4], gl[4];
+          split_bf16(gv[0][0], gv[0][1], gh[0], gl[0]);
+          split_bf16(gv[0][2], gv[0][3], gh[1], gl[1]);
+          split_bf16(gv[1][0], gv[1][1], gh[2], gl[2]);
+          split_bf16(gv[1][2], gv[1][3], gh[3], gl[3]);
+#pragma unroll
+          for (int nt = 0; nt < kNt; nt += 2) {
+            uint32_t bx[4];
+            ldsm4<true>(bx, xs + (s0 + ra) * kLdX + nt * 8 + ca);
+            mma_bf16(yacc[nt], gh, bx[0], bx[1]);
+            mma_bf16(yacc[nt + 1], gh, bx[2], bx[3]);
+            mma_bf16(yacc[nt], gl, bx[0], bx[1]);
+            mma_bf16(yacc[nt + 1], gl, bx[2], bx[3]);
+          }
+        }
+      }
+
+      // + D x from the exact bf16 x, rounded once and stored.
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int tt = r0 + g + 8 * r;
+        if (tt >= len) continue;
+        bf16* yr = yb + (int64_t)(t0 + tt) * row;
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+          const int p = nt * 8 + 2 * t;
+          const float2 xv = unpack_bf16(*reinterpret_cast<const uint32_t*>(xs + tt * kLdX + p));
+          const float v0 = yacc[nt][2 * r] + d_h * xv.x;
+          const float v1 = yacc[nt][2 * r + 1] + d_h * xv.y;
+          if (vec) {  // P % 8 == 0: the pair is inside P or outside it
+            if (p < np) *reinterpret_cast<uint32_t*>(yr + p) = pack_bf16(v0, v1);
+          } else {
+            if (p < np) yr[p] = __float2bfloat16_rn(v0);
+            if (p + 1 < np) yr[p + 1] = __float2bfloat16_rn(v1);
+          }
+        }
+      }
+    }
+  }
+
+  if (owns_state) {
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = r0 + g + 8 * (e >> 1), p = nt * 8 + 2 * t + (e & 1);
+        if (n < N && p < np) h_last[hoff + (int64_t)n * P + p] = hacc[nt][e];
+      }
+  }
+}
+
+// -- launchers ----------------------------------------------------------------
+
+template <int PT>
+int launch_f32(const void* x, const void* dt, const void* A, const void* bm, const void* cm,
+               const void* D, const void* h0, void* y, void* h_last, const int64_t* st,
+               int batch, int seq, int heads, int P, int N, cudaStream_t stream) {
+  auto kernel = ssd_kernel<float, PT>;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     cudaError_t err =
@@ -328,45 +718,52 @@ int launch(const void* x, const void* dt, const void* A, const void* bm, const v
   const Strides sb{st[0], st[1], st[2]}, sc{st[3], st[4], st[5]};
   const dim3 grid((P + PT - 1) / PT, heads, batch);
   kernel<<<grid, kThreads, smem_floats(N, PT) * sizeof(float), stream>>>(
-      (const T*)x, (const T*)dt, (const float*)A, (const T*)bm, (const T*)cm,
-      (const float*)D, (const float*)h0, (T*)y, (float*)h_last, sb, sc, seq, heads, P, N);
+      (const float*)x, (const float*)dt, (const float*)A, (const float*)bm, (const float*)cm,
+      (const float*)D, (const float*)h0, (float*)y, (float*)h_last, sb, sc, seq, heads, P, N);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int pt, const void* x, const void* dt, const void* A, const void* bm,
-             const void* cm, const void* D, const void* h0, void* y, void* h_last,
-             const int64_t* st, int batch, int seq, int heads, int P, int N,
-             cudaStream_t s) {
-  if (pt == 64)
-    return launch<T, 64>(x, dt, A, bm, cm, D, h0, y, h_last, st, batch, seq, heads, P, N, s);
-  if (pt == 32)
-    return launch<T, 32>(x, dt, A, bm, cm, D, h0, y, h_last, st, batch, seq, heads, P, N, s);
-  return launch<T, 16>(x, dt, A, bm, cm, D, h0, y, h_last, st, batch, seq, heads, P, N, s);
+// Grants the mma kernel its shared memory (once per instantiation) and
+// gives the blocks that fit one SM at the largest state.
+template <int PT>
+cudaError_t mma_blocks_per_sm(int* blocks) {
+  static int cached = 0;
+  if (cached == 0) {
+    auto kernel = ssd_mma_kernel<PT>;
+    const int bytes = (int)mma_smem_bytes(kMaxN, PT);
+    int n = 0;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, bytes);
+    if (err != cudaSuccess) return err;
+    cached = n > 0 ? n : 1;
+  }
+  *blocks = cached;
+  return cudaSuccess;
 }
 
-}  // namespace
-
-// x, y (B, S, H, P) and dt (B, S, H) contiguous, of one dtype (bf16 when
-// is_bf16, else f32), as are bm and cm (B, S, H, N) with a contiguous last dim
-// and (b, s, h) element strides in strides[0..2] and [3..5] (h may be 0);
-// A, D (H,) f32; h0 (B, H, N, P) f32 or null (zeros); h_last (B, H, N, P)
-// f32.  The caller checks 1 <= N <= 128.
-extern "C" int ssd_fwd(const void* x, const void* dt, const void* A, const void* bm,
-                       const void* cm, const void* D, const void* h0, void* y,
-                       void* h_last, const int64_t* strides, int batch, int seq, int heads,
-                       int P, int N, int is_bf16, void* stream) {
-  if (batch <= 0 || heads <= 0 || P <= 0) return 0;
-  if (N <= 0 || N > kMaxN) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+template <int PT>
+int launch_mma(const void* x, const void* dt, const void* A, const void* bm, const void* cm,
+               const void* D, const void* h0, void* y, void* h_last, const int64_t* st,
+               int batch, int seq, int heads, int P, int N, int vec, cudaStream_t stream) {
+  int blocks = 0;
+  cudaError_t err = mma_blocks_per_sm<PT>(&blocks);
   if (err != cudaSuccess) return (int)err;
-  // The P-tile with the least waves x work per block and chunk: every tile
-  // recomputes C B^T (Q^2 N multiply-adds) and does pt (Q^2 + 2 Q N) more.
-  // One block fits an SM at N = 128, so the waves are whole.  A tile mostly
-  // past P is not considered.
-  const int64_t bh = (int64_t)batch * heads;
+  const Strides sb{st[0], st[1], st[2]}, sc{st[3], st[4], st[5]};
+  const dim3 grid((P + PT - 1) / PT, heads, batch);
+  ssd_mma_kernel<PT><<<grid, kThreads, mma_smem_bytes(N, PT), stream>>>(
+      (const bf16*)x, (const bf16*)dt, (const float*)A, (const bf16*)bm, (const bf16*)cm,
+      (const float*)D, (const float*)h0, (bf16*)y, (float*)h_last, sb, sc, seq, heads, P, N,
+      vec);
+  return (int)cudaGetLastError();
+}
+
+// The f32 kernel's P-tile: the least waves x work per block and chunk.
+// Every tile recomputes C B^T (Q^2 N multiply-adds) and does pt (Q^2 + 2 Q N)
+// more.  One block fits an SM at N = 128, so the waves are whole.  A tile
+// mostly past P is not considered.
+int pick_pt_f32(int64_t bh, int P, int N, int sms) {
   int pt = 16;
   double best = 0.0;
   for (int cand = 16; cand <= 64 && (cand == 16 || cand / 2 < P); cand *= 2) {
@@ -378,12 +775,85 @@ extern "C" int ssd_fwd(const void* x, const void* dt, const void* A, const void*
       pt = cand;
     }
   }
+  return pt;
+}
+
+// The bf16 kernel's P-tile: the least waves x the mma steps per chunk of
+// its busiest warp (the strip at the bottom of the triangle): C h and the
+// state update (pt/8 column tiles by npad/16 and, twice for the split Bw,
+// Q/16 steps), S over all Q/16 s-tiles (2 x npad/16 each) and G x (pt/8
+// each); the waves count the blocks that fit one SM.  A tile mostly past P
+// is not considered.
+cudaError_t pick_pt_mma(int64_t bh, int P, int N, int sms, int* pt) {
+  const int kn = pad16(N) / 16, ks = kQ / 16;
+  double best = 0.0;
+  for (int cand = 16; cand <= 64 && (cand == 16 || cand / 2 < P); cand *= 2) {
+    int per_sm = 1;
+    cudaError_t err = cand == 64   ? mma_blocks_per_sm<64>(&per_sm)
+                      : cand == 32 ? mma_blocks_per_sm<32>(&per_sm)
+                                   : mma_blocks_per_sm<16>(&per_sm);
+    if (err != cudaSuccess) return err;
+    const int64_t blocks = bh * ((P + cand - 1) / cand);
+    const int64_t slots = (int64_t)sms * per_sm;
+    const int tiles = cand / 8;
+    const double work = (double)((blocks + slots - 1) / slots) *
+                        (tiles * kn + 2.0 * tiles * ks + ks * 2.0 * kn + ks * tiles);
+    if (cand == 16 || work < best) {
+      best = work;
+      *pt = cand;
+    }
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// x, y (B, S, H, P) and dt (B, S, H) contiguous, of one dtype (bf16 when
+// is_bf16, else f32), as are bm and cm (B, S, H, N) with a contiguous last dim
+// and (b, s, h) element strides in strides[0..2] and [3..5] (h may be 0);
+// A, D (H,) f32; h0 (B, H, N, P) f32 or null (zeros); h_last (B, H, N, P)
+// f32.  The caller checks 1 <= N <= 128.  bf16 runs the tensor-core kernel,
+// f32 the CUDA-core one.
+extern "C" int ssd_fwd(const void* x, const void* dt, const void* A, const void* bm,
+                       const void* cm, const void* D, const void* h0, void* y,
+                       void* h_last, const int64_t* strides, int batch, int seq, int heads,
+                       int P, int N, int is_bf16, void* stream) {
+  if (batch <= 0 || heads <= 0 || P <= 0) return 0;
+  if (N <= 0 || N > kMaxN) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t bh = (int64_t)batch * heads;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(pt, x, dt, A, bm, cm, D, h0, y, h_last, strides, batch,
-                                   seq, heads, P, N, s);
-  return dispatch<float>(pt, x, dt, A, bm, cm, D, h0, y, h_last, strides, batch, seq, heads,
-                         P, N, s);
+  if (is_bf16) {
+    int pt = 16;
+    err = pick_pt_mma(bh, P, N, sms, &pt);
+    if (err != cudaSuccess) return (int)err;
+    // 16-byte loads of x, B and C rows and 4-byte stores of y pairs.
+    const bool aligned =
+        ((uintptr_t)x | (uintptr_t)bm | (uintptr_t)cm | (uintptr_t)y) % 16 == 0;
+    bool vec = aligned && P % 8 == 0 && N % 8 == 0;
+    for (int i = 0; i < 6; ++i) vec = vec && strides[i] % 8 == 0;
+    const int v = vec ? 1 : 0;
+    if (pt == 64)
+      return launch_mma<64>(x, dt, A, bm, cm, D, h0, y, h_last, strides, batch, seq, heads, P,
+                            N, v, s);
+    if (pt == 32)
+      return launch_mma<32>(x, dt, A, bm, cm, D, h0, y, h_last, strides, batch, seq, heads, P,
+                            N, v, s);
+    return launch_mma<16>(x, dt, A, bm, cm, D, h0, y, h_last, strides, batch, seq, heads, P, N,
+                          v, s);
+  }
+  const int pt = pick_pt_f32(bh, P, N, sms);
+  if (pt == 64)
+    return launch_f32<64>(x, dt, A, bm, cm, D, h0, y, h_last, strides, batch, seq, heads, P, N,
+                          s);
+  if (pt == 32)
+    return launch_f32<32>(x, dt, A, bm, cm, D, h0, y, h_last, strides, batch, seq, heads, P, N,
+                          s);
+  return launch_f32<16>(x, dt, A, bm, cm, D, h0, y, h_last, strides, batch, seq, heads, P, N,
+                        s);
 }
 
 extern "C" const char* ssd_error_string(int code) {

@@ -180,7 +180,7 @@ class TestRGLRUOnCard:
 # -- Mamba-2 SSD ---------------------------------------------------------------
 
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
-from repro_torch.kernels.ssd.ref import ssd_chunked_ref  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_chunked_bf16ops_ref, ssd_chunked_ref  # noqa: E402
 from repro_torch.kernels.ssd.ssd import ssd_cuda  # noqa: E402
 
 # The JAX package's SSD tolerances (tests/test_kernels.py TestSSD): y 2e-4 in
@@ -188,6 +188,16 @@ from repro_torch.kernels.ssd.ssd import ssd_cuda  # noqa: E402
 # values on both sides); h_last rtol 2e-3 with atol 2e-3 (f32) or 5e-3 (bf16).
 SSD_Y_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 SSD_H_ATOL = {torch.float32: 2e-3, torch.bfloat16: 5e-3}
+# The bf16 kernel against the plain version of its own arithmetic
+# (ssd_chunked_bf16ops_ref: the same operands split into bf16 parts): y
+# within 1e-2, a third of the bf16 tolerance.
+SSD_BF16OPS_Y_TOL = 1e-2
+# mamba2's (H 32, P 64, N 128) at B = 1, 2 and 8 runs P-tiles of 16, 32 and
+# 64 columns; S = 129 is one chunk and one step, so the last chunk is a
+# single row (one strip, one s-tile of the triangle).
+SSD_SHAPES = [(1, 1000, 32, 64, 128), (2, 300, 32, 64, 128), (8, 512, 32, 64, 128),
+              (1, 256, 2, 16, 8), (2, 200, 4, 32, 16), (8, 77, 3, 40, 5),
+              (2, 129, 32, 64, 128)]
 
 
 def _ssd_inputs(cuda, B, S, H, P, N, dtype, shared, with_h0, seed):
@@ -206,12 +216,9 @@ def _ssd_inputs(cuda, B, S, H, P, N, dtype, shared, with_h0, seed):
 
 @pytest.mark.cuda
 class TestSSDOnCard:
-    # mamba2's (H 32, P 64, N 128) at B = 1, 2 and 8 runs P-tiles of 16, 32
-    # and 64 columns.
-    @pytest.mark.parametrize("B, S, H, P, N", [
-        (1, 1000, 32, 64, 128), (2, 300, 32, 64, 128), (8, 512, 32, 64, 128),
-        (1, 256, 2, 16, 8),
-        (2, 200, 4, 32, 16), (8, 77, 3, 40, 5)])
+    # f32 runs the CUDA-core kernel (2e-4 is beyond bf16 products), bf16 the
+    # tensor-core one.
+    @pytest.mark.parametrize("B, S, H, P, N", SSD_SHAPES)
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("shared", [True, False])
     @pytest.mark.parametrize("with_h0", [False, True])
@@ -226,6 +233,18 @@ class TestSSDOnCard:
         tol = SSD_Y_TOL[dtype]
         torch.testing.assert_close(y.float(), y_ref, rtol=tol, atol=tol)
         torch.testing.assert_close(h, h_ref, rtol=2e-3, atol=SSD_H_ATOL[dtype])
+
+    @pytest.mark.parametrize("B, S, H, P, N", SSD_SHAPES)
+    @pytest.mark.parametrize("shared", [True, False])
+    @pytest.mark.parametrize("with_h0", [False, True])
+    def test_bf16_kernel_matches_its_arithmetic(self, cuda, B, S, H, P, N, shared, with_h0):
+        x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(cuda, B, S, H, P, N, torch.bfloat16, shared,
+                                              with_h0, seed=B * S + N + 1)
+        y, h = ssd_cuda(x, dt, A, Bm, Cm, D, h0)
+        y_ref, h_ref = ssd_chunked_bf16ops_ref(x, dt, A, Bm, Cm, D, 128, h0)
+        tol = SSD_BF16OPS_Y_TOL
+        torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(h, h_ref, rtol=2e-3, atol=SSD_H_ATOL[torch.bfloat16])
 
     def test_stride0_b_and_c_equal_materialised(self, cuda):
         a = _ssd_inputs(cuda, 2, 300, 8, 64, 128, torch.bfloat16, True, True, seed=1)

@@ -18,12 +18,16 @@ from repro.kernels.ssd.ops import ssd as jax_ssd_op
 from repro.kernels.ssd.ref import ssd_rec_ref as jax_rec_ref
 from repro.layers import ssd as jax_layer
 from repro_torch.kernels.ssd import ops
-from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_rec_ref
+from repro_torch.kernels.ssd.ref import ssd_chunked_bf16ops_ref, ssd_chunked_ref, ssd_rec_ref
 from repro_torch.kernels.ssd.ssd import flops_bytes
 from repro_torch.layers.ssd import ssd_chunked, ssd_step
 
 Y_TOL = dict(rtol=2e-4, atol=2e-4)
 H_TOL = dict(rtol=2e-3, atol=2e-3)
+# bf16 (tests/test_kernels.py TestSSD): y 3e-2, h_last rtol 2e-3 and atol 5e-3.
+Y_TOL_BF16 = dict(rtol=3e-2, atol=3e-2)
+H_TOL_BF16 = dict(rtol=2e-3, atol=5e-3)
+BF16_SHAPES = [(1, 256, 2, 16, 8), (2, 200, 4, 32, 16), (1, 77, 3, 8, 5), (1, 512, 1, 64, 32)]
 
 jax_step = jax.jit(jax_layer.ssd_step)
 
@@ -176,3 +180,62 @@ def test_flops_bytes_at_the_path_shape():
     assert 2.29e9 < nbytes < 2.32e9 and 4.8e11 < ops_ < 4.9e11
     ragged, _ = flops_bytes(1, 200, 1, 4, 2)  # chunks of 128 and 72
     assert ragged == 2.0 * sum(q * (q + 1) / 2 * 6 + 2.0 * q * 8 for q in (128, 72))
+
+
+def _bf16_inputs(shape, seed, with_h0):
+    """The inputs above with x, dt, B and C rounded to bf16, for both sides."""
+    x, dt, A, Bm, Cm, D, h0 = _inputs(*shape, seed=seed, h0=with_h0)
+    jb = [jnp.asarray(v).astype(jnp.bfloat16) for v in (x, dt, Bm, Cm)]
+    tb = [torch.from_numpy(v).bfloat16() for v in (x, dt, Bm, Cm)]
+    return jb, tb, A, D, h0
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_bf16ops_version_matches_jax_layer(shape, with_h0):
+    """The bf16 kernel's arithmetic (G, the state's copy for C h and Bw
+    rounded to bf16) against the JAX layer on the same bf16 inputs, at the
+    JAX package's bf16 tolerances; ragged S (200, 77) and an initial state."""
+    jb, tb, A, D, h0 = _bf16_inputs(shape, sum(shape) + 1, with_h0)
+    y_want, h_want = _jax_layer(128)(jb[0], jb[1], jnp.asarray(A), jb[2], jb[3],
+                                     jnp.asarray(D), h0=_j(h0)[0])
+    y_got, h_got = ssd_chunked_bf16ops_ref(tb[0], tb[1], torch.from_numpy(A), tb[2], tb[3],
+                                           torch.from_numpy(D), 128, _t(h0)[0])
+    assert y_got.dtype == torch.bfloat16 and h_got.dtype == torch.float32
+    np.testing.assert_allclose(y_got.float().numpy(), np.asarray(y_want, np.float32),
+                               **Y_TOL_BF16)
+    np.testing.assert_allclose(h_got.numpy(), np.asarray(h_want), **H_TOL_BF16)
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_bf16ops_version_matches_f32_chunked(shape, with_h0):
+    """The bf16 kernel's arithmetic against the port's f32 chunked version
+    on the same bf16 inputs, at the same tolerances, with B and C as
+    stride-0 head views (as the model passes them)."""
+    _, tb, A, D, h0 = _bf16_inputs(shape, sum(shape) + 2, with_h0)
+    B, S, H, _, N = shape
+    Bv, Cv = (t[:, :, :1].expand(B, S, H, N) for t in (tb[2], tb[3]))
+    args = (tb[0], tb[1], torch.from_numpy(A), Bv, Cv, torch.from_numpy(D), 128, _t(h0)[0])
+    y_got, h_got = ssd_chunked_bf16ops_ref(*args)
+    y_want, h_want = ssd_chunked_ref(*args)
+    torch.testing.assert_close(y_got.float(), y_want.float(), **Y_TOL_BF16)
+    torch.testing.assert_close(h_got, h_want, **H_TOL_BF16)
+
+
+def test_bf16ops_version_splits_its_operands():
+    """It is not the f32 version: y differs by bf16 roundings, within 2^-8.
+    Its split operands keep h_last within 2^-16 of the f32 version, where
+    rounding them once (``split=()``) does not."""
+    _, tb, A, D, h0 = _bf16_inputs((2, 200, 4, 32, 16), 3, True)
+    args = (tb[0], tb[1], torch.from_numpy(A), tb[2], tb[3], torch.from_numpy(D), 128,
+            _t(h0)[0])
+    y_want, h_want = ssd_chunked_ref(*args)
+
+    def rel(got, want):
+        return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+    y_got, h_got = ssd_chunked_bf16ops_ref(*args)
+    _, h_once = ssd_chunked_bf16ops_ref(*args, split=())
+    assert 0 < rel(y_got, y_want) < 2.0 ** -8
+    assert rel(h_got, h_want) < 2.0 ** -16 < rel(h_once, h_want)
