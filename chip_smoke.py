@@ -48,8 +48,8 @@ Phases (any failure exits non-zero and prints no result line):
 10. the LM kernels at their paths' shapes: parity with the plain version,
    kernel, plain and (flash) ``scaled_dot_product_attention`` times beside
    the bound; the bf16 SSD kernel also against the plain version of its own
-   arithmetic (``ssd_chunked_bf16ops_ref``), and its time beside PR 13's
-   CUDA-core kernel's;
+   arithmetic (``ssd_chunked_bf16ops_ref``), and its time beside that of
+   the earlier f32 CUDA-core kernel at the same shape;
 11. the serving path (the main path, part 4) at mamba2-370m's full width
    and depth (368,178,688 bf16 parameters from ``--seed``, 48 SSM layers):
    the same entry points over prompts of 32,768 tokens (``prefill_32k``'s
@@ -109,7 +109,7 @@ SSD_H_RTOL = 2e-3
 # The bf16 SSD kernel against the plain version of its own arithmetic
 # (tests/test_torch_cuda.py): y within 1e-2.
 SSD_BF16OPS_Y_TOL = 1e-2
-SSD_PR13_MS = 45.6586       # PERF.md: the f32 CUDA-core kernel at the path's shape
+SSD_CUDA_CORE_MS = 45.6586  # PERF.md row 4: the CUDA-core kernel at the path's shape
 SSD_DESIGN = "CUDA C++ sm_90a, mma.sync bf16 (f32: CUDA cores)"
 SERVE_ARCH = "recurrentgemma_9b"
 SERVE_SEQ = 4096            # twice the local-attention window
@@ -960,8 +960,8 @@ def main(argv=None) -> int:
             f"of it reached), max abs err {r['max_abs_err']:.3g}")
     r = lm_times["ssd"]
     log(f"  ssd ({SSD_DESIGN}) {r['ms']:.4f} ms, {r['bound_ms'] / r['ms']:.1%} of its bound; "
-        f"PR 13's f32 CUDA-core kernel {SSD_PR13_MS} ms "
-        f"({r['bound_ms'] / SSD_PR13_MS:.1%}), {SSD_PR13_MS / r['ms']:.2f}x")
+        f"the earlier f32 CUDA-core kernel {SSD_CUDA_CORE_MS} ms "
+        f"({r['bound_ms'] / SSD_CUDA_CORE_MS:.1%}), {SSD_CUDA_CORE_MS / r['ms']:.2f}x")
     torch.cuda.empty_cache()
 
     # 11. the mamba2-370m serving path; counts from the calibration to the

@@ -28,15 +28,18 @@
 // recomputes C B^T.  Two kernels, chosen by dtype:
 //
 // bf16 (the model's dtype): ssd_mma_kernel runs the four chunk products as
-// mma.sync m16n8k16 (bf16 operands, f32 accumulators) on the tensor cores.
-// Each of the 8 warps owns a 16-row strip i of the chunk's steps t:
+// mma.sync m16n8k16 (bf16 operands, f32 accumulators) on the tensor cores,
+// each warp on a 16-row strip i of the chunk's steps t:
 //   * y = exp(cum_t) (C h): C rows from shared memory as the A operand, the
 //     state's copy h^T (P-tile x N) as the B operand;
 //   * S = C B^T over the s-tiles 0..i only: the tiles above the diagonal are
-//     skipped by loop bounds (strips do 1 to 8 tiles of 16 steps, in pairs
-//     for two independent accumulator chains), and G = S exp(cum_t - cum_s)
-//     dt_s (zero for s > t, the exponential taken only for s <= t) is packed
-//     from the accumulators into A fragments, as flash packs P;
+//     skipped by loop bounds, two tiles at a time for two accumulator
+//     chains, and G = S exp(cum_t - cum_s) dt_s (zero for s > t, the
+//     exponential taken only for s <= t) is packed from the accumulators
+//     into A fragments, as flash packs P.  Strip i has i + 1 tiles, so the
+//     warps pair up: warp w < 4 also does the first 4 - w tiles of strip
+//     7 - w and hands its partial y over through shared memory, and no warp
+//     does more than 5 of the 36;
 //   * y += G x with x (Q x P-tile) read transposed as the B operand: x stays
 //     exact (dt is folded into G's columns), then y + D x is rounded once;
 //   * h' = exp(cum_Q) h + Bw^T x, Bw = B exp(cum_Q - cum_s) dt_s: the A
@@ -51,10 +54,12 @@
 // large against y), h^T adds to that, and Bw takes h_last to the edge of
 // its tolerance (scripts/torch_ssd_probe.py attributes it;
 // ``ref.ssd_chunked_bf16ops_ref`` repeats this arithmetic).  Fragments come
-// through ldmatrix; C, B and x rows through cp.async, all of a chunk in
-// flight at once, while warp 0 reads dt and takes the cumsum.  Shared
-// memory: C, B (Q x N, padded to 16 and by 8 bf16 per row), x, both parts of
-// h^T and four f32 Q-vectors, 122 KB at N = 128 and 64 columns.
+// through ldmatrix.  C, B and x rows come through cp.async into two stages:
+// the next chunk's rows load while this chunk's products run, and a warp
+// with 4 tiles takes the next chunk's dt and cumsum.  Shared memory: two
+// stages of C, B (Q x N, padded to 16 and by 8 bf16 per row), x and four
+// f32 Q-vectors, both parts of h^T and the partial strips: 226 KB at
+// N = 128 and 64 columns, one block per SM.
 //
 // f32: ssd_kernel runs the four products in f32 on the CUDA cores, each
 // thread holding a register tile: C h (rows x 4 columns), the full square
@@ -73,10 +78,11 @@
 // once, dt, h0 and h_last), 0.69 ms at 3.35 TB/s, against 4.8e11 operations
 // for the causal half of the chunk products, 0.49 ms on bf16 tensor cores.
 // The bf16 kernel issues 8.6e11 (the diagonal tiles whole, three operands
-// split); what holds it from the bound is the unoverlapped load of each
-// chunk with one block per SM and mma.sync's operands read from shared
-// memory (wgmma, a prefetch of the next chunk and a chunk-parallel state
-// pass for B = 1 are left for later work).
+// split).  What holds it from the bound (scripts/torch_ssd_phases.py): the
+// triangle's dependent mma.sync chains and its exponentials, one block of
+// 8 warps per SM to hide them, and a B operand read from shared memory for
+// every mma of a 16-row strip (wgmma, two blocks per SM and a chunk-parallel
+// state pass for B = 1 are left for later work).
 //
 // C interface, loaded with ctypes.  The launcher returns cudaGetLastError()
 // right after the launch; it never synchronises and allocates nothing.
@@ -353,12 +359,14 @@ static_assert(kWarps * 16 == kMaxN, "each warp owns 16 rows of the largest state
 
 __host__ __device__ inline int pad16(int n) { return (n + 15) & ~15; }
 
-// C and B (kQ x ldn), x (kQ x (pt + kPad)) and h^T's two parts (pt x ldn
-// each) in bf16, with ldn = N padded to 16 plus kPad, and four f32 Q-vectors.
+// Two stages, each of C and B (kQ x ldn) and x (kQ x (pt + kPad)) in bf16
+// and four f32 Q-vectors; h^T's two parts (pt x ldn each) in bf16, with
+// ldn = N padded to 16 plus kPad; four partial strips of y (16 x pt) in f32.
 __host__ __device__ inline size_t mma_smem_bytes(int n, int pt) {
   const size_t ldn = pad16(n) + kPad;
-  return (2 * kQ * ldn + (size_t)kQ * (pt + kPad) + 2 * (size_t)pt * ldn) * sizeof(bf16) +
-         4 * kQ * sizeof(float);
+  const size_t stage = 2 * kQ * ldn + (size_t)kQ * (pt + kPad);
+  return (2 * stage + 2 * (size_t)pt * ldn) * sizeof(bf16) +
+         (2 * 4 * kQ + (size_t)(kWarps / 2) * 16 * pt) * sizeof(float);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -420,16 +428,30 @@ __device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool vali
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits for every cp.async group but the last one committed.
+__device__ __forceinline__ void cp_async_wait_all_but_last() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 // Rows r < len and columns c < w of a row-major bf16 matrix (row stride ss)
-// into a kQ x ld tile, zero from there to kQ rows and wpad columns.  vec:
-// w % 8 == 0 or w >= wpad, and 16-byte aligned rows: cp.async, all in flight
-// at once (the caller waits); else element by element.
+// into a kQ x ld tile, zero from there to kQ rows and wpad <= kMaxW columns.  vec:
+// w % 8 == 0 or w >= wpad, and 16-byte aligned rows: cp.async (the caller
+// commits and waits); else element by element.
+template <int kMaxW>
 __device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src, int64_t ss,
                                           int len, int w, int wpad, bool vec, int tid) {
   if (vec) {
-    const int per = wpad / 8;
-    for (int i = tid; i < kQ * per; i += kThreads) {
+    constexpr int per = kMaxW / 8;  // 16-byte pieces of the widest row
+    static_assert(kQ * per % kThreads == 0, "whole rounds of pieces");
+#pragma unroll
+    for (int k = 0; k < kQ * per / kThreads; ++k) {
+      const int i = tid + k * kThreads;
       const int r = i / per, c = (i % per) * 8;
+      if (c >= wpad) continue;
       const bool ok = r < len && c < w;
       cp_async16(dst + r * ld + c, ok ? src + r * ss + c : src, ok);
     }
@@ -454,15 +476,15 @@ ssd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dt,
   static_assert(kNt % 2 == 0, "B operands come two column tiles at a time");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int npad = pad16(N), ldn = npad + kPad;
-  bf16* cs = reinterpret_cast<bf16*>(smem_raw);  // C rows (kQ x ldn)
-  bf16* bs = cs + kQ * ldn;                      // B rows (kQ x ldn)
-  bf16* xs = bs + kQ * ldn;                      // x rows (kQ x kLdX)
-  bf16* ht = xs + kQ * kLdX;                     // the state's copy h^T (PT x ldn) ...
+  // Chunk k's rows and vectors live in stage k % 2: the next chunk's loads
+  // are in flight while this one's products run.
+  const int stage_rows = 2 * kQ * ldn + kQ * kLdX;  // C, B (kQ x ldn), x (kQ x kLdX)
+  bf16* const rows = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ht = rows + 2 * stage_rows;              // the state's copy h^T (PT x ldn) ...
   bf16* hl = ht + PT * ldn;                      // ... and its remainder
-  float* dts = reinterpret_cast<float*>(hl + PT * ldn);  // dt in f32
-  float* cum = dts + kQ;                         // cumsum of la
-  float* ecum = cum + kQ;                        // exp(cum)
-  float* fw = ecum + kQ;                         // exp(cum_Q - cum) dt
+  // Per stage: dt in f32, cum = cumsum of la, exp(cum), exp(cum_Q - cum) dt.
+  float* const vecs = reinterpret_cast<float*>(hl + PT * ldn);
+  float* const part = vecs + 2 * 4 * kQ;  // partial y of 4 strips (16 x PT each)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // the mma fragments' row group, place in it
@@ -500,16 +522,58 @@ ssd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dt,
       hacc[nt][e] = (h0 != nullptr && n < N && p < np) ? h0[hoff + (int64_t)n * P + p] : 0.f;
     }
 
+  // C, B and x rows of chunk k into its stage, zero past the sequence, past
+  // N (to npad) and past P.
+  auto load_chunk = [&](int k) {
+    bf16* dst = rows + (k & 1) * stage_rows;
+    const int t0 = k * kQ, len = min(kQ, seq - t0);
+    load_rows<kMaxN>(dst, ldn, cbm + (int64_t)t0 * sc.s, sc.s, len, N, npad, vec, tid);
+    load_rows<kMaxN>(dst + kQ * ldn, ldn, bb + (int64_t)t0 * sb.s, sb.s, len, N, npad, vec,
+                     tid);
+    load_rows<PT>(dst + 2 * kQ * ldn, kLdX, xb + (int64_t)t0 * row, row, len, np, PT, vec,
+                  tid);
+  };
+  // One warp: dt of chunk k, and cum = cumsum(dt A) (4 steps per lane, then
+  // a scan of the lane sums), into its stage.  Zero past the sequence.
+  auto scan_chunk = [&](int k) {
+    float* dts = vecs + (k & 1) * 4 * kQ;
+    const int t0 = k * kQ, len = min(kQ, seq - t0);
+    float d[4], v[4], run = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int s = 4 * lane + j;
+      d[j] = s < len ? __bfloat162float(dtb[(int64_t)(t0 + s) * heads]) : 0.f;
+      run += d[j] * a_h;
+      v[j] = run;
+    }
+    float incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += u;
+    }
+    const float excl = incl - run;
+    const float total = __shfl_sync(0xffffffffu, incl, 31);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int s = 4 * lane + j;
+      const float cj = v[j] + excl;
+      dts[s] = d[j];
+      dts[kQ + s] = cj;
+      dts[2 * kQ + s] = expf(cj);
+      dts[3 * kQ + s] = expf(total - cj) * d[j];
+    }
+  };
+
   const int nchunks = (seq + kQ - 1) / kQ;
+  if (nchunks > 0) load_chunk(0);
+  cp_async_commit();
+  if (warp == 0 && nchunks > 0) scan_chunk(0);
   for (int c = 0; c < nchunks; ++c) {
     const int t0 = c * kQ;
     const int len = min(kQ, seq - t0);
     __syncthreads();  // the previous chunk's reads of shared memory are done
 
-    // C, B and x rows, zero past the sequence, past N (to npad) and past P.
-    load_rows(cs, ldn, cbm + (int64_t)t0 * sc.s, sc.s, len, N, npad, vec, tid);
-    load_rows(bs, ldn, bb + (int64_t)t0 * sb.s, sb.s, len, N, npad, vec, tid);
-    load_rows(xs, kLdX, xb + (int64_t)t0 * row, row, len, np, PT, vec, tid);
     if (owns_state) {  // h^T in two bf16 parts for this chunk's C h
 #pragma unroll
       for (int nt = 0; nt < kNt; ++nt)
@@ -521,37 +585,17 @@ ssd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dt,
           hl[i] = __float2bfloat16_rn(hacc[nt][e] - __bfloat162float(hi));
         }
     }
-    if (warp == 0) {
-      // dt, and cum = cumsum(dt A): 4 steps per lane, then a scan of the
-      // lane sums.  Zero past the end of the sequence.
-      float d[4], v[4], run = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int s = 4 * lane + j;
-        d[j] = s < len ? __bfloat162float(dtb[(int64_t)(t0 + s) * heads]) : 0.f;
-        run += d[j] * a_h;
-        v[j] = run;
-      }
-      float incl = run;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += u;
-      }
-      const float excl = incl - run;
-      const float total = __shfl_sync(0xffffffffu, incl, 31);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int s = 4 * lane + j;
-        const float cj = v[j] + excl;
-        dts[s] = d[j];
-        cum[s] = cj;
-        ecum[s] = expf(cj);
-        fw[s] = expf(total - cj) * d[j];
-      }
-    }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if (c + 1 < nchunks) load_chunk(c + 1);
+    cp_async_commit();
+    cp_async_wait_all_but_last();  // this chunk's rows have landed
     __syncthreads();
+    const bf16* cs = rows + (c & 1) * stage_rows;  // C rows (kQ x ldn)
+    const bf16* bs = cs + kQ * ldn;                // B rows (kQ x ldn)
+    const bf16* xs = bs + kQ * ldn;                // x rows (kQ x kLdX)
+    const float* dts = vecs + (c & 1) * 4 * kQ;    // dt
+    const float* cum = dts + kQ;                   // cumsum of la
+    const float* ecum = cum + kQ;                  // exp(cum)
+    const float* fw = ecum + kQ;                   // exp(cum_Q - cum) dt
 
     // h' = exp(cum_Q) h + Bw^T x on this warp's 16 rows of the state, over
     // the steps inside the sequence.  Bw^T is read from B's rows with
@@ -584,41 +628,23 @@ ssd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dt,
       }
     }
 
-    // y on this warp's 16 steps, unless they are all past the sequence.
-    if (r0 < len) {
-      const bf16* cw = cs + (r0 + ra) * ldn + ca;  // this lane's row of C's A operands
-      float yacc[kNt][4];
+    // y = exp(cum) (C h) + G x + D x on each strip of 16 steps.  Strip i
+    // has i + 1 s-tiles of the triangle, so the warps pair up: warp w < 4
+    // does its own strip and the first 4 - w s-tiles of strip 7 - w, whose
+    // partial y it leaves in shared memory; warp 7 - w does the other 4
+    // tiles of its strip and adds that partial.  No warp does more than 5.
+    float yacc[kNt][4];
+    auto zero_y = [&]() {
 #pragma unroll
       for (int nt = 0; nt < kNt; ++nt) yacc[nt][0] = yacc[nt][1] = yacc[nt][2] = yacc[nt][3] = 0.f;
-      // exp(cum) (C h): the incoming state, both parts.
-      for (int kk = 0; kk < npad; kk += 16) {
-        uint32_t a[4];
-        ldsm4<false>(a, cw + kk);
-#pragma unroll
-        for (int nt = 0; nt < kNt; nt += 2) {
-          uint32_t bh[4], bl[4];
-          ldsm4<false>(bh, ht + (nt * 8 + rb) * ldn + kk + cb);
-          ldsm4<false>(bl, hl + (nt * 8 + rb) * ldn + kk + cb);
-          mma_bf16(yacc[nt], a, bh[0], bh[1]);
-          mma_bf16(yacc[nt + 1], a, bh[2], bh[3]);
-          mma_bf16(yacc[nt], a, bl[0], bl[1]);
-          mma_bf16(yacc[nt + 1], a, bl[2], bl[3]);
-        }
-      }
-      const float cum0 = cum[r0 + g], cum1 = cum[r0 + g + 8];
-      const float e0 = ecum[r0 + g], e1 = ecum[r0 + g + 8];
-#pragma unroll
-      for (int nt = 0; nt < kNt; ++nt) {
-        yacc[nt][0] *= e0;
-        yacc[nt][1] *= e0;
-        yacc[nt][2] *= e1;
-        yacc[nt][3] *= e1;
-      }
-
-      // + G x over the s-tiles 0..warp (16 steps each), two at a time: S =
-      // C B^T for the pair, then G per tile in registers and its product.
-      for (int j = 0; j <= warp; j += 2) {
-        const bool two = j + 1 <= warp;  // the pair's second tile is on or below the diagonal
+    };
+    // + G x for the strip at row0 over its s-tiles jlo..jhi, two at a time:
+    // S = C B^T for the pair, then G per tile in registers and its product.
+    auto triangle = [&](int row0, int jlo, int jhi) {
+      const bf16* cw = cs + (row0 + ra) * ldn + ca;  // this lane's row of C's A operands
+      const float cum0 = cum[row0 + g], cum1 = cum[row0 + g + 8];
+      for (int j = jlo; j <= jhi; j += 2) {
+        const bool two = j + 1 <= jhi;  // the pair's second tile is in the range
         float sacc[4][4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) sacc[q][0] = sacc[q][1] = sacc[q][2] = sacc[q][3] = 0.f;
@@ -643,7 +669,7 @@ ssd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dt,
           for (int q = 0; q < 2; ++q)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              const int tt = r0 + g + 8 * (e >> 1);
+              const int tt = row0 + g + 8 * (e >> 1);
               const int ss = s0 + 8 * q + 2 * t + (e & 1);
               gv[q][e] = ss <= tt ? sacc[2 * jj + q][e] * expf((e >> 1 ? cum1 : cum0) - cum[ss]) *
                                         dts[ss]
@@ -665,8 +691,9 @@ ssd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dt,
           }
         }
       }
-
-      // + D x from the exact bf16 x, rounded once and stored.
+    };
+    // + D x from the exact bf16 x, rounded once and stored.
+    auto store_y = [&]() {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int tt = r0 + g + 8 * r;
@@ -686,6 +713,70 @@ ssd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dt,
           }
         }
       }
+    };
+    // A partial y of 16 rows and PT columns, in the mma accumulators' order.
+    auto part_at = [&](int w, int r, int nt) {
+      return part + (w * 16 + g + 8 * r) * PT + nt * 8 + 2 * t;
+    };
+
+    constexpr int kHalf = kWarps / 2;
+    const bool live = r0 < len;  // this warp's strip has steps inside the sequence
+    if (live) {
+      zero_y();
+      // exp(cum) (C h): the incoming state, both parts.
+      const bf16* cw = cs + (r0 + ra) * ldn + ca;
+      for (int kk = 0; kk < npad; kk += 16) {
+        uint32_t a[4];
+        ldsm4<false>(a, cw + kk);
+#pragma unroll
+        for (int nt = 0; nt < kNt; nt += 2) {
+          uint32_t bh[4], bl[4];
+          ldsm4<false>(bh, ht + (nt * 8 + rb) * ldn + kk + cb);
+          ldsm4<false>(bl, hl + (nt * 8 + rb) * ldn + kk + cb);
+          mma_bf16(yacc[nt], a, bh[0], bh[1]);
+          mma_bf16(yacc[nt + 1], a, bh[2], bh[3]);
+          mma_bf16(yacc[nt], a, bl[0], bl[1]);
+          mma_bf16(yacc[nt + 1], a, bl[2], bl[3]);
+        }
+      }
+      const float e0 = ecum[r0 + g], e1 = ecum[r0 + g + 8];
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+        yacc[nt][0] *= e0;
+        yacc[nt][1] *= e0;
+        yacc[nt][2] *= e1;
+        yacc[nt][3] *= e1;
+      }
+      triangle(r0, warp < kHalf ? 0 : warp - (kHalf - 1), warp);
+    }
+    if (warp < kHalf) {
+      if (live) store_y();
+      const int partner = kWarps - 1 - warp;
+      if (16 * partner < len) {
+        zero_y();
+        triangle(16 * partner, 0, kHalf - 1 - warp);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt)
+            *reinterpret_cast<float2*>(part_at(warp, r, nt)) =
+                make_float2(yacc[nt][2 * r], yacc[nt][2 * r + 1]);
+      }
+    }
+    // The last warp, one of the four with 4 s-tiles, takes the next chunk's
+    // cumsum while the helpers finish their fifth.
+    if (warp == kWarps - 1 && c + 1 < nchunks) scan_chunk(c + 1);
+    __syncthreads();  // the partials are written
+    if (warp >= kHalf && live) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+          const float2 v = *reinterpret_cast<const float2*>(part_at(kWarps - 1 - warp, r, nt));
+          yacc[nt][2 * r] += v.x;
+          yacc[nt][2 * r + 1] += v.y;
+        }
+      store_y();
     }
   }
 
@@ -723,87 +814,44 @@ int launch_f32(const void* x, const void* dt, const void* A, const void* bm, con
   return (int)cudaGetLastError();
 }
 
-// Grants the mma kernel its shared memory (once per instantiation) and
-// gives the blocks that fit one SM at the largest state.
-template <int PT>
-cudaError_t mma_blocks_per_sm(int* blocks) {
-  static int cached = 0;
-  if (cached == 0) {
-    auto kernel = ssd_mma_kernel<PT>;
-    const int bytes = (int)mma_smem_bytes(kMaxN, PT);
-    int n = 0;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, bytes);
-    if (err != cudaSuccess) return err;
-    cached = n > 0 ? n : 1;
-  }
-  *blocks = cached;
-  return cudaSuccess;
-}
-
 template <int PT>
 int launch_mma(const void* x, const void* dt, const void* A, const void* bm, const void* cm,
                const void* D, const void* h0, void* y, void* h_last, const int64_t* st,
                int batch, int seq, int heads, int P, int N, int vec, cudaStream_t stream) {
-  int blocks = 0;
-  cudaError_t err = mma_blocks_per_sm<PT>(&blocks);
-  if (err != cudaSuccess) return (int)err;
+  auto kernel = ssd_mma_kernel<PT>;
+  static bool configured = false;  // one attribute call per instantiation
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)mma_smem_bytes(kMaxN, PT));
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
   const Strides sb{st[0], st[1], st[2]}, sc{st[3], st[4], st[5]};
   const dim3 grid((P + PT - 1) / PT, heads, batch);
-  ssd_mma_kernel<PT><<<grid, kThreads, mma_smem_bytes(N, PT), stream>>>(
+  kernel<<<grid, kThreads, mma_smem_bytes(N, PT), stream>>>(
       (const bf16*)x, (const bf16*)dt, (const float*)A, (const bf16*)bm, (const bf16*)cm,
       (const float*)D, (const float*)h0, (bf16*)y, (float*)h_last, sb, sc, seq, heads, P, N,
       vec);
   return (int)cudaGetLastError();
 }
 
-// The f32 kernel's P-tile: the least waves x work per block and chunk.
-// Every tile recomputes C B^T (Q^2 N multiply-adds) and does pt (Q^2 + 2 Q N)
-// more.  One block fits an SM at N = 128, so the waves are whole.  A tile
-// mostly past P is not considered.
-int pick_pt_f32(int64_t bh, int P, int N, int sms) {
+// The P-tile with the least waves of blocks x work(pt) per block and chunk.
+// Either kernel's shared-memory plan takes more than half an SM at N = 128,
+// so one block fits an SM and the waves are whole.  A tile mostly past P is
+// not considered.
+template <typename Work>
+int pick_pt(int64_t bh, int P, int sms, Work work) {
   int pt = 16;
   double best = 0.0;
   for (int cand = 16; cand <= 64 && (cand == 16 || cand / 2 < P); cand *= 2) {
     const int64_t blocks = bh * ((P + cand - 1) / cand);
-    const double work = (double)((blocks + sms - 1) / sms) *
-                        ((double)kQ * kQ * N + (double)cand * (kQ * kQ + 2.0 * kQ * N));
-    if (cand == 16 || work < best) {
-      best = work;
+    const double cost = (double)((blocks + sms - 1) / sms) * work(cand);
+    if (cand == 16 || cost < best) {
+      best = cost;
       pt = cand;
     }
   }
   return pt;
-}
-
-// The bf16 kernel's P-tile: the least waves x the mma steps per chunk of
-// its busiest warp (the strip at the bottom of the triangle): C h and the
-// state update (pt/8 column tiles by npad/16 and, twice for the split Bw,
-// Q/16 steps), S over all Q/16 s-tiles (2 x npad/16 each) and G x (pt/8
-// each); the waves count the blocks that fit one SM.  A tile mostly past P
-// is not considered.
-cudaError_t pick_pt_mma(int64_t bh, int P, int N, int sms, int* pt) {
-  const int kn = pad16(N) / 16, ks = kQ / 16;
-  double best = 0.0;
-  for (int cand = 16; cand <= 64 && (cand == 16 || cand / 2 < P); cand *= 2) {
-    int per_sm = 1;
-    cudaError_t err = cand == 64   ? mma_blocks_per_sm<64>(&per_sm)
-                      : cand == 32 ? mma_blocks_per_sm<32>(&per_sm)
-                                   : mma_blocks_per_sm<16>(&per_sm);
-    if (err != cudaSuccess) return err;
-    const int64_t blocks = bh * ((P + cand - 1) / cand);
-    const int64_t slots = (int64_t)sms * per_sm;
-    const int tiles = cand / 8;
-    const double work = (double)((blocks + slots - 1) / slots) *
-                        (tiles * kn + 2.0 * tiles * ks + ks * 2.0 * kn + ks * tiles);
-    if (cand == 16 || work < best) {
-      best = work;
-      *pt = cand;
-    }
-  }
-  return cudaSuccess;
 }
 
 }  // namespace
@@ -827,9 +875,15 @@ extern "C" int ssd_fwd(const void* x, const void* dt, const void* A, const void*
   const int64_t bh = (int64_t)batch * heads;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
-    int pt = 16;
-    err = pick_pt_mma(bh, P, N, sms, &pt);
-    if (err != cudaSuccess) return (int)err;
+    // Work: the mma steps per chunk of a busiest warp.  C h and the state
+    // update: pt/8 column tiles by npad/16 and Q/16 steps, both parts; 5
+    // s-tiles of the triangle: S (2 x npad/16 steps) and G x (pt/8 column
+    // tiles, both parts).  Every tile recomputes S.
+    const int kn = pad16(N) / 16, ks = kQ / 16;
+    const int pt = pick_pt(bh, P, sms, [&](int cand) {
+      const int tiles = cand / 8;
+      return 2.0 * tiles * (kn + ks) + (kWarps / 2 + 1) * (2.0 * kn + 2.0 * tiles);
+    });
     // 16-byte loads of x, B and C rows and 4-byte stores of y pairs.
     const bool aligned =
         ((uintptr_t)x | (uintptr_t)bm | (uintptr_t)cm | (uintptr_t)y) % 16 == 0;
@@ -845,7 +899,11 @@ extern "C" int ssd_fwd(const void* x, const void* dt, const void* A, const void*
     return launch_mma<16>(x, dt, A, bm, cm, D, h0, y, h_last, strides, batch, seq, heads, P, N,
                           v, s);
   }
-  const int pt = pick_pt_f32(bh, P, N, sms);
+  // Work: every tile recomputes C B^T (Q^2 N multiply-adds) and does
+  // pt (Q^2 + 2 Q N) more.
+  const int pt = pick_pt(bh, P, sms, [&](int cand) {
+    return (double)kQ * kQ * N + (double)cand * (kQ * kQ + 2.0 * kQ * N);
+  });
   if (pt == 64)
     return launch_f32<64>(x, dt, A, bm, cm, D, h0, y, h_last, strides, batch, seq, heads, P, N,
                           s);
