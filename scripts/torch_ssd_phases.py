@@ -44,9 +44,9 @@ GUARDS = [
      "      if (!(SKIP & 8)) for (int j = jlo; j <= jhi; j += 2) {"),
     (16, "    if (warp == kWarps - 1 && c + 1 < nchunks) scan_chunk(c + 1);",
      "    if (!(SKIP & 16) && warp == kWarps - 1 && c + 1 < nchunks) scan_chunk(c + 1);"),
-    (0, "    err = pick_pt_mma(bh, P, N, sms, &pt);\n    if (err != cudaSuccess) return (int)err;\n",
-     "    err = pick_pt_mma(bh, P, N, sms, &pt);\n    if (err != cudaSuccess) return (int)err;\n"
-     "    if (FORCE_PT) pt = FORCE_PT;\n"),
+    (0, "    const int pt = pick_pt(bh, P, sms, [&](int cand) {\n      const int tiles",
+     "    const int pt = FORCE_PT ? FORCE_PT : pick_pt(bh, P, sms, [&](int cand) {\n"
+     "      const int tiles"),
 ]
 # (forced P-tile or 0 for the rule, phases off)
 VARIANTS = ([(0, 0)] + [(pt, 0) for pt in (16, 32, 64)]
