@@ -88,6 +88,9 @@ BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 # to 2e-5 for 13M rows into one group through scatter).  Counts are exact.
 FLOAT_RTOL = 1e-4
 PARITY_FILES = 97           # N = 97 lineitem files = 1,261,000 rows, no block multiple
+# Phase 4's calibration batch sizes in files: measure_cost_model's default
+# (1, 4, 16, 64) and sizes that span the single-query plans' batches.
+CALIBRATION_FILES = (1, 4, 16, 64, 256, 1024, 2048, 3072)
 CROSSOVER_GROUPS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096,
                     8192, 12288)
 # LM kernels: bf16 output against the plain version in f32 (bf16 rounds the
@@ -114,6 +117,7 @@ SSD_DESIGN = "CUDA C++ sm_90a, mma.sync bf16 (f32: CUDA cores)"
 SERVE_ARCH = "recurrentgemma_9b"
 SERVE_SEQ = 4096            # twice the local-attention window
 SERVE_BUCKETS = (1, 2, 4, 8)
+LM_BATCHES = SERVE_BUCKETS  # phase 10 times flash and RG-LRU at each
 SSM_ARCH = "mamba2_370m"
 SSM_SEQ = 32768             # models/base.py SHAPES["prefill_32k"].seq_len
 SSM_SWAP_BATCH = 2          # the plain SSD's f32 intermediates at 48 layers
@@ -200,13 +204,19 @@ def check_result(qid: str, got: np.ndarray, want: np.ndarray) -> str:
     return "counts exact"
 
 
-def measured_finish(plan, batch_log, agg_s: float) -> float:
-    """Completion instant with each batch's measured seconds in place of its
-    modelled cost: a batch starts at its trigger or when the last ended."""
+def finish_time(plan, batch_seconds, agg_s: float) -> float:
+    """Completion instant of ``plan`` with these batch seconds (measured, or
+    the cost model's): a batch starts at its trigger or when the last
+    ended, and the final aggregation follows the last batch."""
     t = 0.0
-    for point, b in zip(plan.sch_points, batch_log):
-        t = max(t, point) + b.seconds
+    for point, secs in zip(plan.sch_points, batch_seconds):
+        t = max(t, point) + secs
     return t + agg_s
+
+
+def outcome(finish: float, deadline: float) -> str:
+    return ("met" if finish <= deadline
+            else f"MISSED by {(finish - deadline) * 1e3:.3f} ms")
 
 
 def staggered(queries, delta: float, c_max: float, seed: int = 0):
@@ -260,17 +270,32 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got - want).abs() / (1.0 + want.abs())).max().item()
 
 
-def check_close(what: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+def worst_ratio(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> float:
+    """The largest |got - want| / (atol + rtol |want|): ``torch.allclose``
+    holds exactly when it is at most 1."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
+def check_close(what: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple:
     """``got`` within ``tol`` of ``want`` (absolute plus relative, as
-    ``torch.allclose``); returns the largest absolute error."""
+    ``torch.allclose``); returns the largest absolute error and the worst
+    ratio of |got - want| to ``tol + tol |want|``."""
     got, want = got.float(), want.float()
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise AssertionError(f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)} "
                              f"or non-finite values")
+    ratio = worst_ratio(got, want, tol, tol)
     if not torch.allclose(got, want, rtol=tol, atol=tol):
-        raise AssertionError(f"{what}: max abs err {(got - want).abs().max().item():.3e} "
-                             f"above {tol}")
-    return (got - want).abs().max().item()
+        raise AssertionError(f"{what}: max abs err {(got - want).abs().max().item():.3e}, "
+                             f"worst ratio {ratio:.3f} to {tol} + {tol} |want|")
+    return (got - want).abs().max().item(), ratio
+
+
+def shown(err: tuple) -> str:
+    """A ``check_close`` result as printed: the largest absolute error, then
+    the worst ratio to the allclose limit (which passes up to 1)."""
+    return f"{err[0]:.3e} ({err[1]:.3f} of the allclose limit)"
 
 
 def sharpness(q: torch.Tensor, k: torch.Tensor, window: int) -> str:
@@ -306,7 +331,7 @@ def lm_kernel_parity(flash_cuda, flash_plain, rglru_cuda, rglru_plain) -> None:
         want = flash_plain(q.float(), k.float(), v.float(), causal, window, cap)
         err = check_close(f"flash B={B} S={S} H={H}/{Hkv} D={D}", got, want, BF16_TOL)
         log(f"  parity flash_attention B={B} S={S:>4} H={H:>2} Hkv={Hkv} D={D:>3} "
-            f"causal={causal!s:5} window={window:>4} cap={cap:>4}: max abs err {err:.3e}")
+            f"causal={causal!s:5} window={window:>4} cap={cap:>4}: max abs err {shown(err)}")
     for B, S, N in ((1, 1000, 4096), (8, 777, 4096), (1, 333, 1000), (8, 129, 33)):
         x = randn(B, S, N)
         r, i = torch.sigmoid(randn(B, S, N)), torch.sigmoid(randn(B, S, N))
@@ -321,7 +346,7 @@ def lm_kernel_parity(flash_cuda, flash_plain, rglru_cuda, rglru_plain) -> None:
         check_close(f"rglru f32 B={B} S={S} N={N}", y32, y_ref, STATE_TOL)
         check_close(f"rglru f32 h_last B={B} S={S} N={N}", h32, h_ref, STATE_TOL)
         log(f"  parity rglru           B={B} S={S:>4} N={N:>4}: bf16 y max abs err "
-            f"{err_y:.3e}, h_last {err_h:.3e}; f32 within {STATE_TOL}")
+            f"{shown(err_y)}, h_last {shown(err_h)}; f32 within {STATE_TOL}")
 
 
 def ssd_inputs(gen, B, S, H, P, N, dtype, shared, with_h0):
@@ -357,7 +382,15 @@ def check_ssd(what, ssd_cuda, ssd_plain, args):
         raise AssertionError(f"{what} h_last: max abs err "
                              f"{(h - h_ref).abs().max().item():.3e} above rtol "
                              f"{SSD_H_RTOL}, atol {SSD_H_ATOL[x.dtype]}")
-    return err_y, (h - h_ref).abs().max().item()
+    return err_y, ((h - h_ref).abs().max().item(),
+                   worst_ratio(h, h_ref, SSD_H_RTOL, SSD_H_ATOL[x.dtype]))
+
+
+def worst(errs) -> tuple:
+    """The largest absolute error and the worst ratio of several
+    ``check_close`` results (each taken over all of them)."""
+    errs = list(errs)
+    return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
 def ssd_kernel_parity(ssd_cuda, ssd_plain) -> None:
@@ -375,8 +408,8 @@ def ssd_kernel_parity(ssd_cuda, ssd_plain) -> None:
                                 f"shared={shared} h0={with_h0}", ssd_cuda, ssd_plain, args))
                     log(f"  parity ssd             B={B} S={S:>4} H={H:>2} P={P} N={N:>3} "
                         f"{str(dtype)[6:]:8s} (B, C shared or per head; h0 or none): "
-                        f"y max abs err {max(e[0] for e in errs):.3e}, h_last "
-                        f"{max(e[1] for e in errs):.3e}")
+                        f"y max abs err {shown(worst(e[0] for e in errs))}, h_last "
+                        f"{shown(worst(e[1] for e in errs))}")
 
 
 # -- phase 9 -----------------------------------------------------------------
@@ -465,47 +498,77 @@ def bound(ops: float, nbytes: float, ops_per_s: float):
     return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
 
 
-def lm_kernel_times(flash_cuda, flash_plain, flash_fb, rglru_cuda, rglru_plain,
-                    rglru_fb) -> dict:
+def lm_kernel_times(flash_cuda, flash_sync, flash_plain, flash_fb, rglru_cuda,
+                    rglru_serial, rglru_plain, rglru_fb) -> dict:
+    """Flash attention and RG-LRU at recurrentgemma-9b's prefill shapes for
+    each batch size of the serving path (``LM_BATCHES``): the kernel and
+    the earlier design it replaced, each held against the plain version,
+    their times, SDPA's (flash) and the bound.  Returns the entries of the
+    result line at the largest batch."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    B, S, H, Hkv, D, W, N = 8, SERVE_SEQ, 16, 1, 256, 2048, 4096
-    q = torch.randn((B, S, H, D), device="cuda", generator=gen).bfloat16()
-    k = torch.randn((B, S, Hkv, D), device="cuda", generator=gen).bfloat16()
-    v = torch.randn((B, S, Hkv, D), device="cuda", generator=gen).bfloat16()
-    err = check_close("flash at the path's shape", flash_cuda(q, k, v, True, W),
-                      flash_plain(q, k, v, True, W), BF16_TOL)
+    Bmax, S, H, Hkv, D, W, N = LM_BATCHES[-1], SERVE_SEQ, 16, 1, 256, 2048, 4096
+    q = torch.randn((Bmax, S, H, D), device="cuda", generator=gen).bfloat16()
+    k = torch.randn((Bmax, S, Hkv, D), device="cuda", generator=gen).bfloat16()
+    v = torch.randn((Bmax, S, Hkv, D), device="cuda", generator=gen).bfloat16()
     pos = torch.arange(S, device="cuda")
     mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    out = {}
+    for B in LM_BATCHES:
+        qb, kb, vb = q[:B], k[:B], v[:B]
+        want = flash_plain(qb, kb, vb, True, W)
+        err = check_close(f"flash B={B} at the path's shape", flash_cuda(qb, kb, vb, True, W),
+                          want, BF16_TOL)
+        err_old = check_close(f"the earlier flash kernel B={B} at the path's shape",
+                              flash_sync(qb, kb, vb, True, W), want, BF16_TOL)
+        qt, kt, vt = qb.transpose(1, 2), kb.transpose(1, 2), vb.transpose(1, 2)
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
-    # the yardstick computes the same function (logged, not a gate of the port)
-    log(f"  SDPA yardstick max abs err against the plain version "
-        f"{(sdpa().transpose(1, 2).float() - flash_plain(q, k, v, True, W).float()).abs().max().item():.3e}")
-    b_ms, b_by = bound(*flash_fb(B, S, S, H, Hkv, D, True, W), BF16_OPS_PER_S)
-    out = {"flash_attention": {
-        "max_abs_err": err, "ms": cuda_ms(lambda: flash_cuda(q, k, v, True, W)),
-        "plain_ms": cuda_ms(lambda: flash_plain(q, k, v, True, W), reps=2),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(sdpa)}}
-    del q, k, v, qt, kt, vt
-    x = torch.randn((B, S, N), device="cuda", generator=gen).bfloat16()
-    r = torch.sigmoid(torch.randn((B, S, N), device="cuda", generator=gen)).bfloat16()
-    i = torch.sigmoid(torch.randn((B, S, N), device="cuda", generator=gen)).bfloat16()
+        # the yardstick computes the same function (logged, not a gate of the port)
+        sdpa_err = (sdpa().transpose(1, 2).float() - want.float()).abs().max().item()
+        b_ms, b_by = bound(*flash_fb(B, S, S, H, Hkv, D, True, W), BF16_OPS_PER_S)
+        r = {"max_abs_err": err[0], "ms": cuda_ms(lambda: flash_cuda(qb, kb, vb, True, W)),
+             "old_ms": cuda_ms(lambda: flash_sync(qb, kb, vb, True, W)),
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(sdpa)}
+        log(f"  flash_attention B={B}: kernel {r['ms']:.4f} ms, earlier kernel "
+            f"{r['old_ms']:.4f} ({r['old_ms'] / r['ms']:.2f}x), SDPA {r['library_ms']:.4f} "
+            f"({r['library_ms'] / r['ms']:.2f}x), bound {b_ms:.4f} by {b_by} "
+            f"({b_ms / r['ms']:.1%} of it reached; earlier {b_ms / r['old_ms']:.1%}); max abs "
+            f"err {shown(err)}, earlier kernel {shown(err_old)}, SDPA {sdpa_err:.3e}")
+        if B == Bmax:
+            r["plain_ms"] = cuda_ms(lambda: flash_plain(qb, kb, vb, True, W), reps=2)
+            out["flash_attention"] = r
+        del want, qt, kt, vt
+    del q, k, v
+    x = torch.randn((Bmax, S, N), device="cuda", generator=gen).bfloat16()
+    r_ = torch.sigmoid(torch.randn((Bmax, S, N), device="cuda", generator=gen)).bfloat16()
+    i = torch.sigmoid(torch.randn((Bmax, S, N), device="cuda", generator=gen)).bfloat16()
     a_param = torch.randn((N,), device="cuda", generator=gen)
-    h0 = torch.zeros((B, N), device="cuda")
-    y, h = rglru_cuda(x, r, i, a_param, h0)
-    y_ref, h_ref = rglru_plain(x, r, i, a_param, h0)
-    err = check_close("rglru at the path's shape", y, y_ref, BF16_TOL)
-    check_close("rglru h_last at the path's shape", h, h_ref, STATE_TOL)
-    b_ms, b_by = bound(*rglru_fb(B, S, N), F32_OPS_PER_S)
-    out["rglru"] = {
-        "max_abs_err": err, "ms": cuda_ms(lambda: rglru_cuda(x, r, i, a_param, h0)),
-        "plain_ms": cuda_ms(lambda: rglru_plain(x, r, i, a_param, h0), reps=2),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    h0 = torch.zeros((Bmax, N), device="cuda")
+    for B in LM_BATCHES:
+        args = (x[:B], r_[:B], i[:B], a_param, h0[:B])
+        y_ref, h_ref = rglru_plain(*args)
+        errs = []
+        for what, fn in (("rglru", rglru_cuda), ("the earlier rglru kernel", rglru_serial)):
+            y, h = fn(*args)
+            errs.append((check_close(f"{what} B={B} at the path's shape", y, y_ref, BF16_TOL),
+                         check_close(f"{what} h_last B={B} at the path's shape", h, h_ref,
+                                     STATE_TOL)))
+        b_ms, b_by = bound(*rglru_fb(B, S, N), F32_OPS_PER_S)
+        r = {"max_abs_err": errs[0][0][0], "ms": cuda_ms(lambda: rglru_cuda(*args)),
+             "old_ms": cuda_ms(lambda: rglru_serial(*args)),
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        log(f"  rglru B={B}: kernel {r['ms']:.4f} ms, earlier kernel {r['old_ms']:.4f} "
+            f"({r['old_ms'] / r['ms']:.2f}x), bound {b_ms:.4f} by {b_by} "
+            f"({b_ms / r['ms']:.1%} of it reached; earlier {b_ms / r['old_ms']:.1%}); y max "
+            f"abs err {shown(errs[0][0])}, h_last {shown(errs[0][1])}; earlier kernel y "
+            f"{shown(errs[1][0])}, h_last {shown(errs[1][1])}")
+        if B == Bmax:
+            r["plain_ms"] = cuda_ms(lambda: rglru_plain(*args), reps=2)
+            out["rglru"] = r
     return out
 
 
@@ -519,13 +582,14 @@ def ssd_kernel_times(ssd_cuda, ssd_plain, ssd_bf16ops, ssd_fb) -> dict:
     x, dt, A, Bm, Cm, D, _ = ssd_inputs(gen, B, S, H, P, N, torch.bfloat16, True, False)
     h0 = torch.zeros((B, H, N, P), device="cuda")  # prefill's zeroed cache state
     args = (x, dt, A, Bm, Cm, D, h0)
-    err, _ = check_ssd("ssd at the path's shape", ssd_cuda, ssd_plain, args)
+    err, err_h = check_ssd("ssd at the path's shape", ssd_cuda, ssd_plain, args)
+    log(f"  ssd at the path's shape: y max abs err {shown(err)}, h_last {shown(err_h)}")
     err_ops = check_close("ssd at the path's shape against its arithmetic", ssd_cuda(*args)[0],
                           ssd_bf16ops(*args[:6], 128, h0)[0], SSD_BF16OPS_Y_TOL)
-    log(f"  ssd against the plain version of its arithmetic: y max abs err {err_ops:.3e} "
+    log(f"  ssd against the plain version of its arithmetic: y max abs err {shown(err_ops)} "
         f"(limit {SSD_BF16OPS_Y_TOL})")
     b_ms, b_by = bound(*ssd_fb(B, S, H, P, N), BF16_OPS_PER_S)
-    return {"design": SSD_DESIGN, "max_abs_err": err, "ms": cuda_ms(lambda: ssd_cuda(*args)),
+    return {"design": SSD_DESIGN, "max_abs_err": err[0], "ms": cuda_ms(lambda: ssd_cuda(*args)),
             "plain_ms": cuda_ms(lambda: ssd_plain(x, dt, A, Bm, Cm, D, 128, h0), reps=2),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
@@ -622,7 +686,12 @@ def check_launches(cfg, got: dict, wall_s: float) -> None:
     calls = got["prefill_calls"]
     want = {k: calls * sum(seg.pattern.count(kind) * seg.num_units for seg in cfg.segments)
             for kind, k in KIND_KERNEL.items()}
+    by_batch = got.pop("by_batch")
     log(f"  serving path {wall_s:.1f} s wall; launches {got}; expected {want}")
+    log("  by batch size: " + "; ".join(
+        f"B={b}: {row['calls']} calls, " + ", ".join(
+            f"{k} {n}" for k, n in row.items() if k != "calls" and n)
+        for b, row in by_batch.items()))
     if calls <= 0 or got["plain_on_cuda"] or any(got[k] != n for k, n in want.items()):
         raise AssertionError(f"the {cfg.name} serving path must run through its LM "
                              f"kernels only")
@@ -636,11 +705,19 @@ class LaunchCounters:
     def __init__(self, lm, kernels, plains):
         self.kernels = kernels
         self.prefills = self.plain_cuda = 0
+        self.by_batch = {}  # batch size -> prefill calls and launches in them
         prefill = lm.prefill
 
-        def counted_prefill(*a, **kw):
+        def counted_prefill(cfg, params, tokens, *a, **kw):
             self.prefills += 1
-            return prefill(*a, **kw)
+            before = {n: k.launches for n, k in self.kernels.items()}
+            out = prefill(cfg, params, tokens, *a, **kw)
+            row = self.by_batch.setdefault(tokens.shape[0],
+                                           dict.fromkeys(["calls", *self.kernels], 0))
+            row["calls"] += 1
+            for n, k in self.kernels.items():
+                row[n] += k.launches - before[n]
+            return out
 
         def counted(plain):
             def call(t, *a, **kw):
@@ -656,10 +733,12 @@ class LaunchCounters:
         for k in self.kernels.values():
             k.launches = 0
         self.prefills = self.plain_cuda = 0
+        self.by_batch = {}
 
     def read(self) -> dict:
         return {**{n: k.launches for n, k in self.kernels.items()},
-                "prefill_calls": self.prefills, "plain_on_cuda": self.plain_cuda}
+                "prefill_calls": self.prefills, "plain_on_cuda": self.plain_cuda,
+                "by_batch": {b: dict(row) for b, row in sorted(self.by_batch.items())}}
 
 
 def main(argv=None) -> int:
@@ -667,6 +746,9 @@ def main(argv=None) -> int:
     ap.add_argument("--files", type=int, default=4500,
                     help="files per stream (the paper's window: 4500)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lm-kernels-only", action="store_true",
+                    help="phases 1, 2, 8 and 10 only (the LM kernels' parity and "
+                         "times); prints no result line")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -683,15 +765,16 @@ def main(argv=None) -> int:
     from repro_torch.kernels.segagg.segagg import (
         segagg_narrow_cuda, segagg_scatter_cuda)
     from repro_torch.serve.analytics import (
-        AnalyticsRuntimeExecutor, concat_files, measure_cost_model, run_plan)
+        AnalyticsRuntimeExecutor, concat_files, measure_cost_model, run_batched, run_plan)
     from repro_torch import core
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention_cuda, flops_bytes as flash_flops_bytes)
+        flash_attention_cuda, flash_attention_sync_cuda, flops_bytes as flash_flops_bytes)
     from repro_torch.kernels.flash_attention.ref import chunked_attention_ref
     from repro_torch.kernels.rglru import ops as rg_ops
     from repro_torch.kernels.rglru.ref import rglru_ref
-    from repro_torch.kernels.rglru.rglru import flops_bytes as rglru_flops_bytes, rglru_cuda
+    from repro_torch.kernels.rglru.rglru import (
+        flops_bytes as rglru_flops_bytes, rglru_cuda, rglru_serial_cuda)
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_chunked_bf16ops_ref, ssd_chunked_ref
     from repro_torch.kernels.ssd.ssd import flops_bytes as ssd_flops_bytes, ssd_cuda
@@ -717,6 +800,18 @@ def main(argv=None) -> int:
         for line in build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {lib_name}: " + line.strip())
+
+    if args.lm_kernels_only:
+        log("[8] LM kernel parity against the plain version")
+        lm_kernel_parity(flash_attention_cuda, chunked_attention_ref, rglru_cuda, rglru_ref)
+        ssd_kernel_parity(ssd_cuda, ssd_chunked_ref)
+        log(f"[10] LM kernels at the paths' shapes (B in {LM_BATCHES}); ms, CUDA events")
+        lm_kernel_times(flash_attention_cuda, flash_attention_sync_cuda, chunked_attention_ref,
+                        flash_flops_bytes, rglru_cuda, rglru_serial_cuda, rglru_ref,
+                        rglru_flops_bytes)
+        ssd_kernel_times(ssd_cuda, ssd_chunked_ref, ssd_chunked_bf16ops_ref, ssd_flops_bytes)
+        log(f"total {time.perf_counter() - t_start:.1f} s; LM kernels only: no result line")
+        return 0
 
     # 3. kernel parity
     sc = StreamScale(1.0)
@@ -760,28 +855,42 @@ def main(argv=None) -> int:
 
     # 4. single-query path
     log(f"[4] single-query path, {n} files, Planner('single')")
+    # Calibrated at batch sizes that span the plans' batches (1,800-2,700
+    # files at the paper's window), not only at measure_cost_model's default
+    # (1, 4, 16, 64), from which the plans' batches are a 30-40x
+    # extrapolation; each of a plan's batch sizes is run once before
+    # run_plan times it, as the calibration warms each of its sizes.
+    log(f"    calibration batch sizes {CALIBRATION_FILES} files; each plan's batch sizes "
+        f"warmed up once before run_plan")
     for qid in ("CQ3", "CQ4", "CQ2", "TPC-Q6-like"):
         aq, files = by_id[qid], streams[by_id[qid].stream]
         t0 = time.perf_counter()
-        cm = measure_cost_model(aq, files, sc, device="cuda")
+        cm = measure_cost_model(aq, files, sc, batch_sizes=CALIBRATION_FILES, device="cuda")
         t_cal = time.perf_counter() - t0
         deadline = arrival.wind_end + 0.6 * cm.cost(n)
         q = Query(f"{qid}-deadline", arrival.wind_start, arrival.wind_end,
                   deadline, n, cm, arrival)
         plan = Planner(policy="single").schedule(q)
+        for size in sorted(set(plan.sch_tuples)):
+            run_batched(aq, files[:size], size, sc, device="cuda")
         t0 = time.perf_counter()
         result, blog, agg_s = run_plan(aq, files, plan, sc, device="cuda")
         t_run = time.perf_counter() - t0
         verdict = check_result(qid, result, oneshot[qid])
         largest[qid] = max(largest.get(qid, 0), max(b.num_records for b in blog))
-        finish = measured_finish(plan, blog, agg_s)
+        finish = finish_time(plan, [b.seconds for b in blog], agg_s)
+        modelled = finish_time(plan, [cm.cost(k) for k in plan.sch_tuples],
+                               cm.agg_cost(len(plan.sch_tuples)))
         log(f"  {qid:12s} G={aq.num_groups(sc):>8} calibrate {t_cal:.1f} s, "
             f"cost(1)={cm.cost(1) * 1e3:.3f} ms cost({n})={cm.cost(n) * 1e3:.2f} ms; "
             f"plan {plan.sch_tuples} files (modelled {plan_cost(q, plan) * 1e3:.2f} ms); "
             f"run_plan {t_run:.2f} s wall, batches "
-            f"{[round(b.seconds * 1e3, 3) for b in blog]} ms, agg {agg_s * 1e3:.3f} ms; "
-            f"finish {finish:.4f} vs deadline {deadline:.4f}: "
-            f"{'met' if finish <= deadline else 'MISSED'}; {verdict}")
+            f"{[round(b.seconds * 1e3, 3) for b in blog]} ms (modelled "
+            f"{[round(cm.cost(k) * 1e3, 3) for k in plan.sch_tuples]}), agg "
+            f"{agg_s * 1e3:.3f} ms (modelled {cm.agg_cost(len(plan.sch_tuples)) * 1e3:.3f}); "
+            f"deadline {deadline:.4f}: modelled finish {modelled:.4f} "
+            f"{outcome(modelled, deadline)}, measured finish {finish:.4f} "
+            f"{outcome(finish, deadline)}; {verdict}")
 
     # 5. multi-query path
     log(f"[5] multi-query path, six queries, Planner('llf-dynamic'), paper cost models")
@@ -934,8 +1043,8 @@ def main(argv=None) -> int:
             y_ref, h_ref = rglru_ref(x.float(), r.float(), i.float(), a_param, h0)
             err_y = check_close("rglru y on the model's inputs", y, y_ref, BF16_TOL)
             err_h = check_close("rglru h_last on the model's inputs", h, h_ref, STATE_TOL)
-            log(f"    on the first layers' own inputs: rglru y max abs err {err_y:.3e}, "
-                f"h_last {err_h:.3e}; flash (a reading, not a gate: the softmax is "
+            log(f"    on the first layers' own inputs: rglru y max abs err {shown(err_y)}, "
+                f"h_last {shown(err_h)}; flash (a reading, not a gate: the softmax is "
                 f"nearly one-hot) relative L2 {rel_o:.3e}, {share:.2e} of rows beyond "
                 f"{BF16_TOL}")
     try:
@@ -946,11 +1055,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 10. LM kernel times at the paths' shapes
-    log("[10] LM kernels at the paths' shapes: flash (B=8, S=4096, H=16, Hkv=1, D=256, "
-        "window 2048), rglru (B=8, S=4096, N=4096), ssd (B=8, S=32768, H=32, P=64, "
-        "N=128); ms, CUDA events")
-    lm_times = lm_kernel_times(flash_attention_cuda, chunked_attention_ref,
-                               flash_flops_bytes, rglru_cuda, rglru_ref, rglru_flops_bytes)
+    log(f"[10] LM kernels at the paths' shapes: flash (B in {LM_BATCHES}, S=4096, H=16, "
+        f"Hkv=1, D=256, window 2048), rglru (B in {LM_BATCHES}, S=4096, N=4096), ssd (B=8, "
+        f"S=32768, H=32, P=64, N=128); ms, CUDA events")
+    lm_times = lm_kernel_times(flash_attention_cuda, flash_attention_sync_cuda,
+                               chunked_attention_ref, flash_flops_bytes, rglru_cuda,
+                               rglru_serial_cuda, rglru_ref, rglru_flops_bytes)
     lm_times["ssd"] = ssd_kernel_times(ssd_cuda, ssd_chunked_ref, ssd_chunked_bf16ops_ref,
                                        ssd_flops_bytes)
     for kname, r in lm_times.items():
@@ -1004,8 +1114,8 @@ def main(argv=None) -> int:
                              f"plain paths' {floor:.3e}")
     err_y, err_h = check_ssd("ssd on the model's inputs", ssd_cuda, ssd_chunked_ref,
                              first["ssd_cuda"])
-    log(f"    on the first layer's own inputs: ssd y max abs err {err_y:.3e}, h_last "
-        f"{err_h:.3e}")
+    log(f"    on the first layer's own inputs: ssd y max abs err {shown(err_y)}, h_last "
+        f"{shown(err_h)}")
     del first
     try:
         profile_batch(ex, batch8)

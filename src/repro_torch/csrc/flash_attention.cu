@@ -6,33 +6,45 @@
 // That kernel runs a (B, H, q-block, k-block) grid whose last axis is
 // sequential on the TPU, carrying (m, l, acc) in VMEM scratch across k-blocks,
 // and reads a (B, H, S, D) layout padded to block multiples.  Here one block
-// of 128 threads (4 warps) owns one (batch, head, 64-query tile) and walks its
+// of kWarps warps owns one (batch, head, 16·kWarps-query tile) and walks its
 // key tiles in a loop, so the carry lives in registers; the model's
 // (B, S, H, D) layout is read through strides (no transpose), and the ragged
-// edges of Sq, Sk and D are masked or zero-filled in shared memory (no
+// edges of Sq, Sk and D are zero-filled in shared memory by cp.async (no
 // padding in device memory).
 //
 // Work skipped by loop bounds, not by masks: a query tile [q0, q1] visits key
 // tiles from the one holding max(0, q0 - window + 1) (window > 0) to the one
-// holding min(Sk - 1, q1) (causal).  Only the tiles on the diagonal and the
-// window's edge are masked element by element.  Masked scores are -inf and a
-// row with no key yet uses 0 as its running max, so a fully masked row gives
-// zeros (as the materialised reference does after its NaN clean-up).
+// holding min(Sk - 1, q1) (causal), and a warp skips a tile in which none of
+// its 16 rows sees a key.  Only the tiles on the diagonal and the window's
+// edge are masked element by element.  Masked scores are -inf and a row with
+// no key yet uses 0 as its running max, so a fully masked row gives zeros
+// (as the materialised reference does after its NaN clean-up).  The grid
+// puts the query tile on its slowest axis, the last (heaviest) tiles first,
+// and the heads on its fastest: blocks that run together read the same K/V
+// tiles (under MQA, the same ones for all heads) from L2.
 //
-// Each warp computes a 16-row strip with mma.sync m16n8k16 (bf16 in, f32
-// accumulate): S = Q K^T from Q and K tiles in shared memory, then the row
-// max / sum of the online softmax on the accumulator fragments (quad
-// shuffles), then O += P V with P re-packed from the S fragments to bf16
-// (as the JAX layer casts p to v's dtype) and V stored transposed in shared
-// memory.  The output is acc / max(l, 1e-20), written as bf16.
+// K and V come through cp.async into a two-stage ring: tile t + 1 loads
+// while tile t computes, with one barrier a tile.  Each warp computes a
+// 16-row strip with mma.sync m16n8k16 (bf16 in, f32 accumulate): S = Q K^T
+// with Q and K fragments read by ldmatrix, then the row max / sum of the
+// online softmax on the accumulator fragments (quad shuffles), then O += P V
+// with P re-packed from the S fragments to bf16 (as the JAX layer casts p to
+// v's dtype) and V's B operand read by ldmatrix.trans from V's natural rows.
+// Shared rows are padded by 16 bytes, so the 8 rows of an ldmatrix fall in
+// distinct banks.  The output is acc / max(l, 1e-20), written as bf16.
+//
+// Tiles: D <= 64, 64 queries (4 warps) by 64 keys; D <= 128 and D <= 256,
+// 128 queries (8 warps) by 64 keys.  Shared memory at D = 256: Q (128 x 264)
+// and two stages of K and V (64 x 264 each), 198 KB, one block per SM.
 //
 // Bound on this card: operations.  At recurrentgemma-9b's prefill (B = 8,
 // S = 4096, H = 16, Hkv = 1, D = 256, window 2048) the live tiles hold
 // 4·B·H·D·Σ_q min(q+1, window) = 8.2e11 flops against 0.27 GB of q/k/v/o,
 // 3,000 flops a byte, far above the 295 at which bf16 tensor cores overtake
-// memory.  mma.sync reaches a fraction of the 989 TFLOP/s that wgmma with TMA
-// would; K/V tiles are loaded synchronously (no cp.async pipeline).  Both are
-// left for later work.
+// memory.  Known weakness: mma.sync reads a B fragment from shared memory
+// for every 16-row product, so shared-memory bandwidth caps it near half
+// the tensor cores' rate; wgmma over 64-row warpgroups with TMA loads and
+// an mbarrier ring would not be (left for later work).
 //
 // C interface, loaded with ctypes.  The launcher returns cudaGetLastError()
 // right after the launch; it never synchronises and allocates nothing.
@@ -44,10 +56,10 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockQ = kWarps * 16;  // 16 query rows per warp
-constexpr int kPad = 8;               // bf16 pad per shared row: no bank conflicts
+using bf16 = __nv_bfloat16;
+
+constexpr int kPad = 8;      // bf16 pad per shared row: ldmatrix rows in distinct banks
+constexpr int kBlockK = 64;  // keys per tile
 
 struct Strides {
   int64_t b, s, h;  // elements; the last dim is contiguous
@@ -67,62 +79,107 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// kD: head dim rounded up to a multiple of 32 (zero-filled past d);
-// kBlockK: keys per tile.
-template <int kD, int kBlockK>
+// Four 8 x 8 bf16 matrices from shared memory; each lane gives the address
+// of one row (lanes 8m..8m+7 the rows of matrix m), ``trans`` transposes.
+template <bool trans>
+__device__ __forceinline__ void ldsm4(uint32_t* r, const bf16* row) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(row);
+  if (trans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+}
+
+// 16 bytes from global to shared memory without passing through registers;
+// zeros when !valid (``src`` must still be a mapped address).
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// kD: head dim rounded up to a multiple of 32 (zero-filled past d).
+template <int kD, int kWarps>
 struct Tiles {
-  static constexpr int kRow = kD + kPad;        // Q and K rows
-  static constexpr int kVtRow = kBlockK + kPad;  // V^T rows (one per d)
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kBlockQ = kWarps * 16;  // 16 query rows per warp
+  static constexpr int kRow = kD + kPad;       // Q, K and V rows
   static constexpr size_t kQ = (size_t)kBlockQ * kRow;
-  static constexpr size_t kK = (size_t)kBlockK * kRow;
-  static constexpr size_t kVt = (size_t)kD * kVtRow;
-  static constexpr size_t kBytes = (kQ + kK + kVt) * sizeof(__nv_bfloat16);
+  static constexpr size_t kKV = (size_t)kBlockK * kRow;  // one K or V stage
+  static constexpr size_t kBytes = (kQ + 4 * kKV) * sizeof(bf16);
 };
 
-template <int kD, int kBlockK>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 Strides sq_, Strides sk_, Strides sv_, Strides so_, int sq, int sk,
-                 int heads, int kv_heads, int d, float scale, int causal, int window,
-                 float cap) {
-  using T = Tiles<kD, kBlockK>;
+// Rows [r0, r0 + rows) of a (rows, kD) tile at ``dst`` from ``src`` (row
+// stride ``ss``): rows at or past ``limit`` and columns at or past d are
+// zero-filled.  The caller commits.
+template <int kD, int kThreads>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int64_t ss, int r0,
+                                          int rows, int limit, int d, int tid) {
+  constexpr int kChunks = kD / 8;  // 16-byte chunks per row
+  for (int c = tid; c < rows * kChunks; c += kThreads) {
+    const int row = c / kChunks, col = (c % kChunks) * 8;
+    const bool ok = r0 + row < limit && col < d;
+    cp_async16(dst + row * (kD + kPad) + col, ok ? src + (int64_t)(r0 + row) * ss + col : src,
+               ok);
+  }
+}
+
+template <int kD, int kWarps>
+__global__ void __launch_bounds__(Tiles<kD, kWarps>::kThreads, 1)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, Strides sq_,
+                 Strides sk_, Strides sv_, Strides so_, int sq, int sk, int heads,
+                 int kv_heads, int d, float scale, int causal, int window, float cap) {
+  using T = Tiles<kD, kWarps>;
+  constexpr int kThreads = T::kThreads;
+  constexpr int kRow = T::kRow;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + T::kQ;
-  __nv_bfloat16* vt = ks + T::kK;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + T::kQ;          // two stages
+  bf16* vs = ks + 2 * T::kKV;     // two stages
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;  // row group of the mma fragments
   const int t = lane & 3;   // thread in the group
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * T::kBlockQ;  // heaviest tiles first
   const int hk = h / (heads / kv_heads);
 
-  const __nv_bfloat16* qb = q + b * sq_.b + h * sq_.h;
-  const __nv_bfloat16* kb = k + b * sk_.b + hk * sk_.h;
-  const __nv_bfloat16* vb = v + b * sv_.b + hk * sv_.h;
-
-  constexpr int kChunks = kD / 8;  // 16-byte chunks per row
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  // Q tile -> shared, zero past Sq and past d.
-  for (int c = tid; c < kBlockQ * kChunks; c += kThreads) {
-    const int row = c / kChunks, col = (c % kChunks) * 8;
-    uint4 val = zero;
-    if (q0 + row < sq && col < d) val = *reinterpret_cast<const uint4*>(qb + (int64_t)(q0 + row) * sq_.s + col);
-    *reinterpret_cast<uint4*>(qs + row * T::kRow + col) = val;
-  }
+  const bf16* qb = q + b * sq_.b + h * sq_.h;
+  const bf16* kb = k + b * sk_.b + hk * sk_.h;
+  const bf16* vb = v + b * sv_.b + hk * sv_.h;
 
   // Key tiles this query tile can see.
-  const int q_last = min(q0 + kBlockQ, sq) - 1;
+  const int q_last = min(q0 + T::kBlockQ, sq) - 1;
   const int k_hi = causal ? min(sk, q_last + 1) : sk;  // exclusive
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int tile_lo = k_lo / kBlockK;
   const int tile_hi = (k_hi + kBlockK - 1) / kBlockK;
+
+  load_tile<kD, kThreads>(qs, qb, sq_.s, q0, T::kBlockQ, sq, d, tid);
+  if (tile_lo < tile_hi) {
+    load_tile<kD, kThreads>(ks, kb, sk_.s, tile_lo * kBlockK, kBlockK, sk, d, tid);
+    load_tile<kD, kThreads>(vs, vb, sv_.s, tile_lo * kBlockK, kBlockK, sk, d, tid);
+  }
+  cp_async_commit();
 
   constexpr int kNt = kBlockK / 8;  // n-tiles of S
   constexpr int kDt = kD / 8;       // n-tiles of O
@@ -131,32 +188,35 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   for (int i = 0; i < kDt; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
-  const int row0 = q0 + warp * 16 + g;  // query positions of this thread's rows
-  const int rows[2] = {row0, row0 + 8};
-  const __nv_bfloat16* qw = qs + (warp * 16) * T::kRow;
+  const int r0 = q0 + warp * 16;  // this warp's first query row
+  const int rows[2] = {r0 + g, r0 + g + 8};
+  const int r_last = min(r0 + 15, sq - 1);
+  // This lane's ldmatrix row addresses: Q (A operand, rows 0-15, column
+  // halves by lane / 16), K (B operand of S: keys by lane % 8 and lane / 16,
+  // column halves by lane / 8 % 2), V (B operand of O: keys by lane % 8 and
+  // lane / 8 % 2, column halves by lane / 16).
+  const bf16* qa = qs + (warp * 16 + (lane & 15)) * kRow + (lane >> 4) * 8;
+  const int k_off = ((lane & 7) + (lane >> 4) * 8) * kRow + ((lane >> 3) & 1) * 8;
+  const int v_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * kRow + (lane >> 4) * 8;
 
-  for (int tile = tile_lo; tile < tile_hi; ++tile) {
+  for (int tile = tile_lo, it = 0; tile < tile_hi; ++tile, ++it) {
     const int kt0 = tile * kBlockK;
-    __syncthreads();  // the previous tile's K and V are no longer read
-    for (int c = tid; c < kBlockK * kChunks; c += kThreads) {
-      const int row = c / kChunks, col = (c % kChunks) * 8;
-      uint4 kv = zero;
-      if (kt0 + row < sk && col < d)
-        kv = *reinterpret_cast<const uint4*>(kb + (int64_t)(kt0 + row) * sk_.s + col);
-      *reinterpret_cast<uint4*>(ks + row * T::kRow + col) = kv;
+    const int st = it & 1;
+    cp_async_wait_all();  // this tile (and Q) landed
+    __syncthreads();      // ... for every warp; the other stage is free again
+    if (tile + 1 < tile_hi) {
+      load_tile<kD, kThreads>(ks + (st ^ 1) * T::kKV, kb, sk_.s, kt0 + kBlockK, kBlockK, sk,
+                              d, tid);
+      load_tile<kD, kThreads>(vs + (st ^ 1) * T::kKV, vb, sv_.s, kt0 + kBlockK, kBlockK, sk,
+                              d, tid);
     }
-    // V goes in transposed; neighbouring threads take neighbouring keys, so
-    // a warp's 2-byte stores into a V^T row are contiguous (no bank conflict).
-    for (int c = tid; c < kBlockK * kChunks; c += kThreads) {
-      const int row = c % kBlockK, col = (c / kBlockK) * 8;
-      uint4 vv = zero;
-      if (kt0 + row < sk && col < d)
-        vv = *reinterpret_cast<const uint4*>(vb + (int64_t)(kt0 + row) * sv_.s + col);
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vt[(col + j) * T::kVtRow + row] = ve[j];
-    }
-    __syncthreads();
+    cp_async_commit();
+    // A warp none of whose rows sees a key of this tile skips it.
+    if (r0 >= sq || (causal && kt0 > r_last) ||
+        (window > 0 && kt0 + kBlockK - 1 <= r0 - window))
+      continue;
+    const bf16* kt = ks + st * T::kKV;
+    const bf16* vt = vs + st * T::kKV;
 
     // S = Q K^T for this warp's 16 rows and the tile's keys.
     float s[kNt][4];
@@ -165,21 +225,19 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 #pragma unroll
     for (int kk = 0; kk < kD; kk += 16) {
       uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(qw + g * T::kRow + kk + 2 * t);
-      a[1] = *reinterpret_cast<const uint32_t*>(qw + (g + 8) * T::kRow + kk + 2 * t);
-      a[2] = *reinterpret_cast<const uint32_t*>(qw + g * T::kRow + kk + 8 + 2 * t);
-      a[3] = *reinterpret_cast<const uint32_t*>(qw + (g + 8) * T::kRow + kk + 8 + 2 * t);
+      ldsm4<false>(a, qa + kk);
 #pragma unroll
-      for (int n = 0; n < kNt; ++n) {
-        const __nv_bfloat16* kr = ks + (n * 8 + g) * T::kRow + kk + 2 * t;
-        mma_bf16(s[n], a, *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
+      for (int n = 0; n < kNt; n += 2) {
+        uint32_t bk[4];
+        ldsm4<false>(bk, kt + n * 8 * kRow + k_off + kk);
+        mma_bf16(s[n], a, bk[0], bk[1]);
+        mma_bf16(s[n + 1], a, bk[2], bk[3]);
       }
     }
 
     // Scale, soft-cap, mask; online softmax per row.
-    const bool edge = (kt0 + kBlockK > sk) || (causal && kt0 + kBlockK - 1 > q0 + warp * 16) ||
-                      (window > 0 && kt0 <= q0 + warp * 16 + 15 - window);
+    const bool edge = (kt0 + kBlockK > sk) || (causal && kt0 + kBlockK - 1 > r0) ||
+                      (window > 0 && kt0 <= r0 + 15 - window);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int n = 0; n < kNt; ++n) {
@@ -234,13 +292,15 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
-      for (int i = 0; i < kDt; ++i) {
-        const __nv_bfloat16* vr = vt + (i * 8 + g) * T::kVtRow + kk * 16 + 2 * t;
-        mma_bf16(acc[i], a, *reinterpret_cast<const uint32_t*>(vr),
-                 *reinterpret_cast<const uint32_t*>(vr + 8));
+      for (int i = 0; i < kDt; i += 2) {
+        uint32_t bv[4];
+        ldsm4<true>(bv, vt + kk * 16 * kRow + v_off + i * 8);
+        mma_bf16(acc[i], a, bv[0], bv[1]);
+        mma_bf16(acc[i + 1], a, bv[2], bv[3]);
       }
     }
   }
+  cp_async_wait_all();  // nothing may be in flight when the block exits
 
   // Row sums across the quad, normalise, store bf16 pairs.
 #pragma unroll
@@ -249,11 +309,11 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     l_run[r] = 1.f / fmaxf(l_run[r], 1e-20f);
   }
-  __nv_bfloat16* ob = o + b * so_.b + h * so_.h;
+  bf16* ob = o + b * so_.b + h * so_.h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= sq) continue;
-    __nv_bfloat16* orow = ob + (int64_t)rows[r] * so_.s;
+    bf16* orow = ob + (int64_t)rows[r] * so_.s;
 #pragma unroll
     for (int i = 0; i < kDt; ++i) {
       const int col = i * 8 + 2 * t;
@@ -265,12 +325,12 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
-template <int kD, int kBlockK>
+template <int kD, int kWarps>
 int launch(const void* q, const void* k, const void* v, void* o, const int64_t* st,
            int batch, int sq, int sk, int heads, int kv_heads, int d, float scale,
            int causal, int window, float cap, cudaStream_t stream) {
-  using T = Tiles<kD, kBlockK>;
-  auto kernel = flash_fwd_kernel<kD, kBlockK>;
+  using T = Tiles<kD, kWarps>;
+  auto kernel = flash_fwd_kernel<kD, kWarps>;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -280,11 +340,10 @@ int launch(const void* q, const void* k, const void* v, void* o, const int64_t* 
   }
   const Strides sq_{st[0], st[1], st[2]}, sk_{st[3], st[4], st[5]},
       sv_{st[6], st[7], st[8]}, so_{st[9], st[10], st[11]};
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, heads, batch);
-  kernel<<<grid, kThreads, T::kBytes, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, sq_, sk_, sv_, so_, sq, sk, heads, kv_heads, d, scale, causal,
-      window, cap);
+  const dim3 grid(heads, batch, (sq + T::kBlockQ - 1) / T::kBlockQ);
+  kernel<<<grid, T::kThreads, T::kBytes, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, sq_, sk_, sv_, so_, sq,
+      sk, heads, kv_heads, d, scale, causal, window, cap);
   return (int)cudaGetLastError();
 }
 
@@ -292,7 +351,8 @@ int launch(const void* q, const void* k, const void* v, void* o, const int64_t* 
 
 // q (B, Sq, H, D), k and v (B, Sk, Hkv, D), o (B, Sq, H, D), all bf16 with a
 // contiguous last dim; strides[12] = (b, s, h) element strides of q, k, v, o.
-// The caller checks D <= 256, D % 8 == 0, 16-byte alignment and H % Hkv == 0.
+// The caller checks D <= 256, D % 8 == 0, 16-byte alignment, H % Hkv == 0
+// and B below 65,536.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    const int64_t* strides, int batch, int sq, int sk,
                                    int heads, int kv_heads, int d, float scale, int causal,
@@ -300,16 +360,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (batch <= 0 || sq <= 0 || heads <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (d <= 32)
-    return launch<32, 64>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale,
-                          causal, window, cap, s);
-  if (d <= 64)
-    return launch<64, 64>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale,
-                          causal, window, cap, s);
-  if (d <= 128)
-    return launch<128, 64>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale,
-                           causal, window, cap, s);
-  return launch<256, 32>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale,
+    return launch<32, 4>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale,
                          causal, window, cap, s);
+  if (d <= 64)
+    return launch<64, 4>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale,
+                         causal, window, cap, s);
+  if (d <= 128)
+    return launch<128, 8>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale,
+                          causal, window, cap, s);
+  return launch<256, 8>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale,
+                        causal, window, cap, s);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -9,19 +9,29 @@
 // its public op runs before it (src/repro/kernels/rglru/ops.py:21-28).  That
 // kernel walks (BLOCK_S, 128-lane) tiles of precomputed (log_a, u), rounded to
 // x's dtype, with the carried state in VMEM across a sequential grid axis.
-// Here one thread owns one (b, n) channel and walks time in a register: it
-// reads x, r and i in the model's dtype plus a_param and h0 in f32, keeps
-// log_a, u and h in f32 (as the model's layer does: nothing is rounded to
-// bf16 but y), writes y, and writes h_last in f32.  Neighbouring threads take
-// neighbouring n, so every load and store of a time step is coalesced.  The
-// time loop is unrolled so that the loads of several steps are in flight
-// while the multiply-add chain through h runs.
+//
+// Here time is split as the JAX layer splits it (src/repro/layers/rglru.py:
+// an associative scan with combine((a1, u1), (a2, u2)) = (a1 a2, a2 u1 + u2)),
+// in one pass with no scratch in device memory.  A block owns (b, 32
+// channels), one channel per lane, and walks time in chunks of kChunk = 128
+// steps.  Inside a chunk each of its 16 warps takes 8 consecutive steps and
+// scans them from h = 0, keeping h and the running product of a in f32
+// registers; the warps' (product, h) pairs meet in shared memory, where each
+// warp combines the carry of the previous chunk with the pairs of the warps
+// before it into its own h_in, and then writes y = h + (product of a) h_in.
+// The next chunk's x, r and i are loaded into registers while this chunk is
+// combined and stored.  The gate math, log_a, u and h stay f32 as in the
+// model's layer (nothing is rounded to bf16 but y); steps past S are
+// (a, u) = (1, 0), so a ragged last chunk needs no special case;
+// ``ref.rglru_chunked_ref`` repeats this order of arithmetic.
 //
 // Bound on this card: bytes.  Each element of (B, S, N) is read three times
-// and written once, 8 bytes in bf16, at 3.35 TB/s.  Known weakness: only B·N
-// threads are live (32,768 at recurrentgemma-9b's B = 8, N = 4096; 4,096 at
-// B = 1), too few to hide memory latency on 132 SMs.  A two-level scan over
-// time blocks would give more parallelism; it is left for later work.
+// and written once, 8 bytes in bf16, at 3.35 TB/s (0.040 ms at B = 1, S = N =
+// 4096).  At B = 1, N = 4096 the grid is 128 blocks of 16 warps, one per SM,
+// each with a chunk of loads (24 KB) in flight; the earlier kernel had one
+// thread per channel, 4,096 threads on 132 SMs (csrc/rglru_serial.cu, kept
+// as chip_smoke.py's yardstick).  Known weakness: one chunk of loads in
+// flight per warp, and 4 of 132 SMs idle at B = 1, N = 4096.
 //
 // C interface, loaded with ctypes: pointers and the stream are void*.  The
 // launcher returns cudaGetLastError() right after the launch; it never
@@ -34,70 +44,110 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kUnroll = 8;
+constexpr int kLanes = 32;                // channels of a block, one per lane
+constexpr int kWarps = 16;                // sub-segments of a chunk
+constexpr int kSteps = 8;                 // steps of a sub-segment
+constexpr int kChunk = kWarps * kSteps;   // steps of a chunk
+constexpr int kThreads = kWarps * 32;
 constexpr float kC = 8.0f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+template <typename T>
+__device__ __forceinline__ T zero();
+template <>
+__device__ __forceinline__ float zero<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() { return __float2bfloat16(0.f); }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rglru_kernel(const T* __restrict__ x, const T* __restrict__ r, const T* __restrict__ i,
              const float* __restrict__ a_param, const float* __restrict__ h0,
-             T* __restrict__ y, float* __restrict__ h_last, int batch, int seq, int width) {
-  const int n = blockIdx.x * kThreads + threadIdx.x;
+             T* __restrict__ y, float* __restrict__ h_last, int seq, int width) {
+  // (product of a, h) at the end of each warp's sub-segment, two chunks
+  // apart so that one barrier a chunk suffices.
+  __shared__ float2 part[2][kWarps][kLanes];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n = blockIdx.x * kLanes + lane;
   const int b = blockIdx.y;
-  if (n >= width || b >= batch) return;
-  const float a = a_param[n];
+  const bool live = n < width;
+  const float ap = live ? a_param[n] : 0.f;
   // softplus(a) = log1p(exp(-|a|)) + max(a, 0), as jax.nn.softplus.
-  const float sp = log1pf(expf(-fabsf(a))) + fmaxf(a, 0.f);
-  const float c = -kC * sp;
-  float h = h0 != nullptr ? h0[(int64_t)b * width + n] : 0.f;
+  const float c = -kC * (log1pf(expf(-fabsf(ap))) + fmaxf(ap, 0.f));
+  float carry = (h0 != nullptr && live) ? h0[(int64_t)b * width + n] : 0.f;
   const int64_t base = (int64_t)b * seq * width + n;
-  const T* xp = x + base;
-  const T* rp = r + base;
-  const T* ip = i + base;
-  T* yp = y + base;
 
-  int t = 0;
-  for (; t + kUnroll <= seq; t += kUnroll) {
-    float xs[kUnroll], rs[kUnroll], is[kUnroll];
+  T xs[kSteps], rs[kSteps], is[kSteps];
+  auto load = [&](int chunk) {
+    const int t0 = chunk * kChunk + warp * kSteps;
 #pragma unroll
-    for (int j = 0; j < kUnroll; ++j) {
-      const int64_t off = (int64_t)(t + j) * width;
-      xs[j] = to_f32(xp[off]);
-      rs[j] = to_f32(rp[off]);
-      is[j] = to_f32(ip[off]);
+    for (int j = 0; j < kSteps; ++j) {
+      const int t = t0 + j;
+      if (live && t < seq) {
+        const int64_t off = base + (int64_t)t * width;
+        xs[j] = x[off];
+        rs[j] = r[off];
+        is[j] = i[off];
+      } else {  // r = 0 gives a = 1 and x = 0 gives u = 0: the identity step
+        xs[j] = rs[j] = is[j] = zero<T>();
+      }
     }
+  };
+
+  const int chunks = (seq + kChunk - 1) / kChunk;
+  if (chunks > 0) load(0);
+  for (int ch = 0; ch < chunks; ++ch) {
+    float hs[kSteps], ps[kSteps];  // (a, u), then this sub-segment's scan from h = 0
 #pragma unroll
-    for (int j = 0; j < kUnroll; ++j) {
-      const float log_a = c * rs[j];
+    for (int j = 0; j < kSteps; ++j) {
+      const float log_a = c * to_f32(rs[j]);
       const float beta = sqrtf(fmaxf(1.f - expf(2.f * log_a), 1e-12f));
-      h = expf(log_a) * h + beta * (is[j] * xs[j]);
-      store(yp + (int64_t)(t + j) * width, h);
+      ps[j] = expf(log_a);
+      hs[j] = beta * (to_f32(is[j]) * to_f32(xs[j]));
+    }
+    if (ch + 1 < chunks) load(ch + 1);  // in flight while this chunk finishes
+#pragma unroll
+    for (int j = 1; j < kSteps; ++j) {
+      hs[j] = ps[j] * hs[j - 1] + hs[j];
+      ps[j] = ps[j] * ps[j - 1];
+    }
+    float2(&mine)[kWarps][kLanes] = part[ch & 1];
+    mine[warp][lane] = make_float2(ps[kSteps - 1], hs[kSteps - 1]);
+    __syncthreads();
+    // h_in of this warp: the carry combined with the warps before it; the
+    // carry of the next chunk: combined with all of them.
+    float h_in = carry;
+    float h = carry;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      if (w == warp) h_in = h;
+      const float2 pw = mine[w][lane];
+      h = pw.x * h + pw.y;
+    }
+    carry = h;
+    if (live) {
+      const int t0 = ch * kChunk + warp * kSteps;
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j) {
+        if (t0 + j < seq) store(y + base + (int64_t)(t0 + j) * width, hs[j] + ps[j] * h_in);
+      }
     }
   }
-  for (; t < seq; ++t) {
-    const int64_t off = (int64_t)t * width;
-    const float log_a = c * to_f32(rp[off]);
-    const float beta = sqrtf(fmaxf(1.f - expf(2.f * log_a), 1e-12f));
-    h = expf(log_a) * h + beta * (to_f32(ip[off]) * to_f32(xp[off]));
-    store(yp + off, h);
-  }
-  h_last[(int64_t)b * width + n] = h;
+  if (warp == 0 && live) h_last[(int64_t)b * width + n] = carry;
 }
 
 template <typename T>
 int launch(const void* x, const void* r, const void* i, const void* a_param,
            const void* h0, void* y, void* h_last, int batch, int seq, int width,
            cudaStream_t stream) {
-  const dim3 grid((width + kThreads - 1) / kThreads, batch);
+  const dim3 grid((width + kLanes - 1) / kLanes, batch);
   rglru_kernel<T><<<grid, kThreads, 0, stream>>>(
       (const T*)x, (const T*)r, (const T*)i, (const float*)a_param, (const float*)h0,
-      (T*)y, (float*)h_last, batch, seq, width);
+      (T*)y, (float*)h_last, seq, width);
   return (int)cudaGetLastError();
 }
 

@@ -49,6 +49,16 @@ LIBRARIES: Dict[str, tuple] = {
         "rglru_scan": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32,
                        _I32, _I32, _PTR),
     }),
+    # The earlier designs of the two kernels above, same arguments: the
+    # yardsticks that chip_smoke.py times the kernels against.
+    "flash_attention_sync": ("flash_attention_sync.cu", {
+        "flash_attention_sync_fwd": (_PTR, _PTR, _PTR, _PTR, _I64P, _I32, _I32, _I32,
+                                     _I32, _I32, _I32, _F32, _I32, _I32, _F32, _PTR),
+    }),
+    "rglru_serial": ("rglru_serial.cu", {
+        "rglru_serial_scan": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32,
+                              _I32, _I32, _PTR),
+    }),
     "ssd": ("ssd.cu", {
         # x, dt, A, Bm, Cm, D, h0, y, h_last, strides[6], batch, seq, heads,
         # head_dim, state, is_bf16, stream

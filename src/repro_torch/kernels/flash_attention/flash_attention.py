@@ -7,6 +7,9 @@ model's (B, S, H, D) layout through strides: only the head dim must be
 contiguous.  It checks device, dtype, shape and layout, allocates the
 output, launches on the current stream, raises on a launch error and counts
 its launches in ``.launches`` (a plain int, reset by the caller).
+``flash_attention_sync_cuda`` launches the earlier design (synchronous K/V
+loads, no ldmatrix) on the same terms; no model path calls it, it is the
+yardstick ``chip_smoke.py`` times.
 """
 from __future__ import annotations
 
@@ -35,6 +38,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.shape[0] != B or k.shape[3] != D or k.shape[2] <= 0 or H % k.shape[2]:
         raise ValueError(f"{what}: k/v {tuple(k.shape)} do not fit q {tuple(q.shape)} "
                          f"(same B and D, H a multiple of Hkv)")
+    if B > 65535:
+        raise ValueError(f"{what}: batch {B} above the grid's 65,535")
     if D > MAX_HEAD_DIM or D % 8:
         raise ValueError(f"{what}: head dim {D} must be a multiple of 8 "
                          f"and at most {MAX_HEAD_DIM}")
@@ -46,6 +51,26 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                              f"aligned start (got strides {t.stride()})")
 
 
+def _launch(library: str, fn: str, q, k, v, causal, window, logit_cap):
+    _check(q, k, v)
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    if B == 0 or Sq == 0:
+        return out, False
+    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
+                                    *v.stride()[:3], *out.stride()[:3])
+    lib = _build.load(library)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, fn)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+            B, Sq, Sk, H, Hkv, D, 1.0 / math.sqrt(D), int(bool(causal)),
+            int(window), float(logit_cap), stream)
+    _build.check(library, code, fn)
+    return out, True
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: int = 0,
                          logit_cap: float = 0.0) -> torch.Tensor:
@@ -53,27 +78,27 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bf16: softmax(q k^T / sqrt(D)) v with optional tanh soft-cap
     ``cap * tanh(s / cap)``, causal mask ``k <= q`` and window mask
     ``k > q - window``; query head h reads KV head ``h // (H / Hkv)``."""
-    _check(q, k, v)
-    B, Sq, H, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    if B == 0 or Sq == 0:
-        return out
-    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
-                                    *v.stride()[:3], *out.stride()[:3])
-    lib = _build.load("flash_attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-            B, Sq, Sk, H, Hkv, D, 1.0 / math.sqrt(D), int(bool(causal)),
-            int(window), float(logit_cap), stream)
-    _build.check("flash_attention", code, "flash_attention_fwd")
-    flash_attention_cuda.launches += 1
+    out, launched = _launch("flash_attention", "flash_attention_fwd", q, k, v,
+                            causal, window, logit_cap)
+    flash_attention_cuda.launches += launched
     return out
 
 
 flash_attention_cuda.launches = 0
+
+
+def flash_attention_sync_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              causal: bool = True, window: int = 0,
+                              logit_cap: float = 0.0) -> torch.Tensor:
+    """``flash_attention_cuda``'s function through the earlier kernel
+    (``csrc/flash_attention_sync.cu``)."""
+    out, launched = _launch("flash_attention_sync", "flash_attention_sync_fwd", q, k, v,
+                            causal, window, logit_cap)
+    flash_attention_sync_cuda.launches += launched
+    return out
+
+
+flash_attention_sync_cuda.launches = 0
 
 
 def flops_bytes(B: int, Sq: int, Sk: int, H: int, Hkv: int, D: int, causal: bool,

@@ -2,10 +2,13 @@
 
 ``rglru_cuda`` replaces the JAX package's ``_rglru_kernel``
 (``repro/kernels/rglru/rglru.py:27``) together with the gate math of its
-public op: one thread per (b, n) channel walks time with h in an f32
-register.  It checks device, dtype, shape and contiguity, allocates the
-outputs, launches on the current stream, raises on a launch error and
-counts its launches in ``.launches`` (a plain int, reset by the caller).
+public op: a time-parallel scan (sub-segments of a chunk scanned from
+h = 0, then combined with the carry; f32 state).  It checks device, dtype,
+shape and contiguity, allocates the outputs, launches on the current
+stream, raises on a launch error and counts its launches in ``.launches``
+(a plain int, reset by the caller).  ``rglru_serial_cuda`` launches the
+earlier design (one thread per channel walking time) on the same terms; no
+model path calls it, it is the yardstick ``chip_smoke.py`` times.
 """
 from __future__ import annotations
 
@@ -42,6 +45,24 @@ def _check(x, r, i, a_param, h0) -> None:
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
+def _launch(library: str, fn: str, x, r, i, a_param, h0):
+    _check(x, r, i, a_param, h0)
+    B, S, N = x.shape
+    y = torch.empty_like(x)
+    h_last = torch.empty((B, N), dtype=torch.float32, device=x.device)
+    if B == 0 or N == 0:
+        return y, h_last, False
+    lib = _build.load(library)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, fn)(
+            x.data_ptr(), r.data_ptr(), i.data_ptr(), a_param.data_ptr(),
+            None if h0 is None else h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+            B, S, N, int(x.dtype == torch.bfloat16), stream)
+    _build.check(library, code, fn)
+    return y, h_last, True
+
+
 def rglru_cuda(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
                a_param: torch.Tensor, h0: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -49,25 +70,26 @@ def rglru_cuda(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
     (B, N) f32 or None (zeros) -> (y (B, S, N) in x's dtype, h_last (B, N)
     f32) of h_t = a_t h_{t-1} + sqrt(1 - a_t^2) i_t x_t with
     a_t = exp(-8 softplus(a_param) r_t)."""
-    _check(x, r, i, a_param, h0)
-    B, S, N = x.shape
-    y = torch.empty_like(x)
-    h_last = torch.empty((B, N), dtype=torch.float32, device=x.device)
-    if B == 0 or N == 0:
-        return y, h_last
-    lib = _build.load("rglru")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.rglru_scan(
-            x.data_ptr(), r.data_ptr(), i.data_ptr(), a_param.data_ptr(),
-            None if h0 is None else h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-            B, S, N, int(x.dtype == torch.bfloat16), stream)
-    _build.check("rglru", code, "rglru_scan")
-    rglru_cuda.launches += 1
+    y, h_last, launched = _launch("rglru", "rglru_scan", x, r, i, a_param, h0)
+    rglru_cuda.launches += launched
     return y, h_last
 
 
 rglru_cuda.launches = 0
+
+
+def rglru_serial_cuda(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
+                      a_param: torch.Tensor, h0: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``rglru_cuda``'s function through the earlier one-thread-per-channel
+    kernel (``csrc/rglru_serial.cu``)."""
+    y, h_last, launched = _launch("rglru_serial", "rglru_serial_scan", x, r, i,
+                                  a_param, h0)
+    rglru_serial_cuda.launches += launched
+    return y, h_last
+
+
+rglru_serial_cuda.launches = 0
 
 
 def flops_bytes(B: int, S: int, N: int, itemsize: int = 2) -> tuple:

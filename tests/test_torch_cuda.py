@@ -73,11 +73,12 @@ class TestKernelsOnCard:
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     flash_attention_cuda,
+    flash_attention_sync_cuda,
 )
 from repro_torch.kernels.flash_attention.ref import chunked_attention_ref  # noqa: E402
 from repro_torch.kernels.rglru import ops as rglru_ops  # noqa: E402
-from repro_torch.kernels.rglru.ref import rglru_ref  # noqa: E402
-from repro_torch.kernels.rglru.rglru import rglru_cuda  # noqa: E402
+from repro_torch.kernels.rglru.ref import rglru_chunked_ref, rglru_ref  # noqa: E402
+from repro_torch.kernels.rglru.rglru import rglru_cuda, rglru_serial_cuda  # noqa: E402
 
 # bf16 kernel output against the plain version taken in f32: bf16 rounds
 # q, k, v and p (2^-9 relative) and the output.
@@ -107,6 +108,34 @@ class TestFlashAttentionOnCard:
         want = chunked_attention_ref(q.float(), k.float(), v.float(), causal,
                                      window, cap)
         assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want, **BF16_TOL)
+
+    # The kernel's tile edges: 64-key tiles in a two-stage ring, 64 query
+    # rows (D <= 64) or 128 (D 128, 256), warps of 16 rows that skip the
+    # tiles none of their rows sees.
+    @pytest.mark.parametrize("B, Sq, Sk, H, Hkv, D, causal, window", [
+        (1, 100, 100, 4, 1, 256, True, 0),     # keys end inside the second stage
+        (2, 150, 197, 6, 3, 64, False, 0),     # Sk != Sq, keys end mid-stage
+        (1, 64, 64, 2, 2, 128, True, 0),       # exactly one tile
+        (2, 197, 197, 8, 2, 128, True, 100),   # window edge inside a tile, GQA
+        (1, 300, 300, 16, 1, 256, True, 65),   # MQA, window one key past a tile
+        (1, 130, 130, 4, 4, 64, True, 1),      # window 1: the diagonal only
+        (1, 513, 513, 8, 1, 256, False, 200),  # window without the causal mask
+        (2, 700, 700, 16, 1, 256, True, 257),  # MQA at D 256, tiles skipped by warps
+    ])
+    def test_tile_edges(self, cuda, B, Sq, Sk, H, Hkv, D, causal, window):
+        q, k, v = _qkv(cuda, B, Sq, Sk, H, Hkv, D, seed=Sq + Sk + window)
+        want = chunked_attention_ref(q.float(), k.float(), v.float(), causal, window)
+        got = flash_attention_cuda(q, k, v, causal, window)
+        torch.testing.assert_close(got.float(), want, **BF16_TOL)
+
+    @pytest.mark.parametrize("B, S, H, Hkv, D, window", [
+        (1, 333, 16, 1, 256, 100), (2, 200, 8, 2, 128, 0)])
+    def test_earlier_kernel_matches_plain_version(self, cuda, B, S, H, Hkv, D, window):
+        """The earlier kernel, kept as a yardstick, computes the same function."""
+        q, k, v = _qkv(cuda, B, S, S, H, Hkv, D, seed=S)
+        want = chunked_attention_ref(q.float(), k.float(), v.float(), True, window)
+        got = flash_attention_sync_cuda(q, k, v, True, window)
         torch.testing.assert_close(got.float(), want, **BF16_TOL)
 
     def test_reads_strided_layouts(self, cuda):
@@ -140,7 +169,9 @@ class TestFlashAttentionOnCard:
 
 @pytest.mark.cuda
 class TestRGLRUOnCard:
-    @pytest.mark.parametrize("B, S, N", [(1, 257, 130), (8, 100, 4096), (2, 7, 33)])
+    # S not a multiple of the 128-step chunk, N not of the 32-channel tile.
+    @pytest.mark.parametrize("B, S, N", [(1, 257, 130), (8, 100, 4096), (2, 7, 33),
+                                         (1, 1000, 4096), (1, 4100, 4072), (1, 128, 4096)])
     @pytest.mark.parametrize("with_h0", [False, True])
     def test_kernel_matches_plain_version(self, cuda, B, S, N, with_h0):
         rng = np.random.default_rng(B * S + N)
@@ -157,6 +188,34 @@ class TestRGLRUOnCard:
         assert yb.dtype == torch.bfloat16 and hb.dtype == torch.float32
         torch.testing.assert_close(yb.float(), y_ref, **BF16_TOL)
         torch.testing.assert_close(hb, h_ref, rtol=2e-4, atol=2e-4)
+
+    @pytest.mark.parametrize("B, S, N", [(1, 1000, 4096), (2, 300, 100)])
+    def test_kernel_follows_its_order_of_arithmetic(self, cuda, B, S, N):
+        """f32: the kernel against ``rglru_chunked_ref`` (the same sub-segment
+        scans and carry combine) within 2e-5, the f32 kernel tolerance;
+        they differ only in expf against torch.exp and fused multiply-adds."""
+        rng = np.random.default_rng(S + N)
+        f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)  # noqa: E731
+        x, r, i = f(B, S, N), torch.sigmoid(f(B, S, N)), torch.sigmoid(f(B, S, N))
+        a_param, h0 = f(N), f(B, N)
+        y, h = rglru_cuda(x, r, i, a_param, h0)
+        y_ref, h_ref = rglru_chunked_ref(x, r, i, a_param, h0)
+        torch.testing.assert_close(y, y_ref, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(h, h_ref, rtol=2e-5, atol=2e-5)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_earlier_kernel_matches_plain_version(self, cuda, dtype):
+        """The earlier kernel, kept as a yardstick, computes the same function."""
+        rng = np.random.default_rng(9)
+        f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)  # noqa: E731
+        x, r, i = f(2, 300, 100), torch.sigmoid(f(2, 300, 100)), torch.sigmoid(f(2, 300, 100))
+        a_param, h0 = f(100), f(2, 100)
+        xd, rd, id_ = x.to(dtype), r.to(dtype), i.to(dtype)
+        y, h = rglru_serial_cuda(xd, rd, id_, a_param, h0)
+        y_ref, h_ref = rglru_ref(xd.float(), rd.float(), id_.float(), a_param, h0)
+        tol = BF16_TOL if dtype == torch.bfloat16 else dict(rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(y.float(), y_ref, **tol)
+        torch.testing.assert_close(h, h_ref, rtol=2e-4, atol=2e-4)
 
     def test_refusals(self, cuda):
         x = torch.rand(2, 5, 8, device=cuda)

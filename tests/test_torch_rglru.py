@@ -1,8 +1,9 @@
 """The port's RG-LRU op and layer on the CPU (the plain version) against the
 JAX package's layer (``rglru_scan``, an associative scan) and its Pallas op
-in interpret mode, on the same seeded numpy inputs; and ``short_conv1d``
-with a carried state.  Tolerance 2e-4: f32 throughout, the associative
-scan sums in another order than the sequential one."""
+in interpret mode, on the same seeded numpy inputs; the plain version of
+the kernel's order of arithmetic (``rglru_chunked_ref``) against both; and
+``short_conv1d`` with a carried state.  Tolerance 2e-4: f32 throughout, the
+associative scan sums in another order than the sequential one."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +14,7 @@ from repro.kernels.rglru.ops import rglru as jax_rglru_op
 from repro.kernels.rglru.ref import rglru_rec_ref as jax_rec_ref
 from repro.layers import rglru as jax_layer
 from repro_torch.kernels.rglru import ops
-from repro_torch.kernels.rglru.ref import rglru_rec_ref
+from repro_torch.kernels.rglru.ref import rglru_chunked_ref, rglru_rec_ref, rglru_ref
 from repro_torch.kernels.rglru.rglru import flops_bytes
 from repro_torch.layers.rglru import rglru_scan, rglru_step, short_conv1d
 
@@ -78,6 +79,35 @@ def test_bf16_layer_keeps_y_dtype_and_f32_state():
     np.testing.assert_allclose(y_got.float().numpy(), np.asarray(y_want, np.float32),
                                rtol=1e-2, atol=1e-2)
     np.testing.assert_allclose(h_got.numpy(), np.asarray(h_want), **TOL)
+
+
+# (steps, sub-segments) of a chunk: the kernel's (8, 16), and sizes that
+# neither shape's S is a multiple of.
+@pytest.mark.parametrize("steps, segments", [(8, 16), (3, 5), (4, 1), (1, 7)])
+@pytest.mark.parametrize("shape", [(2, 160, 96), (1, 37, 20)])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_order_matches_jax_layer_and_plain_version(steps, segments, shape,
+                                                           with_h0, dtype):
+    """``rglru_chunked_ref`` (sub-segments scanned from h = 0, then combined
+    with the carry) against the JAX layer's associative scan and against
+    ``rglru_ref``'s sequential one.  bf16: y is one rounding of an f32 value
+    (1e-2, as above), h_last stays f32 (2e-4)."""
+    x, r, i, a, h0 = _inputs(*shape, seed=steps * 10 + segments)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jh0 = jnp.asarray(h0) if with_h0 else None
+    th0 = torch.from_numpy(h0) if with_h0 else None
+    tx, tr, ti = (torch.from_numpy(v).to(td) for v in (x, r, i))
+    y_got, h_got = rglru_chunked_ref(tx, tr, ti, torch.from_numpy(a), th0, steps, segments)
+    assert y_got.dtype == td and h_got.dtype == torch.float32
+    y_tol = TOL if dtype == "float32" else dict(rtol=1e-2, atol=1e-2)
+    y_want, h_want = jax_scan(*(jnp.asarray(v).astype(jd) for v in (x, r, i)),
+                              jnp.asarray(a), jh0)
+    np.testing.assert_allclose(y_got.float().numpy(), np.asarray(y_want, np.float32), **y_tol)
+    np.testing.assert_allclose(h_got.numpy(), np.asarray(h_want), **TOL)
+    y_plain, h_plain = rglru_ref(tx, tr, ti, torch.from_numpy(a), th0)
+    np.testing.assert_allclose(y_got.float().numpy(), y_plain.float().numpy(), **y_tol)
+    np.testing.assert_allclose(h_got.numpy(), h_plain.numpy(), **TOL)
 
 
 def test_recurrence_oracle_matches_jax():
