@@ -2,19 +2,26 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py            # the paper's scale: 4,500 files, StreamScale(1.0)
+    python3 chip_smoke.py --lm-kernels-only   # phases 1, 2, 8 and 10; no result line
 
 Phases (any failure exits non-zero and prints no result line):
 
 1. environment: torch, the card, its power limit; TF32 off;
-2. build: the segagg kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
+2. build: every kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a, one
+   process per source, started together), the earlier flash and RG-LRU
+   designs among them;
 3. kernel parity: each kernel against its plain PyTorch version on the card
    (counts by ``torch.equal``, float sums within ``FLOAT_RTOL`` of the plain
    version taken in float64), for G in {1, 5, 360K, 1.5M}, V in {1, 3},
    N a batch of paper files, keys out of range on both sides, empty input;
 4. single-query path (the main path, part 1): for CQ3, CQ4, CQ2 and
-   TPC-Q6-like, ``measure_cost_model`` on the card, ``Planner("single")``
-   under a deadline of ``wind_end + 0.6 * cost(n)``, ``run_plan`` on the
-   card, result against a float64 host one-shot (counts exact);
+   TPC-Q6-like, ``measure_cost_model`` on the card at batch sizes that
+   span the plans' batches (``CALIBRATION_FILES``), ``Planner("single")``
+   under a deadline of ``wind_end + 0.6 * cost(n)``, each of the plan's
+   batch sizes run once, then ``run_plan`` on the card, result against a
+   float64 host one-shot (counts exact); the modelled and the measured
+   finish (each batch's measured seconds in place of its modelled cost)
+   beside the deadline, with the miss in ms (a reading, not a gate);
 5. multi-query path (the main path, part 2): ``Planner("llf-dynamic").run``
    over the six paper queries on one ``AnalyticsRuntimeExecutor`` with the
    paper's cost models, every result against its host one-shot;
@@ -37,7 +44,8 @@ Phases (any failure exits non-zero and prints no result line):
    tokens, ``calibrate``, ``serve_single_job`` (24 prompts, ``single``) and
    ``serve_multi_jobs`` (three jobs, LLF); logits finite and (n, 256000);
    launches flash = 12 and RG-LRU = 26 per prefill call, plain versions
-   never called on a CUDA tensor; then one batch of 8 with the plain
+   never called on a CUDA tensor, and the launches by batch size; then one
+   batch of 8 with the plain
    versions swapped in at 3, 9 and 38 layers of the same weights: at 3
    layers its logits within a relative L2 error of 5e-2 of the kernels'
    (the deeper ones are reported: the seeded model's attention is nearly
@@ -45,9 +53,14 @@ Phases (any failure exits non-zero and prints no result line):
    rounding difference can flip a near-tie, and depth amplifies it), the
    RG-LRU kernel against its plain version on the inputs the model gave its
    first call, and the flash kernel's reading on those of its first call;
-10. the LM kernels at their paths' shapes: parity with the plain version,
-   kernel, plain and (flash) ``scaled_dot_product_attention`` times beside
-   the bound; the bf16 SSD kernel also against the plain version of its own
+10. the LM kernels at their paths' shapes: flash attention and RG-LRU at
+   each batch size of the serving path (B in 1, 2, 4, 8), each held
+   against the plain version together with the earlier design it
+   replaced (``flash_attention_sync_cuda``, ``rglru_serial_cuda``), the
+   two times, ``scaled_dot_product_attention``'s (flash) and the bound,
+   and the plain version's time at B = 8; the SSD at B = 8 against the
+   plain version, kernel and plain times beside the bound; the bf16 SSD
+   kernel also against the plain version of its own
    arithmetic (``ssd_chunked_bf16ops_ref``), and its time beside that of
    the earlier f32 CUDA-core kernel at the same shape;
 11. the serving path (the main path, part 4) at mamba2-370m's full width
@@ -55,7 +68,8 @@ Phases (any failure exits non-zero and prints no result line):
    the same entry points over prompts of 32,768 tokens (``prefill_32k``'s
    length; its batch of 32 is cut to buckets up to 8); logits finite and
    (n, 50280), every modelled deadline met, 48 SSD launches per prefill
-   call and the plain versions never called on a CUDA tensor; then one
+   call (by batch size) and the plain versions never called on a CUDA
+   tensor; then one
    batch of 2 with the plain SSD swapped in: at 8 layers the logits within
    a relative L2 error of 5e-2 of the kernels', at all 48 within twice the
    distance between two plain paths that differ only in chunk (the seeded
@@ -63,8 +77,11 @@ Phases (any failure exits non-zero and prints no result line):
    version on the inputs the model gave its first call, and a profile of
    one batch of 8.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+Each parity line prints the largest absolute error and its worst ratio to
+the ``torch.allclose`` limit ``atol + rtol |want|`` (the check passes up to
+1).  The line before the last is a JSON object with one entry per kernel
+(flash and RG-LRU at B = 8, with ``old_ms``, the earlier design's time);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -118,6 +135,7 @@ SERVE_ARCH = "recurrentgemma_9b"
 SERVE_SEQ = 4096            # twice the local-attention window
 SERVE_BUCKETS = (1, 2, 4, 8)
 LM_BATCHES = SERVE_BUCKETS  # phase 10 times flash and RG-LRU at each
+KERNEL_REPS = 20            # phase 10's launches per timing of those two (0.07-8 ms each)
 SSM_ARCH = "mamba2_370m"
 SSM_SEQ = 32768             # models/base.py SHAPES["prefill_32k"].seq_len
 SSM_SWAP_BATCH = 2          # the plain SSD's f32 intermediates at 48 layers
@@ -530,9 +548,11 @@ def lm_kernel_times(flash_cuda, flash_sync, flash_plain, flash_fb, rglru_cuda,
         # the yardstick computes the same function (logged, not a gate of the port)
         sdpa_err = (sdpa().transpose(1, 2).float() - want.float()).abs().max().item()
         b_ms, b_by = bound(*flash_fb(B, S, S, H, Hkv, D, True, W), BF16_OPS_PER_S)
-        r = {"max_abs_err": err[0], "ms": cuda_ms(lambda: flash_cuda(qb, kb, vb, True, W)),
-             "old_ms": cuda_ms(lambda: flash_sync(qb, kb, vb, True, W)),
-             "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(sdpa)}
+        r = {"max_abs_err": err[0],
+             "ms": cuda_ms(lambda: flash_cuda(qb, kb, vb, True, W), reps=KERNEL_REPS),
+             "old_ms": cuda_ms(lambda: flash_sync(qb, kb, vb, True, W), reps=KERNEL_REPS),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": cuda_ms(sdpa, reps=KERNEL_REPS)}
         log(f"  flash_attention B={B}: kernel {r['ms']:.4f} ms, earlier kernel "
             f"{r['old_ms']:.4f} ({r['old_ms'] / r['ms']:.2f}x), SDPA {r['library_ms']:.4f} "
             f"({r['library_ms'] / r['ms']:.2f}x), bound {b_ms:.4f} by {b_by} "
@@ -558,8 +578,9 @@ def lm_kernel_times(flash_cuda, flash_sync, flash_plain, flash_fb, rglru_cuda,
                          check_close(f"{what} h_last B={B} at the path's shape", h, h_ref,
                                      STATE_TOL)))
         b_ms, b_by = bound(*rglru_fb(B, S, N), F32_OPS_PER_S)
-        r = {"max_abs_err": errs[0][0][0], "ms": cuda_ms(lambda: rglru_cuda(*args)),
-             "old_ms": cuda_ms(lambda: rglru_serial(*args)),
+        r = {"max_abs_err": errs[0][0][0],
+             "ms": cuda_ms(lambda: rglru_cuda(*args), reps=KERNEL_REPS),
+             "old_ms": cuda_ms(lambda: rglru_serial(*args), reps=KERNEL_REPS),
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         log(f"  rglru B={B}: kernel {r['ms']:.4f} ms, earlier kernel {r['old_ms']:.4f} "
             f"({r['old_ms'] / r['ms']:.2f}x), bound {b_ms:.4f} by {b_by} "

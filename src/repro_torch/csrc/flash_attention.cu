@@ -6,45 +6,49 @@
 // That kernel runs a (B, H, q-block, k-block) grid whose last axis is
 // sequential on the TPU, carrying (m, l, acc) in VMEM scratch across k-blocks,
 // and reads a (B, H, S, D) layout padded to block multiples.  Here one block
-// of kWarps warps owns one (batch, head, 16·kWarps-query tile) and walks its
-// key tiles in a loop, so the carry lives in registers; the model's
-// (B, S, H, D) layout is read through strides (no transpose), and the ragged
-// edges of Sq, Sk and D are zero-filled in shared memory by cp.async (no
-// padding in device memory).
+// of two warpgroups owns one (batch, head, 128-query tile) and walks its key
+// tiles in a loop, so the carry lives in registers; the model's (B, S, H, D)
+// layout is read through strides (no transpose), and the ragged edges of
+// Sq, Sk and D are zero-filled in shared memory by cp.async (no padding in
+// device memory).
 //
 // Work skipped by loop bounds, not by masks: a query tile [q0, q1] visits key
 // tiles from the one holding max(0, q0 - window + 1) (window > 0) to the one
-// holding min(Sk - 1, q1) (causal), and a warp skips a tile in which none of
-// its 16 rows sees a key.  Only the tiles on the diagonal and the window's
-// edge are masked element by element.  Masked scores are -inf and a row with
-// no key yet uses 0 as its running max, so a fully masked row gives zeros
-// (as the materialised reference does after its NaN clean-up).  The grid
-// puts the query tile on its slowest axis, the last (heaviest) tiles first,
-// and the heads on its fastest: blocks that run together read the same K/V
-// tiles (under MQA, the same ones for all heads) from L2.
+// holding min(Sk - 1, q1) (causal), and a warpgroup skips a tile in which
+// none of its 64 rows sees a key.  Only the tiles on the diagonal and the
+// window's edge are masked element by element.  Masked scores are -inf and a
+// row with no key yet uses 0 as its running max, so a fully masked row gives
+// zeros (as the materialised reference does after its NaN clean-up).  The
+// grid puts the query tile on its slowest axis, the last (heaviest) tiles
+// first, and the heads on its fastest: blocks that run together read the
+// same K/V tiles (under MQA, the same ones for all heads) from L2.
 //
-// K and V come through cp.async into a two-stage ring: tile t + 1 loads
-// while tile t computes, with one barrier a tile.  Each warp computes a
-// 16-row strip with mma.sync m16n8k16 (bf16 in, f32 accumulate): S = Q K^T
-// with Q and K fragments read by ldmatrix, then the row max / sum of the
-// online softmax on the accumulator fragments (quad shuffles), then O += P V
-// with P re-packed from the S fragments to bf16 (as the JAX layer casts p to
-// v's dtype) and V's B operand read by ldmatrix.trans from V's natural rows.
-// Shared rows are padded by 16 bytes, so the 8 rows of an ldmatrix fall in
-// distinct banks.  The output is acc / max(l, 1e-20), written as bf16.
+// K and V come through cp.async into a ring of kStages tiles of kBlockK keys
+// (64 and 2 on every path: 48 x 3, 32 x 3 and 32 x 4 were each slower at
+// D = 256): tile t + 1 loads while tile t computes, with one barrier a tile.
+// Each warpgroup (64 query rows) runs its products on the tensor cores with
+// wgmma: S = Q K^T (m64n64k16, Q and K from shared memory), then the row
+// max / sum of the online softmax on the accumulator fragments (quad
+// shuffles), then O += P V (m64nDk16) with P re-packed from the S fragments
+// to bf16 in registers (as the JAX layer casts p to v's dtype) and V read
+// transposed from its natural rows.  Q, K and V sit in shared memory in
+// 64-column blocks with the 128-byte swizzle the wgmma descriptors name.
+// The output is acc / max(l, 1e-20), written as bf16.
 //
-// Tiles: D <= 64, 64 queries (4 warps) by 64 keys; D <= 128 and D <= 256,
-// 128 queries (8 warps) by 64 keys.  Shared memory at D = 256: Q (128 x 264)
-// and two stages of K and V (64 x 264 each), 198 KB, one block per SM.
+// Tiles: 128 queries by 64 keys; D rounded up to a multiple of 64.  Shared
+// memory at D = 256: Q (64 KB) and two stages of K and V (32 KB each),
+// 193 KB, one block per SM.
 //
 // Bound on this card: operations.  At recurrentgemma-9b's prefill (B = 8,
 // S = 4096, H = 16, Hkv = 1, D = 256, window 2048) the live tiles hold
 // 4·B·H·D·Σ_q min(q+1, window) = 8.2e11 flops against 0.27 GB of q/k/v/o,
 // 3,000 flops a byte, far above the 295 at which bf16 tensor cores overtake
-// memory.  Known weakness: mma.sync reads a B fragment from shared memory
-// for every 16-row product, so shared-memory bandwidth caps it near half
-// the tensor cores' rate; wgmma over 64-row warpgroups with TMA loads and
-// an mbarrier ring would not be (left for later work).
+// memory.  Known weakness: every block reads each 64 KB K/V tile from L2
+// for its 128 rows, and with the products switched off the kernel still
+// takes 70% of its time (K/V traffic, the softmax between the two products,
+// the barrier); TMA multicast of a tile to the blocks of a cluster (the
+// heads that share a KV head) and ping-pong between the warpgroups are left
+// for later work.
 //
 // C interface, loaded with ctypes.  The launcher returns cudaGetLastError()
 // right after the launch; it never synchronises and allocates nothing.
@@ -58,9 +62,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kPad = 8;      // bf16 pad per shared row: ldmatrix rows in distinct banks
-constexpr int kBlockK = 64;  // keys per tile
-
 struct Strides {
   int64_t b, s, h;  // elements; the last dim is contiguous
 };
@@ -70,37 +71,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory; each lane gives the address
-// of one row (lanes 8m..8m+7 the rows of matrix m), ``trans`` transposes.
-template <bool trans>
-__device__ __forceinline__ void ldsm4(uint32_t* r, const bf16* row) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(row);
-  if (trans)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr)
-                 : "memory");
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr)
-                 : "memory");
-}
-
-// 16 bytes from global to shared memory without passing through registers;
-// zeros when !valid (``src`` must still be a mapped address).
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+// 16 bytes from global memory to shared address ``dst`` without passing
+// through registers; zeros when !valid (``src`` must still be mapped).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const bf16* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 16 : 0)
                : "memory");
 }
@@ -109,54 +83,244 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// Waits for every cp.async group but the kPending last committed.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// kD: head dim rounded up to a multiple of 32 (zero-filled past d).
-template <int kD, int kWarps>
+// d (64 x 32 f32 accumulators of the warpgroup) += A B^T, A (64 x 16) and
+// B (32 x 16) K-major in shared memory (descriptors); scale_d = 0 drops d.
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 48 f32 accumulators of the warpgroup) += A B^T, A (64 x 16) and
+// B (48 x 16) K-major in shared memory (descriptors); scale_d = 0 drops d.
+__device__ __forceinline__ void wgmma_ss_n48(float* d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64 f32 accumulators of the warpgroup) += A B^T, A (64 x 16) and
+// B (64 x 16) K-major in shared memory (descriptors); scale_d = 0 drops d.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64) += A B: A (64 x 16 bf16) from registers in the mma.sync
+// fragment layout, B (16 x 64) N-major in shared memory (transposed read).
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128) += A B: A (64 x 16 bf16) from registers in the mma.sync
+// fragment layout, B (16 x 128) N-major in shared memory (transposed read).
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 256) += A B: A (64 x 16 bf16) from registers in the mma.sync
+// fragment layout, B (16 x 256) N-major in shared memory (transposed read).
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
+        "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
+        "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),
+        "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
+        "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// kD: head dim rounded up to a multiple of 64 (zero-filled past d), one
+// 128-byte swizzle atom of bf16 per 64 columns; kBlockK keys a tile (a
+// multiple of 16); kStages tiles of K and V in the ring.
+template <int kD, int kBlockK_, int kStages_>
 struct Tiles {
-  static constexpr int kThreads = kWarps * 32;
-  static constexpr int kBlockQ = kWarps * 16;  // 16 query rows per warp
-  static constexpr int kRow = kD + kPad;       // Q, K and V rows
-  static constexpr size_t kQ = (size_t)kBlockQ * kRow;
-  static constexpr size_t kKV = (size_t)kBlockK * kRow;  // one K or V stage
-  static constexpr size_t kBytes = (kQ + 4 * kKV) * sizeof(bf16);
+  static constexpr int kBlockK = kBlockK_;
+  static constexpr int kStages = kStages_;
+  static constexpr int kWarpgroups = 2;
+  static constexpr int kThreads = kWarpgroups * 128;
+  static constexpr int kBlockQ = kWarpgroups * 64;      // 64 query rows a warpgroup
+  static constexpr int kQBytes = kBlockQ * kD * 2;
+  static constexpr int kKVBytes = kBlockK * kD * 2;     // one K or V stage
+  static constexpr size_t kBytes =
+      (size_t)kQBytes + 2 * kStages * kKVBytes + 1024;   // + alignment
 };
 
-// Rows [r0, r0 + rows) of a (rows, kD) tile at ``dst`` from ``src`` (row
-// stride ``ss``): rows at or past ``limit`` and columns at or past d are
-// zero-filled.  The caller commits.
+// Byte offset of 16-byte chunk ``c`` (columns 8c .. 8c + 7) of row ``row``
+// in a tile of ``rows`` rows: 64-column blocks one after another, each
+// rows x 128 bytes with the 128-byte swizzle (chunk index XOR row % 8), the
+// layout the wgmma descriptors below describe.
+__device__ __forceinline__ uint32_t swizzled(int rows, int row, int c) {
+  return (uint32_t)((c >> 3) * rows * 128 + row * 128 + (((c & 7) ^ (row & 7)) << 4));
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Ties registers written by an asynchronous wgmma to this point: no read of
+// them moves above the wait before it.
+template <int kN>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// cp.async writes go through the generic proxy; wgmma reads through the
+// async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int kN>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (kN == 32) wgmma_ss_n32(d, a, b, scale_d);
+  else if constexpr (kN == 48) wgmma_ss_n48(d, a, b, scale_d);
+  else wgmma_ss_n64(d, a, b, scale_d);
+}
+
+template <int kN>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b) {
+  if constexpr (kN == 64) wgmma_rs_n64(d, a, b);
+  else if constexpr (kN == 128) wgmma_rs_n128(d, a, b);
+  else wgmma_rs_n256(d, a, b);
+}
+
+// Rows [r0, r0 + rows) of a (rows, kD) swizzled tile at shared address
+// ``dst`` from ``src`` (row stride ``ss``): rows at or past ``limit`` and
+// columns at or past d are zero-filled.  The caller commits.
 template <int kD, int kThreads>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int64_t ss, int r0,
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int64_t ss, int r0,
                                           int rows, int limit, int d, int tid) {
   constexpr int kChunks = kD / 8;  // 16-byte chunks per row
   for (int c = tid; c < rows * kChunks; c += kThreads) {
-    const int row = c / kChunks, col = (c % kChunks) * 8;
-    const bool ok = r0 + row < limit && col < d;
-    cp_async16(dst + row * (kD + kPad) + col, ok ? src + (int64_t)(r0 + row) * ss + col : src,
-               ok);
+    const int row = c / kChunks, ch = c % kChunks;
+    const bool ok = r0 + row < limit && ch * 8 < d;
+    cp_async16(dst + swizzled(rows, row, ch),
+               ok ? src + (int64_t)(r0 + row) * ss + ch * 8 : src, ok);
   }
 }
 
-template <int kD, int kWarps>
-__global__ void __launch_bounds__(Tiles<kD, kWarps>::kThreads, 1)
+template <int kD, int kBlockK, int kStages>
+__global__ void __launch_bounds__(Tiles<kD, kBlockK, kStages>::kThreads, 1)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, Strides sq_,
                  Strides sk_, Strides sv_, Strides so_, int sq, int sk, int heads,
                  int kv_heads, int d, float scale, int causal, int window, float cap) {
-  using T = Tiles<kD, kWarps>;
+  using T = Tiles<kD, kBlockK, kStages>;
   constexpr int kThreads = T::kThreads;
-  constexpr int kRow = T::kRow;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + T::kQ;          // two stages
-  bf16* vs = ks + 2 * T::kKV;     // two stages
+  extern __shared__ unsigned char smem_raw[];
+  // Swizzle atoms need 1024-byte aligned tiles.
+  const uint32_t qs = ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ks = qs + T::kQBytes;              // kStages tiles of K
+  const uint32_t vs = ks + kStages * T::kKVBytes;   // kStages tiles of V
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int wg = tid >> 7;            // warpgroup
+  const int warp = (tid >> 5) & 3;    // warp in the warpgroup
   const int lane = tid & 31;
-  const int g = lane >> 2;  // row group of the mma fragments
+  const int g = lane >> 2;  // row group of the fragments
   const int t = lane & 3;   // thread in the group
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -174,12 +338,22 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tile_lo = k_lo / kBlockK;
   const int tile_hi = (k_hi + kBlockK - 1) / kBlockK;
 
+  // Tile tile_lo + j goes into stage j % kStages; the ring starts with
+  // kStages - 1 tiles in flight (Q with the first).
+  auto load_kv = [&](int j) {
+    const int tile = tile_lo + j;
+    if (tile < tile_hi) {
+      const int st = j % kStages;
+      load_tile<kD, kThreads>(ks + st * T::kKVBytes, kb, sk_.s, tile * kBlockK, kBlockK, sk,
+                              d, tid);
+      load_tile<kD, kThreads>(vs + st * T::kKVBytes, vb, sv_.s, tile * kBlockK, kBlockK, sk,
+                              d, tid);
+    }
+    cp_async_commit();
+  };
   load_tile<kD, kThreads>(qs, qb, sq_.s, q0, T::kBlockQ, sq, d, tid);
-  if (tile_lo < tile_hi) {
-    load_tile<kD, kThreads>(ks, kb, sk_.s, tile_lo * kBlockK, kBlockK, sk, d, tid);
-    load_tile<kD, kThreads>(vs, vb, sv_.s, tile_lo * kBlockK, kBlockK, sk, d, tid);
-  }
-  cp_async_commit();
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) load_kv(j);
 
   constexpr int kNt = kBlockK / 8;  // n-tiles of S
   constexpr int kDt = kD / 8;       // n-tiles of O
@@ -188,52 +362,41 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < kDt; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
-  const int r0 = q0 + warp * 16;  // this warp's first query row
+  const int g0 = q0 + wg * 64;        // this warpgroup's first query row
+  const int r0 = g0 + warp * 16;      // this warp's first query row
   const int rows[2] = {r0 + g, r0 + g + 8};
-  const int r_last = min(r0 + 15, sq - 1);
-  // This lane's ldmatrix row addresses: Q (A operand, rows 0-15, column
-  // halves by lane / 16), K (B operand of S: keys by lane % 8 and lane / 16,
-  // column halves by lane / 8 % 2), V (B operand of O: keys by lane % 8 and
-  // lane / 8 % 2, column halves by lane / 16).
-  const bf16* qa = qs + (warp * 16 + (lane & 15)) * kRow + (lane >> 4) * 8;
-  const int k_off = ((lane & 7) + (lane >> 4) * 8) * kRow + ((lane >> 3) & 1) * 8;
-  const int v_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * kRow + (lane >> 4) * 8;
+  const int g_last = min(g0 + 63, sq - 1);
+  // Descriptors: Q and K K-major (rows of 128 bytes, 8-row groups 1024
+  // bytes apart), V N-major (8-key groups 1024 bytes apart, 64-column
+  // blocks kBlockK x 128 bytes apart).
+  const uint32_t qw = qs + wg * 64 * 128;
 
   for (int tile = tile_lo, it = 0; tile < tile_hi; ++tile, ++it) {
     const int kt0 = tile * kBlockK;
-    const int st = it & 1;
-    cp_async_wait_all();  // this tile (and Q) landed
-    __syncthreads();      // ... for every warp; the other stage is free again
-    if (tile + 1 < tile_hi) {
-      load_tile<kD, kThreads>(ks + (st ^ 1) * T::kKV, kb, sk_.s, kt0 + kBlockK, kBlockK, sk,
-                              d, tid);
-      load_tile<kD, kThreads>(vs + (st ^ 1) * T::kKV, vb, sv_.s, kt0 + kBlockK, kBlockK, sk,
-                              d, tid);
-    }
-    cp_async_commit();
-    // A warp none of whose rows sees a key of this tile skips it.
-    if (r0 >= sq || (causal && kt0 > r_last) ||
-        (window > 0 && kt0 + kBlockK - 1 <= r0 - window))
+    const int st = it % kStages;
+    cp_async_wait<kStages - 2>();  // this tile (and Q) landed
+    fence_proxy_async();           // ... visible to wgmma
+    __syncthreads();  // ... for every warp; the stage read last tile is free again
+    load_kv(it + kStages - 1);
+    // A warpgroup none of whose rows sees a key of this tile skips it.
+    if (g0 >= sq || (causal && kt0 > g_last) ||
+        (window > 0 && kt0 + kBlockK - 1 <= g0 - window))
       continue;
-    const bf16* kt = ks + st * T::kKV;
-    const bf16* vt = vs + st * T::kKV;
+    const uint32_t kt = ks + st * T::kKVBytes;
+    const uint32_t vt = vs + st * T::kKVBytes;
 
-    // S = Q K^T for this warp's 16 rows and the tile's keys.
+    // S = Q K^T for this warpgroup's 64 rows and the tile's keys.
     float s[kNt][4];
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < kNt; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kD; kk += 16) {
-      uint32_t a[4];
-      ldsm4<false>(a, qa + kk);
-#pragma unroll
-      for (int n = 0; n < kNt; n += 2) {
-        uint32_t bk[4];
-        ldsm4<false>(bk, kt + n * 8 * kRow + k_off + kk);
-        mma_bf16(s[n], a, bk[0], bk[1]);
-        mma_bf16(s[n + 1], a, bk[2], bk[3]);
-      }
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const uint32_t off = (kk & 3) * 32;  // 16 columns a step inside the atom
+      wgmma_ss<kBlockK>(&s[0][0], desc(qw + (kk >> 2) * T::kBlockQ * 128 + off, 16, 1024),
+                        desc(kt + (kk >> 2) * kBlockK * 128 + off, 16, 1024), kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<kNt * 4>(&s[0][0]);
 
     // Scale, soft-cap, mask; online softmax per row.
     const bool edge = (kt0 + kBlockK > sk) || (causal && kt0 + kBlockK - 1 > r0) ||
@@ -273,34 +436,37 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       acc[i][2] *= corr[1];
       acc[i][3] *= corr[1];
     }
+    uint32_t p[kBlockK / 16][4];  // P in bf16 as A fragments, 16 keys each
 #pragma unroll
     for (int n = 0; n < kNt; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = __expf(s[n][e] - m_use[e >> 1]);
-        s[n][e] = p;
-        l_run[e >> 1] += p;
+        const float pe = __expf(s[n][e] - m_use[e >> 1]);
+        s[n][e] = pe;
+        l_run[e >> 1] += pe;
       }
     }
-
-    // O += P V: P's accumulator fragments are the A operand, 16 keys a step.
 #pragma unroll
     for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int i = 0; i < kDt; i += 2) {
-        uint32_t bv[4];
-        ldsm4<true>(bv, vt + kk * 16 * kRow + v_off + i * 8);
-        mma_bf16(acc[i], a, bv[0], bv[1]);
-        mma_bf16(acc[i + 1], a, bv[2], bv[3]);
-      }
+      p[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      p[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      p[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      p[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
     }
+
+    // O += P V, 16 keys a step; V's 8-key groups are 1024 bytes apart.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 16; ++kk)
+      wgmma_rs<kD>(&acc[0][0], p[kk], desc(vt + kk * 16 * 128, kBlockK * 128, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<kDt * 4>(&acc[0][0]);
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 16; ++kk)  // P stays in its registers until here
+      asm volatile("" : "+r"(p[kk][0]), "+r"(p[kk][1]), "+r"(p[kk][2]), "+r"(p[kk][3])::"memory");
   }
-  cp_async_wait_all();  // nothing may be in flight when the block exits
+  cp_async_wait<0>();  // nothing may be in flight when the block exits
 
   // Row sums across the quad, normalise, store bf16 pairs.
 #pragma unroll
@@ -325,12 +491,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int kD, int kWarps>
+template <int kD, int kBlockK, int kStages>
 int launch(const void* q, const void* k, const void* v, void* o, const int64_t* st,
            int batch, int sq, int sk, int heads, int kv_heads, int d, float scale,
            int causal, int window, float cap, cudaStream_t stream) {
-  using T = Tiles<kD, kWarps>;
-  auto kernel = flash_fwd_kernel<kD, kWarps>;
+  using T = Tiles<kD, kBlockK, kStages>;
+  auto kernel = flash_fwd_kernel<kD, kBlockK, kStages>;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -359,17 +525,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    int window, float cap, void* stream) {
   if (batch <= 0 || sq <= 0 || heads <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (d <= 32)
-    return launch<32, 4>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale,
-                         causal, window, cap, s);
   if (d <= 64)
-    return launch<64, 4>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale,
-                         causal, window, cap, s);
+    return launch<64, 64, 2>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale,
+                             causal, window, cap, s);
   if (d <= 128)
-    return launch<128, 8>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale,
-                          causal, window, cap, s);
-  return launch<256, 8>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale,
-                        causal, window, cap, s);
+    return launch<128, 64, 2>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale,
+                              causal, window, cap, s);
+  return launch<256, 64, 2>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale,
+                            causal, window, cap, s);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {
