@@ -23,17 +23,20 @@
 // first, and the heads on its fastest: blocks that run together read the
 // same K/V tiles (under MQA, the same ones for all heads) from L2.
 //
-// K and V come through cp.async into a ring of kStages tiles of kBlockK keys
-// (64 and 2 on every path: 48 x 3, 32 x 3 and 32 x 4 were each slower at
-// D = 256): tile t + 1 loads while tile t computes, with one barrier a tile.
-// Each warpgroup (64 query rows) runs its products on the tensor cores with
+// K and V come through TMA into a ring of two tiles of 64 keys (48 x 3,
+// 32 x 3 and 32 x 4 were each slower at D = 256 when the loads were
+// cp.async): thread 0 issues a (64-column,
+// kBlockK-key) box per column block of K and of V, completing on the
+// stage's mbarrier, so tile t + 1 loads while tile t computes; one block
+// barrier a tile frees the stage.  Q comes once through cp.async.  Each
+// warpgroup (64 query rows) runs its products on the tensor cores with
 // wgmma: S = Q K^T (m64n64k16, Q and K from shared memory), then the row
 // max / sum of the online softmax on the accumulator fragments (quad
 // shuffles), then O += P V (m64nDk16) with P re-packed from the S fragments
 // to bf16 in registers (as the JAX layer casts p to v's dtype) and V read
 // transposed from its natural rows.  Q, K and V sit in shared memory in
-// 64-column blocks with the 128-byte swizzle the wgmma descriptors name.
-// The output is acc / max(l, 1e-20), written as bf16.
+// 64-column blocks with the 128-byte swizzle that the wgmma descriptors and
+// the tensor maps name.  The output is acc / max(l, 1e-20), written as bf16.
 //
 // Tiles: 128 queries by 64 keys; D rounded up to a multiple of 64.  Shared
 // memory at D = 256: Q (64 KB) and two stages of K and V (32 KB each),
@@ -43,16 +46,18 @@
 // S = 4096, H = 16, Hkv = 1, D = 256, window 2048) the live tiles hold
 // 4·B·H·D·Σ_q min(q+1, window) = 8.2e11 flops against 0.27 GB of q/k/v/o,
 // 3,000 flops a byte, far above the 295 at which bf16 tensor cores overtake
-// memory.  Known weakness: every block reads each 64 KB K/V tile from L2
-// for its 128 rows, and with the products switched off the kernel still
-// takes 70% of its time (K/V traffic, the softmax between the two products,
-// the barrier); TMA multicast of a tile to the blocks of a cluster (the
-// heads that share a KV head) and ping-pong between the warpgroups are left
-// for later work.
+// memory.  Known weakness: each warpgroup waits for its S product, then for
+// its softmax, then for its P V product, and the block barrier keeps the two
+// warpgroups in step, so the tensor cores idle through the softmax (with
+// both products switched off the kernel keeps two thirds of its time).
+// Issuing the next tile's S before the softmax (waiting with
+// wgmma.wait_group 1) made ptxas serialise every wgmma; ping-pong between
+// the warpgroups with a producer warp is left for later work.
 //
 // C interface, loaded with ctypes.  The launcher returns cudaGetLastError()
 // right after the launch; it never synchronises and allocates nothing.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -83,40 +88,49 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Waits for every cp.async group but the kPending last committed.
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// d (64 x 32 f32 accumulators of the warpgroup) += A B^T, A (64 x 16) and
-// B (32 x 16) K-major in shared memory (descriptors); scale_d = 0 drops d.
-__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(scale_d));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-// d (64 x 48 f32 accumulators of the warpgroup) += A B^T, A (64 x 16) and
-// B (48 x 16) K-major in shared memory (descriptors); scale_d = 0 drops d.
-__device__ __forceinline__ void wgmma_ss_n48(float* d, uint64_t a, uint64_t b, int scale_d) {
+// One arrival that also expects ``bytes`` of TMA transfers on the barrier.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23}, "
-      "%24, %25, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "l"(a), "l"(b), "r"(scale_d));
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Waits for the barrier's phase of this parity to complete; a transfer that
+// never lands traps (a launch error) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (int spins = 0; !mbar_try_wait(bar, parity); ++spins)
+    if (spins > (1 << 24)) __trap();
+}
+
+// A (64-column, rows) box of a 4-d tensor map into shared memory at ``dst``
+// (128-byte swizzle), completing on barrier ``bar``; coordinates innermost
+// first, elements past the tensor's edges are zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
 }
 
 // d (64 x 64 f32 accumulators of the warpgroup) += A B^T, A (64 x 16) and
@@ -220,20 +234,20 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+constexpr int kBlockK = 64;  // keys a tile
+constexpr int kStages = 2;   // tiles of K and of V in the ring
+
 // kD: head dim rounded up to a multiple of 64 (zero-filled past d), one
-// 128-byte swizzle atom of bf16 per 64 columns; kBlockK keys a tile (a
-// multiple of 16); kStages tiles of K and V in the ring.
-template <int kD, int kBlockK_, int kStages_>
+// 128-byte swizzle atom of bf16 per 64 columns.
+template <int kD>
 struct Tiles {
-  static constexpr int kBlockK = kBlockK_;
-  static constexpr int kStages = kStages_;
   static constexpr int kWarpgroups = 2;
   static constexpr int kThreads = kWarpgroups * 128;
   static constexpr int kBlockQ = kWarpgroups * 64;      // 64 query rows a warpgroup
   static constexpr int kQBytes = kBlockQ * kD * 2;
   static constexpr int kKVBytes = kBlockK * kD * 2;     // one K or V stage
-  static constexpr size_t kBytes =
-      (size_t)kQBytes + 2 * kStages * kKVBytes + 1024;   // + alignment
+  static constexpr int kBarOffset = kQBytes + 2 * kStages * kKVBytes;
+  static constexpr size_t kBytes = (size_t)kBarOffset + 8 * kStages + 1024;  // + alignment
 };
 
 // Byte offset of 16-byte chunk ``c`` (columns 8c .. 8c + 7) of row ``row``
@@ -274,13 +288,6 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 template <int kN>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b, int scale_d) {
-  if constexpr (kN == 32) wgmma_ss_n32(d, a, b, scale_d);
-  else if constexpr (kN == 48) wgmma_ss_n48(d, a, b, scale_d);
-  else wgmma_ss_n64(d, a, b, scale_d);
-}
-
-template <int kN>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b) {
   if constexpr (kN == 64) wgmma_rs_n64(d, a, b);
   else if constexpr (kN == 128) wgmma_rs_n128(d, a, b);
@@ -302,19 +309,20 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int64_t
   }
 }
 
-template <int kD, int kBlockK, int kStages>
-__global__ void __launch_bounds__(Tiles<kD, kBlockK, kStages>::kThreads, 1)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, Strides sq_,
-                 Strides sk_, Strides sv_, Strides so_, int sq, int sk, int heads,
-                 int kv_heads, int d, float scale, int causal, int window, float cap) {
-  using T = Tiles<kD, kBlockK, kStages>;
+template <int kD>
+__global__ void __launch_bounds__(Tiles<kD>::kThreads, 1)
+flash_fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, Strides sq_,
+                 Strides so_, int sq, int sk, int heads, int kv_heads, int d, float scale,
+                 int causal, int window, float cap) {
+  using T = Tiles<kD>;
   constexpr int kThreads = T::kThreads;
   extern __shared__ unsigned char smem_raw[];
   // Swizzle atoms need 1024-byte aligned tiles.
   const uint32_t qs = ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
   const uint32_t ks = qs + T::kQBytes;              // kStages tiles of K
   const uint32_t vs = ks + kStages * T::kKVBytes;   // kStages tiles of V
+  const uint32_t full = qs + T::kBarOffset;         // kStages barriers: tile landed
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7;            // warpgroup
@@ -328,8 +336,6 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int hk = h / (heads / kv_heads);
 
   const bf16* qb = q + b * sq_.b + h * sq_.h;
-  const bf16* kb = k + b * sk_.b + hk * sk_.h;
-  const bf16* vb = v + b * sv_.b + hk * sv_.h;
 
   // Key tiles this query tile can see.
   const int q_last = min(q0 + T::kBlockQ, sq) - 1;
@@ -338,22 +344,36 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tile_lo = k_lo / kBlockK;
   const int tile_hi = (k_hi + kBlockK - 1) / kBlockK;
 
-  // Tile tile_lo + j goes into stage j % kStages; the ring starts with
-  // kStages - 1 tiles in flight (Q with the first).
+  // Tile tile_lo + j goes into stage j % kStages through TMA, issued by
+  // thread 0: a (64-column, kBlockK-key) box per column block of K and of
+  // V, all completing on the stage's barrier.  The ring starts with
+  // kStages - 1 tiles in flight.
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) mbar_init(full + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
   auto load_kv = [&](int j) {
     const int tile = tile_lo + j;
-    if (tile < tile_hi) {
-      const int st = j % kStages;
-      load_tile<kD, kThreads>(ks + st * T::kKVBytes, kb, sk_.s, tile * kBlockK, kBlockK, sk,
-                              d, tid);
-      load_tile<kD, kThreads>(vs + st * T::kKVBytes, vb, sv_.s, tile * kBlockK, kBlockK, sk,
-                              d, tid);
+    if (tid != 0 || tile >= tile_hi) return;
+    const int st = j % kStages;
+    mbar_expect_tx(full + 8 * st, 2 * T::kKVBytes);
+#pragma unroll
+    for (int cb = 0; cb < kD / 64; ++cb) {
+      tma_load(ks + st * T::kKVBytes + cb * kBlockK * 128, &tk, full + 8 * st, cb * 64, hk,
+               tile * kBlockK, b);
+      tma_load(vs + st * T::kKVBytes + cb * kBlockK * 128, &tv, full + 8 * st, cb * 64, hk,
+               tile * kBlockK, b);
     }
-    cp_async_commit();
   };
   load_tile<kD, kThreads>(qs, qb, sq_.s, q0, T::kBlockQ, sq, d, tid);
+  cp_async_commit();
 #pragma unroll
   for (int j = 0; j < kStages - 1; ++j) load_kv(j);
+  cp_async_wait_all();  // Q landed ...
+  fence_proxy_async();  // ... visible to wgmma ...
+  __syncthreads();      // ... for every warp
 
   constexpr int kNt = kBlockK / 8;  // n-tiles of S
   constexpr int kDt = kD / 8;       // n-tiles of O
@@ -374,10 +394,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int tile = tile_lo, it = 0; tile < tile_hi; ++tile, ++it) {
     const int kt0 = tile * kBlockK;
     const int st = it % kStages;
-    cp_async_wait<kStages - 2>();  // this tile (and Q) landed
-    fence_proxy_async();           // ... visible to wgmma
-    __syncthreads();  // ... for every warp; the stage read last tile is free again
+    // Every warp is done with the stage read last tile: refill it.
+    __syncthreads();
     load_kv(it + kStages - 1);
+    mbar_wait(full + 8 * st, (it / kStages) & 1);  // this tile landed
     // A warpgroup none of whose rows sees a key of this tile skips it.
     if (g0 >= sq || (causal && kt0 > g_last) ||
         (window > 0 && kt0 + kBlockK - 1 <= g0 - window))
@@ -391,8 +411,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk) {
       const uint32_t off = (kk & 3) * 32;  // 16 columns a step inside the atom
-      wgmma_ss<kBlockK>(&s[0][0], desc(qw + (kk >> 2) * T::kBlockQ * 128 + off, 16, 1024),
-                        desc(kt + (kk >> 2) * kBlockK * 128 + off, 16, 1024), kk > 0);
+      wgmma_ss_n64(&s[0][0], desc(qw + (kk >> 2) * T::kBlockQ * 128 + off, 16, 1024),
+                   desc(kt + (kk >> 2) * kBlockK * 128 + off, 16, 1024), kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -466,7 +486,6 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int kk = 0; kk < kBlockK / 16; ++kk)  // P stays in its registers until here
       asm volatile("" : "+r"(p[kk][0]), "+r"(p[kk][1]), "+r"(p[kk][2]), "+r"(p[kk][3])::"memory");
   }
-  cp_async_wait<0>();  // nothing may be in flight when the block exits
 
   // Row sums across the quad, normalise, store bf16 pairs.
 #pragma unroll
@@ -491,12 +510,49 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int kD, int kBlockK, int kStages>
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, found through the runtime (no link
+// against libcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) ==
+        cudaSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (B, S, Hkv, D) bf16 tensor with element strides (b, s, h) as a 4-d
+// tensor map (D, Hkv, S, B), read in (64, 1, keys, 1) boxes with the
+// 128-byte swizzle; zeros past its edges.
+bool tensor_map(CUtensorMap* map, const void* base, int batch, int seq, int kv_heads, int d,
+                const int64_t* stride, int keys) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)kv_heads, (cuuint64_t)seq,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)stride[2] * 2, (cuuint64_t)stride[1] * 2,
+                                 (cuuint64_t)stride[0] * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)keys, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kD>
 int launch(const void* q, const void* k, const void* v, void* o, const int64_t* st,
            int batch, int sq, int sk, int heads, int kv_heads, int d, float scale,
            int causal, int window, float cap, cudaStream_t stream) {
-  using T = Tiles<kD, kBlockK, kStages>;
-  auto kernel = flash_fwd_kernel<kD, kBlockK, kStages>;
+  using T = Tiles<kD>;
+  auto kernel = flash_fwd_kernel<kD>;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -504,12 +560,15 @@ int launch(const void* q, const void* k, const void* v, void* o, const int64_t* 
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const Strides sq_{st[0], st[1], st[2]}, sk_{st[3], st[4], st[5]},
-      sv_{st[6], st[7], st[8]}, so_{st[9], st[10], st[11]};
+  CUtensorMap tk, tv;
+  if (!tensor_map(&tk, k, batch, sk, kv_heads, d, st + 3, kBlockK) ||
+      !tensor_map(&tv, v, batch, sk, kv_heads, d, st + 6, kBlockK))
+    return (int)cudaErrorInvalidValue;
+  const Strides sq_{st[0], st[1], st[2]}, so_{st[9], st[10], st[11]};
   const dim3 grid(heads, batch, (sq + T::kBlockQ - 1) / T::kBlockQ);
-  kernel<<<grid, T::kThreads, T::kBytes, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, sq_, sk_, sv_, so_, sq,
-      sk, heads, kv_heads, d, scale, causal, window, cap);
+  kernel<<<grid, T::kThreads, T::kBytes, stream>>>((const bf16*)q, tk, tv, (bf16*)o, sq_,
+                                                    so_, sq, sk, heads, kv_heads, d, scale,
+                                                    causal, window, cap);
   return (int)cudaGetLastError();
 }
 
@@ -526,13 +585,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (batch <= 0 || sq <= 0 || heads <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (d <= 64)
-    return launch<64, 64, 2>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale,
-                             causal, window, cap, s);
+    return launch<64>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale, causal,
+                      window, cap, s);
   if (d <= 128)
-    return launch<128, 64, 2>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale,
-                              causal, window, cap, s);
-  return launch<256, 64, 2>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale,
-                            causal, window, cap, s);
+    return launch<128>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale, causal,
+                       window, cap, s);
+  return launch<256>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale, causal,
+                     window, cap, s);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {
