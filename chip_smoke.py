@@ -2,7 +2,6 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py            # the paper's scale: 4,500 files, StreamScale(1.0)
-    python3 chip_smoke.py --lm-kernels-only   # phases 1, 2, 8 and 10; no result line
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -767,9 +766,6 @@ def main(argv=None) -> int:
     ap.add_argument("--files", type=int, default=4500,
                     help="files per stream (the paper's window: 4500)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--lm-kernels-only", action="store_true",
-                    help="phases 1, 2, 8 and 10 only (the LM kernels' parity and "
-                         "times); prints no result line")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -821,18 +817,6 @@ def main(argv=None) -> int:
         for line in build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {lib_name}: " + line.strip())
-
-    if args.lm_kernels_only:
-        log("[8] LM kernel parity against the plain version")
-        lm_kernel_parity(flash_attention_cuda, chunked_attention_ref, rglru_cuda, rglru_ref)
-        ssd_kernel_parity(ssd_cuda, ssd_chunked_ref)
-        log(f"[10] LM kernels at the paths' shapes (B in {LM_BATCHES}); ms, CUDA events")
-        lm_kernel_times(flash_attention_cuda, flash_attention_sync_cuda, chunked_attention_ref,
-                        flash_flops_bytes, rglru_cuda, rglru_serial_cuda, rglru_ref,
-                        rglru_flops_bytes)
-        ssd_kernel_times(ssd_cuda, ssd_chunked_ref, ssd_chunked_bf16ops_ref, ssd_flops_bytes)
-        log(f"total {time.perf_counter() - t_start:.1f} s; LM kernels only: no result line")
-        return 0
 
     # 3. kernel parity
     sc = StreamScale(1.0)
