@@ -11,8 +11,10 @@ Phases (any failure exits non-zero and prints no result line):
    designs among them;
 3. kernel parity: each kernel against its plain PyTorch version on the card
    (counts by ``torch.equal``, float sums within ``FLOAT_RTOL`` of the plain
-   version taken in float64), for G in {1, 5, 360K, 1.5M}, V in {1, 3},
+   version taken in float64), for G in {1, 5, 360K, 1.5M, 16M}, V in {1, 3},
    N a batch of paper files, keys out of range on both sides, empty input;
+   the cluster-table scatter (with the plan ``tuning.scatter_plan`` takes at
+   each G) and the global-atomic scatter also under Zipf keys at 360K;
 4. single-query path (the main path, part 1): for CQ3, CQ4, CQ2 and
    TPC-Q6-like, ``measure_cost_model`` on the card at batch sizes that
    span the plans' batches (``CALIBRATION_FILES``), ``Planner("single")``
@@ -24,13 +26,19 @@ Phases (any failure exits non-zero and prints no result line):
 5. multi-query path (the main path, part 2): ``Planner("llf-dynamic").run``
    over the six paper queries on one ``AnalyticsRuntimeExecutor`` with the
    paper's cost models, every result against its host one-shot;
-6. launch counts of phases 4-5: both kernels launched, the plain version
-   never called on a CUDA tensor;
+6. launch counts of phases 4-5: the narrow kernel, the cluster-table
+   scatter (CQ3) and the global-atomic scatter (CQ4, the plan's route for a
+   table that needs two key ranges) launched, the plain version never
+   called on a CUDA tensor;
 7. at the main path's largest batch per query: where a batch's time goes
-   (host concat, copy in, kernel, spill), the kernel against its plain
-   version at that shape (as in phase 3), and its time beside the plain
-   version's, ``index_add_``'s and its byte bound; then the
-   narrow/scatter crossover table behind ``tuning.MATMUL_MAX_G``;
+   (host concat, copy in, kernel, spill), the kernel the path runs against
+   its plain version at that shape (as in phase 3), and its time beside the
+   plain version's, ``index_add_``'s and its byte bound; the cluster-table
+   scatter also beside the global-atomic kernel it replaced (``old_ms``), at
+   CQ4 the cluster design forced to two key ranges beside the route taken,
+   and at CQ3's shape both again under Zipf keys (parity gated, times a
+   reading); then the narrow/scatter crossover table behind
+   ``tuning.MATMUL_MAX_G``;
 8. LM kernel parity: the flash-attention kernel (causal or not, window,
    soft-cap, GQA and MQA, ragged S, D in {64, 128, 256}), the RG-LRU
    kernel (ragged S and N, B in {1, 8}) and the SSD kernel (B in {1, 2, 8},
@@ -79,8 +87,9 @@ Phases (any failure exits non-zero and prints no result line):
 Each parity line prints the largest absolute error and its worst ratio to
 the ``torch.allclose`` limit ``atol + rtol |want|`` (the check passes up to
 1).  The line before the last is a JSON object with one entry per kernel
-(flash and RG-LRU at B = 8, with ``old_ms``, the earlier design's time);
-the last line is ``{"ok": true, "device": {...}}``.
+(flash and RG-LRU at B = 8, with ``old_ms``, the earlier design's time; the
+cluster-table scatter at CQ3 with ``old_ms`` and its plan); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -104,6 +113,7 @@ BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 # to 2e-5 for 13M rows into one group through scatter).  Counts are exact.
 FLOAT_RTOL = 1e-4
 PARITY_FILES = 97           # N = 97 lineitem files = 1,261,000 rows, no block multiple
+PANE_GROUPS = 16_000_000    # a pane scan's composite key space (panes x groups)
 # Phase 4's calibration batch sizes in files: measure_cost_model's default
 # (1, 4, 16, 64) and sizes that span the single-query plans' batches.
 CALIBRATION_FILES = (1, 4, 16, 64, 256, 1024, 2048, 3072)
@@ -188,13 +198,31 @@ def kernel_parity(kernels, segagg_ref, rows: int) -> None:
                 if not torch.allclose(got, want, rtol=FLOAT_RTOL, atol=FLOAT_RTOL):
                     raise AssertionError(f"{name} G={g} V={v}: float sums differ")
                 err = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
-                log(f"  parity {name:15s} N={rows} G={g:>9} V={v}: counts equal, "
+                log(f"  parity {name:21s} N={rows} G={g:>9} V={v}: counts equal, "
                     f"float rel err {err:.3e}")
         empty = fn(torch.zeros(0, dtype=torch.int32, device="cuda"),
                    torch.zeros((0, 3), device="cuda"), 5)
         if empty.shape != (5, 3) or empty.abs().sum().item() != 0.0:
             raise AssertionError(f"{name}: empty input must give zeros")
-        log(f"  parity {name:15s} empty input: zeros (5, 3)")
+        log(f"  parity {name:21s} empty input: zeros (5, 3)")
+
+
+def zipf_parity(kernels, segagg_ref, zipf_keys, rows: int, g: int) -> None:
+    """Each kernel against the plain version under Zipf keys (7.5% of the
+    rows in one group at 360K groups): counts exact, float sums within
+    ``FLOAT_RTOL``."""
+    keys = zipf_keys(rows, g, seed=2, device="cuda")
+    ones = torch.ones((rows, 1), device="cuda")
+    vals = torch.rand((rows, 1), generator=torch.Generator().manual_seed(2)).cuda()
+    for name, fn in kernels:
+        if not torch.equal(fn(keys, ones, g), segagg_ref(keys, ones, g)):
+            raise AssertionError(f"{name} G={g} Zipf keys: counts differ")
+        got, want = fn(keys, vals, g).double(), segagg_ref(keys, vals.double(), g)
+        if not torch.allclose(got, want, rtol=FLOAT_RTOL, atol=FLOAT_RTOL):
+            raise AssertionError(f"{name} G={g} Zipf keys: float sums differ")
+        err = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+        log(f"  parity {name:21s} N={rows} G={g:>9} V=1, Zipf keys: counts equal, "
+            f"float rel err {err:.3e}")
 
 
 # -- phases 4-5 --------------------------------------------------------------
@@ -778,9 +806,9 @@ def main(argv=None) -> int:
         NUM_FILES, PAPER_QUERIES, StreamScale, paper_cost_model, stream_files)
     from repro_torch.kernels import _build
     from repro_torch.kernels.segagg import ops, tuning
-    from repro_torch.kernels.segagg.ref import segagg_ref
+    from repro_torch.kernels.segagg.ref import segagg_ref, zipf_keys
     from repro_torch.kernels.segagg.segagg import (
-        segagg_narrow_cuda, segagg_scatter_cuda)
+        scatter_plan_for, segagg_narrow_cuda, segagg_scatter_atomic_cuda, segagg_scatter_cuda)
     from repro_torch.serve.analytics import (
         AnalyticsRuntimeExecutor, concat_files, measure_cost_model, run_batched, run_plan)
     from repro_torch import core
@@ -821,10 +849,17 @@ def main(argv=None) -> int:
     # 3. kernel parity
     sc = StreamScale(1.0)
     log(f"[3] kernel parity against the plain version (float rtol {FLOAT_RTOL})")
+    wide = (sc.num_suppkeys, sc.num_partkeys, PANE_GROUPS)
+    for g in (1, 5) + wide:
+        for v in (1, 3):
+            log(f"    G={g:>9} V={v}: scatter plan {scatter_plan_for(g, v, 'cuda')}")
     kernel_parity([("segagg_narrow", segagg_narrow_cuda, (1, 5)),
-                   ("segagg_scatter", segagg_scatter_cuda,
-                    (1, 5, sc.num_suppkeys, sc.num_partkeys))],
+                   ("segagg_scatter", segagg_scatter_cuda, (1, 5) + wide),
+                   ("segagg_scatter_atomic", segagg_scatter_atomic_cuda, (5,) + wide)],
                   segagg_ref, PARITY_FILES * sc.lineitems_per_file)
+    zipf_parity([("segagg_scatter", segagg_scatter_cuda),
+                 ("segagg_scatter_atomic", segagg_scatter_atomic_cuda)],
+                segagg_ref, zipf_keys, PARITY_FILES * sc.lineitems_per_file, sc.num_suppkeys)
     torch.cuda.synchronize()
 
     # data: the paper's window, made from the seed
@@ -856,6 +891,7 @@ def main(argv=None) -> int:
     ops.segagg_ref = counted_ref
     segagg_narrow_cuda.launches = 0
     segagg_scatter_cuda.launches = 0
+    segagg_scatter_atomic_cuda.launches = 0
     largest = {}   # query id -> its largest batch in rows on the main path
 
     # 4. single-query path
@@ -923,18 +959,20 @@ def main(argv=None) -> int:
 
     # 6. launch counts of the main path
     launches = {"segagg_narrow": segagg_narrow_cuda.launches,
-                "segagg_scatter": segagg_scatter_cuda.launches}
+                "segagg_scatter": segagg_scatter_cuda.launches,
+                "segagg_scatter_atomic": segagg_scatter_atomic_cuda.launches}
     ops.segagg_ref = segagg_ref
     log(f"[6] main-path launches {launches}, plain version on CUDA tensors "
         f"{plain_cuda_calls[0]} times")
     if min(launches.values()) <= 0 or plain_cuda_calls[0]:
-        raise AssertionError("the main path must run through both kernels only")
+        raise AssertionError("the main path must run through the three kernels only")
 
     # 7. kernel times at the main path's largest batch per query
     log("[7] kernel parity and times at each query's largest main-path batch "
         "(ms; bound = bytes at 3.35 TB/s)")
     fns = {"narrow": ("segagg_narrow", segagg_narrow_cuda),
-           "scatter": ("segagg_scatter", segagg_scatter_cuda)}
+           "cluster": ("segagg_scatter", segagg_scatter_cuda),
+           "atomic": ("segagg_scatter_atomic", segagg_scatter_atomic_cuda)}
     report = {}
     for aq in PAPER_QUERIES:
         qid, g = aq.query_id, aq.num_groups(sc)
@@ -950,8 +988,10 @@ def main(argv=None) -> int:
         keys, vals = torch.from_numpy(keys_np).cuda(), torch.from_numpy(vals_np).cuda()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        kname, fn = fns[tuning.pick_formulation(g, vals.shape[1])]
-        out = fn(keys, vals, g)
+        form = tuning.pick_formulation(g, vals.shape[1])
+        plan = scatter_plan_for(g, vals.shape[1], "cuda") if form == "scatter" else None
+        kname, fn = fns["narrow" if plan is None else plan.route]
+        out = ops.segagg(keys, vals, g)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         out.cpu()
@@ -962,13 +1002,44 @@ def main(argv=None) -> int:
             f"kernel {(t3 - t2) * 1e3:.3f}, spill {(t4 - t3) * 1e3:.3f}")
         r = kernel_times(kname, fn, keys, vals, g, qid != "TPC-Q6-like",
                          segagg_ref, ops.flops_bytes)
-        log(f"  {qid:12s} {kname:15s} N={keys.shape[0]:>9} G={g:>8} "
+        extra = ""
+        if kname == "segagg_scatter":
+            r["old_ms"] = cuda_ms(lambda: segagg_scatter_atomic_cuda(keys, vals, g))
+            r["plan"] = {"route": plan.route, "cluster": plan.cluster,
+                         "ranges": [list(x) for x in plan.ranges]}
+            extra = (f", global-atomic kernel {r['old_ms']:.4f} "
+                     f"({r['old_ms'] / r['ms']:.2f}x); plan {r['plan']}")
+        elif kname == "segagg_scatter_atomic":
+            # the cluster design forced to the key ranges this table needs
+            forced = scatter_plan_for(g, vals.shape[1], "cuda", max_ranges=4)
+            got = segagg_scatter_cuda(keys, vals, g, plan=forced)
+            if not torch.equal(got, segagg_ref(keys, vals, g)):
+                raise AssertionError(f"{qid}: forced cluster plan: counts differ")
+            t_forced = cuda_ms(lambda: segagg_scatter_cuda(keys, vals, g, plan=forced))
+            extra = (f"; the cluster design forced to {len(forced.ranges)} key ranges of "
+                     f"{forced.cluster} blocks {t_forced:.4f}")
+        log(f"  {qid:12s} {kname:21s} N={keys.shape[0]:>9} G={g:>8} "
             f"({tuning.shape_class(keys.shape[0], g)}): kernel {r['ms']:.4f}, "
             f"plain {r['plain_ms']:.4f}, index_add_ {r['library_ms']:.4f}, "
             f"bound {r['bound_ms']:.4f} ({r['bound_ms'] / r['ms']:.1%} of it reached), "
-            f"max abs err {r['max_abs_err']:.3g}")
+            f"max abs err {r['max_abs_err']:.3g}{extra}")
         if kname not in report or keys.shape[0] > report[kname][0]:
             report[kname] = (keys.shape[0], qid, r)
+        if qid == "CQ3":
+            zipf_shape = (keys.shape[0], g)
+    # CQ3's shape under Zipf keys: a reading (parity gated)
+    rows_z, g = zipf_shape
+    keys = zipf_keys(rows_z, g, seed=3, device="cuda")
+    vals = torch.ones((rows_z, 1), device="cuda")
+    r = kernel_times("segagg_scatter", segagg_scatter_cuda, keys, vals, g, True,
+                     segagg_ref, ops.flops_bytes)
+    r_old = kernel_times("segagg_scatter_atomic", segagg_scatter_atomic_cuda, keys, vals, g,
+                         True, segagg_ref, ops.flops_bytes)
+    top = torch.bincount(keys, minlength=g).max().item() / rows_z
+    log(f"  CQ3 shape, Zipf keys ({top:.2%} of rows in one group), N={rows_z} G={g}: "
+        f"cluster table {r['ms']:.4f}, global-atomic kernel {r_old['ms']:.4f}, index_add_ "
+        f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}")
+    del keys, vals
     gen = torch.Generator(device="cuda").manual_seed(1)
     crossings = []
     for files_x in (PARITY_FILES, 2250):  # a small batch and half the window
@@ -1130,9 +1201,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     replaces = {"segagg_narrow": "src/repro/kernels/segagg/segagg.py:48",
-                "segagg_scatter": "src/repro/kernels/segagg/segagg.py:75"}
+                "segagg_scatter": "src/repro/kernels/segagg/segagg.py:75",
+                "segagg_scatter_atomic": "src/repro/kernels/segagg/segagg.py:75"}
     kernels = []
-    for kname in ("segagg_scatter", "segagg_narrow"):
+    for kname in ("segagg_scatter", "segagg_scatter_atomic", "segagg_narrow"):
         rows_k, qid, r = report[kname]
         log(f"    {kname} reported at {qid}'s largest batch, N={rows_k}")
         kernels.append({"name": kname, "route": "cuda",

@@ -29,13 +29,22 @@ NVCC_FLAGS = (
 
 _I32, _I64, _PTR = ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p
 _F32, _I64P = ctypes.c_float, ctypes.POINTER(ctypes.c_int64)
+_I32P = ctypes.POINTER(ctypes.c_int32)
 
 # Library name -> (source file, {C function: argtypes}).  Every launcher
 # returns cudaGetLastError() as an int, and each library exports
 # ``<name>_error_string(int)`` to name the error.
 LIBRARIES: Dict[str, tuple] = {
     "segagg": ("segagg.cu", {
-        "segagg_scatter": (_PTR, _PTR, _PTR, _I64, _I32, _I64, _PTR),
+        # keys, values, out, n, v, g, cluster, clusters, range_len,
+        # slice_chunks, capacity, stream
+        "segagg_scatter": (_PTR, _PTR, _PTR, _I64, _I32, _I64, _I32, _I32, _I64,
+                           _I32, _I32, _PTR),
+        "segagg_scatter_atomic": (_PTR, _PTR, _PTR, _I64, _I32, _I64, _PTR),
+        # cluster, smem_bytes, &max_clusters
+        "segagg_scatter_clusters": (_I32, _I32, _I32P),
+        # &smem_bytes
+        "segagg_scatter_smem_optin": (_I32P,),
         "segagg_narrow": (_PTR, _PTR, _PTR, _I64, _I32, _I32, _PTR),
     }),
     "flash_attention": ("flash_attention.cu", {

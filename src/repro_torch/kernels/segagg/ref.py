@@ -28,6 +28,22 @@ def segagg_ref(keys: torch.Tensor, values: torch.Tensor,
     return out.index_add_(0, keys[keep], values[keep])
 
 
+def zipf_keys(n: int, num_groups: int, seed: int,
+              device: torch.device | str = "cpu") -> torch.Tensor:
+    """(n,) int32 keys from a finite Zipf law over ``[0, num_groups)``: rank
+    r (from 1) has weight 1/r, and ranks go to keys through a permutation
+    seeded by ``seed``, so the hot groups lie anywhere in the key space.
+    The hottest group takes 1/H(num_groups) of the rows (7.5% at 360,000
+    groups).  Skewed input for the kernels' checks and timings."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cdf = torch.cumsum(1.0 / torch.arange(1, num_groups + 1, dtype=torch.float64,
+                                          device=device), 0)
+    u = torch.rand(n, generator=gen, dtype=torch.float64, device=device) * cdf[-1]
+    rank = torch.searchsorted(cdf, u).clamp_max_(num_groups - 1)
+    perm = torch.randperm(num_groups, generator=gen, device=device)
+    return perm[rank].to(torch.int32)
+
+
 def combine_ref(partials: torch.Tensor) -> torch.Tensor:
     """Final aggregation (paper §2.1): sum the per-batch partials.
     partials: (num_batches, G, V) -> (G, V)."""

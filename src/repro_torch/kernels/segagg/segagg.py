@@ -1,10 +1,19 @@
-"""ctypes wrappers of the two Hopper segagg kernels (``csrc/segagg.cu``).
+"""ctypes wrappers of the Hopper segagg kernels (``csrc/segagg.cu``).
 
 * ``segagg_scatter_cuda`` replaces the JAX package's
-  ``_segagg_scatter_kernel`` (``repro/kernels/segagg/segagg.py:75``): one
-  global atomicAdd per (row, v) element into a (G, V) output that lives in
-  L2.  Bounded by bytes (keys + values read, output written once); its
-  weakness is atomic contention on skewed keys.
+  ``_segagg_scatter_kernel`` (``repro/kernels/segagg/segagg.py:75``): the
+  blocks of a thread-block cluster pool their shared memory into one f32
+  table of a key range; half the elements are mailed to the block that owns
+  their group and added there, the other half go to the output by global
+  atomics, and each block flushes its part of the table with 16-byte vector
+  atomics.  ``tuning.scatter_plan`` picks the cluster size and the key
+  ranges from what the card reports (``scatter_plan_for``); a table that
+  needs more ranges than pay off goes to ``segagg_scatter_atomic_cuda``.
+  Bounded by bytes (keys + values read, output written once).
+* ``segagg_scatter_atomic_cuda``, the first design of the scatter kernel:
+  one global atomicAdd per (row, v) element into a (G, V) output that lives
+  in L2; skewed keys contend on its atomics.  The wide route of
+  ``segagg_scatter_cuda``, and the yardstick it is timed against.
 * ``segagg_narrow_cuda`` replaces ``_segagg_matmul_kernel``
   (``repro/kernels/segagg/segagg.py:48``): a per-block (G, V) table in
   shared memory (at most ``NARROW_TABLE_BYTES``), with register and warp
@@ -16,12 +25,14 @@ counts its launches in ``.launches`` (a plain int, reset by the caller).
 """
 from __future__ import annotations
 
+import ctypes
+from typing import Dict, Optional, Tuple
+
 import torch
 
 from .. import _build
-
-# Shared-memory table of the narrow kernel: the default dynamic limit.
-NARROW_TABLE_BYTES = 48 * 1024
+from . import tuning
+from .tuning import NARROW_TABLE_BYTES
 
 
 def _check(keys: torch.Tensor, values: torch.Tensor, num_groups: int,
@@ -42,14 +53,62 @@ def _check(keys: torch.Tensor, values: torch.Tensor, num_groups: int,
 
 
 def _launch(fn_name: str, keys: torch.Tensor, values: torch.Tensor,
-            out: torch.Tensor) -> None:
+            out: torch.Tensor, *extra: int) -> None:
     lib = _build.load("segagg")
     n, v = values.shape
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, fn_name)(keys.data_ptr(), values.data_ptr(),
-                                     out.data_ptr(), n, v, out.shape[0], stream)
+                                     out.data_ptr(), n, v, out.shape[0], *extra,
+                                     stream)
     _build.check("segagg", code, fn_name)
+
+
+# (device index, cluster, smem bytes) -> clusters the card runs at once;
+# device index -> (opt-in shared memory a block, largest cluster size)
+_active: Dict[Tuple[int, int, int], int] = {}
+_caps: Dict[int, Tuple[int, int]] = {}
+
+
+def _query(fn_name: str, *args: int) -> int:
+    lib = _build.load("segagg")
+    out = ctypes.c_int32(0)
+    _build.check("segagg", getattr(lib, fn_name)(*args, ctypes.byref(out)), fn_name)
+    return out.value
+
+
+def active_clusters(device: torch.device, cluster: int, smem_bytes: int) -> int:
+    """Clusters of ``cluster`` blocks with ``smem_bytes`` of table each that
+    the card runs at once (``cudaOccupancyMaxActiveClusters``)."""
+    key = (device.index or 0, cluster, smem_bytes)
+    if key not in _active:
+        with torch.cuda.device(device):
+            _active[key] = _query("segagg_scatter_clusters", cluster, smem_bytes)
+    return _active[key]
+
+
+def scatter_caps(device: torch.device | str) -> Tuple[int, int]:
+    """What the card offers the cluster kernel: the opt-in shared memory a
+    block, and the largest cluster size, 16 blocks if the card runs such
+    clusters at that size, else the portable 8."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _caps:
+        device = torch.device("cuda", index)
+        with torch.cuda.device(device):
+            smem = _query("segagg_scatter_smem_optin")
+        largest = max(tuning.SCATTER_CLUSTER_SIZES)
+        fits = active_clusters(device, largest, smem) > 0
+        _caps[index] = (smem, largest if fits else min(tuning.SCATTER_CLUSTER_SIZES))
+    return _caps[index]
+
+
+def scatter_plan_for(num_groups: int, v: int, device: torch.device | str,
+                     max_ranges: int = tuning.SCATTER_MAX_RANGES) -> tuning.ScatterPlan:
+    """``tuning.scatter_plan`` fed by what the card reports
+    (``scatter_caps``)."""
+    smem, max_blocks = scatter_caps(device)
+    return tuning.scatter_plan(num_groups, v, max_blocks, smem, max_ranges)
 
 
 def _zeros(values: torch.Tensor, num_groups: int) -> torch.Tensor:
@@ -57,15 +116,38 @@ def _zeros(values: torch.Tensor, num_groups: int) -> torch.Tensor:
                        device=values.device)
 
 
-def segagg_scatter_cuda(keys: torch.Tensor, values: torch.Tensor,
-                        num_groups: int) -> torch.Tensor:
+def segagg_scatter_cuda(keys: torch.Tensor, values: torch.Tensor, num_groups: int,
+                        plan: Optional[tuning.ScatterPlan] = None) -> torch.Tensor:
     """(N,) int32 keys + (N, V) f32 values on the card -> (num_groups, V)
-    f32 sums, by global atomics.  Keys outside [0, num_groups) are dropped."""
+    f32 sums, through cluster-shared tables (or, on the ``atomic`` route,
+    ``segagg_scatter_atomic_cuda``).  ``plan`` defaults to
+    ``scatter_plan_for``'s; a measurement may pass another.  Keys outside
+    [0, num_groups) are dropped."""
     _check(keys, values, num_groups, "segagg_scatter")
+    if plan is None:
+        plan = scatter_plan_for(num_groups, values.shape[1], values.device)
+    if plan.route == "atomic":
+        return segagg_scatter_atomic_cuda(keys, values, num_groups)
     out = _zeros(values, num_groups)
     if values.shape[0]:
-        _launch("segagg_scatter", keys, values, out)
+        clusters = tuning.scatter_clusters(
+            active_clusters(values.device, plan.cluster, plan.smem_bytes),
+            len(plan.ranges))
+        _launch("segagg_scatter", keys, values, out, plan.cluster, clusters,
+                plan.range_len, plan.slice_chunks, plan.capacity)
         segagg_scatter_cuda.launches += 1
+    return out
+
+
+def segagg_scatter_atomic_cuda(keys: torch.Tensor, values: torch.Tensor,
+                               num_groups: int) -> torch.Tensor:
+    """As ``segagg_scatter_cuda`` by one global atomic an element (the
+    first design)."""
+    _check(keys, values, num_groups, "segagg_scatter_atomic")
+    out = _zeros(values, num_groups)
+    if values.shape[0]:
+        _launch("segagg_scatter_atomic", keys, values, out)
+        segagg_scatter_atomic_cuda.launches += 1
     return out
 
 
@@ -86,4 +168,5 @@ def segagg_narrow_cuda(keys: torch.Tensor, values: torch.Tensor,
 
 
 segagg_scatter_cuda.launches = 0
+segagg_scatter_atomic_cuda.launches = 0
 segagg_narrow_cuda.launches = 0

@@ -1,17 +1,28 @@
-"""Choice between the two segagg kernels for one call shape.
+"""Choice of the segagg kernel, and of its launch, for one call shape.
 
 ``narrow`` (a shared-memory table per block, the counterpart of the JAX
-package's one-hot matmul kernel) serves narrow G; ``scatter`` (global
-atomics into an L2-resident output) serves wide G.  ``MATMUL_MAX_G`` is the
-largest group count still sent to ``narrow``; it is measured on the H100 by
-``chip_smoke.py`` (its crossover table).  ``narrow`` also needs its (G, V)
-f32 table to fit ``NARROW_TABLE_BYTES`` of shared memory.  Nothing else
-limits ``scatter``: the reference's VMEM guard, which sent wide-G queries to
-the O(N*G) one-hot path on the TPU, has no counterpart here.
+package's one-hot matmul kernel) serves narrow G; ``scatter`` serves wide G.
+``MATMUL_MAX_G`` is the largest group count still sent to ``narrow``; it is
+measured on the H100 by ``chip_smoke.py`` (its crossover table).  ``narrow``
+also needs its (G, V) f32 table to fit ``NARROW_TABLE_BYTES`` of shared
+memory.  The reference's VMEM guard, which sent wide-G queries to the O(N*G)
+one-hot path on the TPU, has no counterpart here.
+
+``scatter_plan`` lays out a ``scatter`` call: the f32 table of the flat
+(G, V) index is cut into key ranges that each fit the pooled shared memory
+of one thread-block cluster (route ``cluster``), or, past
+``SCATTER_MAX_RANGES`` ranges, the call goes to the global-atomic kernel
+(route ``atomic``), whose (G, V) output lives in L2.  It is a pure function
+of the shape and of what the card reports, so the CPU tests reach every
+branch; it never catches a failed build or launch.
 """
 from __future__ import annotations
 
-from .segagg import NARROW_TABLE_BYTES
+import dataclasses
+from typing import Tuple
+
+# Shared-memory table of the narrow kernel: the default dynamic limit.
+NARROW_TABLE_BYTES = 48 * 1024
 
 # Shape-class boundaries (rows / groups), as in the reference.
 _N_SMALL = 32_768
@@ -19,9 +30,11 @@ _G_NARROW = 1_024
 
 # Largest G sent to the narrow kernel (the reference's XLA crossover was 64).
 # Measured on an H100 SXM (700 W) by chip_smoke.py's crossover table, V = 1,
-# uniform keys: at 1.26M rows narrow wins up to G = 2048 and loses from 4096
-# (each block's final flush costs G*V global atomics); at 29.25M rows it wins
-# at every G its table holds.
+# uniform keys: at 29.25M rows narrow wins at every G its table holds; at
+# 1.26M rows it wins up to G = 2048 (each block's final flush costs G*V
+# global atomics), and from 4096 the two kernels are within the table's
+# noise (against the cluster-table scatter, narrow won at 4096 in one run
+# and lost in the next).
 MATMUL_MAX_G = 2048
 
 
@@ -42,3 +55,105 @@ def pick_formulation(g: int, v: int) -> str:
     if g <= MATMUL_MAX_G and narrow_fits(g, v):
         return "narrow"
     return "scatter"
+
+
+# Cluster sizes the cluster route takes, in order of preference at equal
+# range counts: 8 is portable; 16 needs the non-portable attribute, which the
+# card may refuse (the caller passes max_cluster_blocks = 8 then).  At CQ3's
+# shape 8 beat 16 (PERF.md, scripts/torch_segagg_phases.py).
+SCATTER_CLUSTER_SIZES = (8, 16)
+# Floats of a table chunk (one 32-byte sector); ranges are whole chunks.
+SCATTER_CHUNK = 8
+# Most key ranges the cluster route takes.  Each range's clusters read every
+# row; at CQ4's shape two ranges and four both lost to the global-atomic
+# kernel (PERF.md, scripts/torch_segagg_phases.py), so a table that needs two
+# goes to it.
+SCATTER_MAX_RANGES = 1
+# The cluster kernel's block (one an SM), the mail a block sends in one round
+# (two of each thread's four elements), and the rounds of inboxes in flight
+# (csrc/segagg.cu).
+SCATTER_THREADS = 1024
+SCATTER_ROUND = 2 * SCATTER_THREADS
+SCATTER_BUFFERS = 3
+# An inbox segment (one source block, one round) holds at least half the
+# entries a uniform key mix sends it (SCATTER_ROUND / cluster); mail past its
+# capacity goes to the output by global atomics.  A judgment, not measured:
+# the measured plans had 1.06 to 4.7 times that mean.
+SCATTER_MIN_FILL = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class ScatterPlan:
+    """How one ``scatter`` call runs.  ``route`` is ``"cluster"`` or
+    ``"atomic"``; for ``cluster``: ``cluster`` blocks a cluster, ``ranges``
+    the [lo, hi) key ranges over the flat index [0, G*V), each
+    ``range_len`` floats (the last one cut at G*V), ``slice_chunks`` chunks
+    of ``SCATTER_CHUNK`` floats of table in each block, and ``capacity``
+    inbox entries a source block and round."""
+    route: str
+    cluster: int = 0
+    range_len: int = 0
+    ranges: Tuple[Tuple[int, int], ...] = ()
+    slice_chunks: int = 0
+    capacity: int = 0
+
+    @property
+    def smem_bytes(self) -> int:
+        """Shared memory of one block: its table slice, its inboxes and
+        the counts (``cluster_smem_bytes`` in csrc/segagg.cu)."""
+        return cluster_smem_bytes(self.cluster, self.slice_chunks, self.capacity)
+
+
+def cluster_smem_bytes(cluster: int, slice_chunks: int, capacity: int) -> int:
+    """Table slice, inboxes of (position, value) entries, entry counts and
+    send counters of one block."""
+    return (slice_chunks * SCATTER_CHUNK * 4
+            + SCATTER_BUFFERS * cluster * capacity * 8
+            + (SCATTER_BUFFERS + 2) * cluster * 4)
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _layout(chunks: int, ranges: int, cluster: int, smem_per_block: int):
+    """(slice_chunks, capacity) of ``ranges`` ranges over ``chunks`` table
+    chunks in clusters of ``cluster``, or None if the table and inboxes of
+    enough capacity do not fit ``smem_per_block``."""
+    slice_chunks = _ceil_div(_ceil_div(chunks, ranges), cluster)
+    room = smem_per_block - cluster_smem_bytes(cluster, slice_chunks, 0)
+    capacity = min(SCATTER_ROUND, room // (SCATTER_BUFFERS * cluster * 8))
+    if capacity < SCATTER_MIN_FILL * SCATTER_ROUND / cluster:
+        return None
+    return slice_chunks, capacity
+
+
+def scatter_plan(g: int, v: int, max_cluster_blocks: int, smem_per_block: int,
+                 max_ranges: int = SCATTER_MAX_RANGES,
+                 sizes: Tuple[int, ...] = SCATTER_CLUSTER_SIZES) -> ScatterPlan:
+    """The ``scatter`` layout of a (g, v) f32 output on a card whose
+    clusters take up to ``max_cluster_blocks`` blocks, each with up to
+    ``smem_per_block`` bytes of shared memory: the fewest key ranges whose
+    table slice and inboxes fit, then the first cluster size of ``sizes``
+    that reaches them; ``atomic`` past ``max_ranges`` ranges.  A
+    measurement may ask for more ranges or other sizes than the defaults."""
+    chunks = _ceil_div(g * v, SCATTER_CHUNK)
+    sizes = [c for c in sizes if c <= max_cluster_blocks]
+    for count in range(1, max_ranges + 1):
+        for size in sizes:
+            layout = _layout(chunks, count, size, smem_per_block)
+            if layout is None:
+                continue
+            range_len = _ceil_div(chunks, count) * SCATTER_CHUNK
+            return ScatterPlan(
+                "cluster", cluster=size, range_len=range_len,
+                ranges=tuple((i * range_len, min(g * v, (i + 1) * range_len))
+                             for i in range(count)),
+                slice_chunks=layout[0], capacity=layout[1])
+    return ScatterPlan("atomic")
+
+
+def scatter_clusters(active_clusters: int, num_ranges: int) -> int:
+    """Clusters to launch: the ``active_clusters`` the card runs at once
+    (``cudaOccupancyMaxActiveClusters``), and at least one per range."""
+    return max(active_clusters, num_ranges)

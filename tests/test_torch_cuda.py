@@ -9,11 +9,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.segagg import ops
-from repro_torch.kernels.segagg.ref import segagg_ref
+from repro_torch.kernels.segagg import ops, tuning
+from repro_torch.kernels.segagg.ref import segagg_ref, zipf_keys
 from repro_torch.kernels.segagg.segagg import (
     NARROW_TABLE_BYTES,
+    scatter_caps,
+    scatter_plan_for,
     segagg_narrow_cuda,
+    segagg_scatter_atomic_cuda,
     segagg_scatter_cuda,
 )
 
@@ -66,6 +69,91 @@ class TestKernelsOnCard:
         ops.segagg(k, x, 100_000)
         assert segagg_narrow_cuda.launches == narrow + 1
         assert segagg_scatter_cuda.launches == scatter + 1
+
+
+def _scatter_keys(n, g, v, seed, cuda, zipf=False):
+    """Keys out of range on both sides and on every edge of the plan's key
+    ranges (and of a two-range plan's), the rest uniform or Zipf."""
+    if zipf:
+        keys = zipf_keys(n, g, seed).numpy()
+    else:
+        keys = np.random.default_rng(seed).integers(-3, g + 3, n).astype(np.int32)
+    ranges = (scatter_plan_for(g, v, cuda).ranges
+              + scatter_plan_for(g, v, cuda, max_ranges=4).ranges)
+    edges = [b // v + d for lo, hi in ranges for b in (lo, hi) for d in (-1, 0, 1)]
+    edges += [-(2**31), 2**31 - 1, -1, g, g - 1, 0]
+    keys[: len(edges)] = np.clip(edges, -(2**31), 2**31 - 1)
+    return torch.from_numpy(keys).to(cuda)
+
+
+def _check_scatter(fn, k, x, g, **kw):
+    ones = torch.ones_like(x)
+    assert torch.equal(fn(k, ones, g, **kw), segagg_ref(k, ones, g))
+    torch.testing.assert_close(fn(k, x, g, **kw).double(), segagg_ref(k, x.double(), g),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+class TestScatterOnCard:
+    """The cluster-table scatter and PR 11's global-atomic kernel against the
+    plain version: counts by ``torch.equal``, |values| sums within 1e-4."""
+
+    @pytest.mark.parametrize("fn", [segagg_scatter_cuda, segagg_scatter_atomic_cuda])
+    @pytest.mark.parametrize("g", [5, 360_000, 1_500_000, 16_000_000])
+    @pytest.mark.parametrize("v", [1, 3])
+    def test_matches_plain_version(self, cuda, fn, g, v):
+        n = 1_000_003  # ragged: no multiple of 4, of a block or of a round
+        k = _scatter_keys(n, g, v, seed=g + v, cuda=cuda)
+        x = torch.from_numpy(np.abs(np.random.default_rng(v).standard_normal(
+            (n, v))).astype(np.float32)).to(cuda)
+        _check_scatter(fn, k, x, g)
+
+    @pytest.mark.parametrize("fn", [segagg_scatter_cuda, segagg_scatter_atomic_cuda])
+    def test_zipf_keys(self, cuda, fn):
+        g, n = 360_000, 2_000_001
+        k = _scatter_keys(n, g, 1, seed=4, cuda=cuda, zipf=True)
+        x = torch.rand((n, 1), generator=torch.Generator().manual_seed(4)).to(cuda)
+        _check_scatter(fn, k, x, g)
+
+    @pytest.mark.parametrize("max_ranges, cluster", [(4, 8), (2, 16)])
+    def test_forced_ranges(self, cuda, max_ranges, cluster):
+        # more ranges than the plan takes: each range's clusters read every row
+        g, v = 1_500_000, 1
+        smem, _ = scatter_caps(cuda)
+        plan = tuning.scatter_plan(g, v, cluster, smem, max_ranges=max_ranges)
+        assert plan.route == "cluster" and len(plan.ranges) >= 2
+        k = _scatter_keys(700_001, g, v, seed=9, cuda=cuda)
+        x = torch.rand((700_001, v), generator=torch.Generator().manual_seed(9)).to(cuda)
+        _check_scatter(segagg_scatter_cuda, k, x, g, plan=plan)
+
+    def test_unaligned_views_take_the_element_path(self, cuda):
+        g = 360_000
+        k = _scatter_keys(500_002, g, 1, seed=5, cuda=cuda)[1:]
+        x = torch.rand((500_002, 1), generator=torch.Generator().manual_seed(5)).to(cuda)[1:]
+        assert k.data_ptr() % 16 and x.data_ptr() % 16
+        _check_scatter(segagg_scatter_cuda, k, x, g)
+
+    def test_empty_and_tiny_inputs(self, cuda):
+        for fn in (segagg_scatter_cuda, segagg_scatter_atomic_cuda):
+            before = fn.launches
+            out = fn(torch.zeros(0, dtype=torch.int32, device=cuda),
+                     torch.zeros((0, 3), device=cuda), 360_000)
+            assert out.shape == (360_000, 3) and not out.any()
+            assert fn.launches == before
+            k = torch.tensor([7, -1, 359_999], dtype=torch.int32, device=cuda)
+            got = fn(k, torch.ones((3, 1), device=cuda), 360_000)
+            assert got.sum().item() == 2.0 and got[7, 0] == 1.0 and got[359_999, 0] == 1.0
+
+    def test_plan_routes_and_counts(self, cuda):
+        assert scatter_plan_for(360_000, 1, cuda).route == "cluster"
+        assert scatter_plan_for(1_500_000, 1, cuda).route == "atomic"
+        keys, vals = _inputs(10_000, 1_500_000, 1, seed=3)
+        k, x = torch.from_numpy(keys).to(cuda), torch.from_numpy(vals).to(cuda)
+        cluster, atomic = segagg_scatter_cuda.launches, segagg_scatter_atomic_cuda.launches
+        segagg_scatter_cuda(k, x, 360_000)
+        segagg_scatter_cuda(k, x, 1_500_000)
+        assert segagg_scatter_cuda.launches == cluster + 1
+        assert segagg_scatter_atomic_cuda.launches == atomic + 1
 
 
 # -- flash attention and RG-LRU ----------------------------------------------

@@ -15,10 +15,16 @@ import torch
 from repro.kernels.segagg import ops as jops
 from repro.kernels.segagg.ref import segagg_ref as jsegagg_ref
 from repro_torch.kernels.segagg import ops, tuning
-from repro_torch.kernels.segagg.ref import combine_ref, pane_segagg_ref, segagg_ref
+from repro_torch.kernels.segagg.ref import (
+    combine_ref,
+    pane_segagg_ref,
+    segagg_ref,
+    zipf_keys,
+)
 from repro_torch.kernels.segagg.segagg import (
     NARROW_TABLE_BYTES,
     segagg_narrow_cuda,
+    segagg_scatter_atomic_cuda,
     segagg_scatter_cuda,
 )
 
@@ -201,3 +207,168 @@ class TestDispatch:
         _port(keys, vals, 5)
         _port(keys, vals, 5000)
         assert (segagg_scatter_cuda.launches, segagg_narrow_cuda.launches) == before
+
+
+# The H100's opt-in shared memory a block and largest cluster (what
+# ``segagg.scatter_plan_for`` reads from the card there).
+H100_SMEM = 232_448
+PANE_G = 16_000_000
+
+
+def _small_smem(chunks):
+    """Shared memory for `chunks` table chunks and the least inboxes a
+    cluster of 8 takes."""
+    least = -(-int(tuning.SCATTER_MIN_FILL * tuning.SCATTER_ROUND) // 8)
+    return tuning.cluster_smem_bytes(8, chunks, least)
+
+
+def _ranges_sum(keys, vals, g, ranges):
+    """``segagg_ref`` summed over ``ranges`` of the flat (G, V) index
+    ``key * V + column``, with each element masked to the range it falls
+    in: the cluster-table scatter's decomposition in plain PyTorch."""
+    n, v = vals.shape
+    k = torch.from_numpy(keys).to(torch.int64)
+    flat = torch.where((k >= 0) & (k < g), k * v, -1)[:, None]
+    flat = torch.where(flat >= 0, flat + torch.arange(v), -1).reshape(-1)
+    x = torch.from_numpy(vals).reshape(n * v, 1)
+    out = torch.zeros(g * v)
+    for lo, hi in ranges:
+        part = segagg_ref(torch.where((flat >= lo) & (flat < hi), flat, -1), x, g * v)
+        out[lo:hi] += part[lo:hi, 0]
+    return out.reshape(g, v).numpy()
+
+
+class TestScatterPlan:
+    @pytest.mark.parametrize("g, v, max_blocks, route, cluster", [
+        (360_000, 1, 16, "cluster", 8),       # CQ3: one range, portable cluster
+        (360_000, 1, 8, "cluster", 8),
+        (600_000, 1, 16, "cluster", 16),      # past a cluster of 8's table
+        (600_000, 1, 8, "atomic", 0),         # ... where 16 blocks are refused
+        (1_500_000, 1, 16, "atomic", 0),      # CQ4: two ranges, which lose
+        (360_000, 3, 16, "atomic", 0),        # V = 3: 1.08M floats
+        (PANE_G, 1, 16, "atomic", 0),         # pane-sized composite keys
+        (1, 1, 16, "cluster", 8),
+    ])
+    def test_plan_at_path_shapes(self, g, v, max_blocks, route, cluster):
+        plan = tuning.scatter_plan(g, v, max_blocks, H100_SMEM)
+        assert (plan.route, plan.cluster) == (route, cluster)
+        if route == "cluster":
+            assert plan.ranges == ((0, g * v),)
+            assert plan.range_len % tuning.SCATTER_CHUNK == 0
+            # the table slice and the inboxes fit the block's shared memory
+            assert plan.smem_bytes <= H100_SMEM
+            assert plan.slice_chunks * plan.cluster * tuning.SCATTER_CHUNK >= plan.range_len
+            assert plan.capacity >= (tuning.SCATTER_MIN_FILL * tuning.SCATTER_ROUND
+                                     / plan.cluster)
+        else:
+            assert plan == tuning.ScatterPlan("atomic")
+
+    @pytest.mark.parametrize("g, v, max_ranges", [
+        (1_500_000, 1, 2), (1_500_000, 1, 3), (360_000, 3, 2), (PANE_G, 1, 2),
+        (1000, 2, 3), (2_000_000, 1, 4)])
+    def test_ranges_tile_the_table(self, g, v, max_ranges):
+        plan = tuning.scatter_plan(g, v, 16, H100_SMEM, max_ranges=max_ranges)
+        if plan.route == "atomic":
+            # past the ranges allowed: the table needs more than max_ranges
+            assert tuning.scatter_plan(g, v, 16, H100_SMEM, max_ranges=64).route == "cluster"
+            assert len(tuning.scatter_plan(g, v, 16, H100_SMEM, max_ranges=64).ranges) > max_ranges
+            return
+        assert 1 <= len(plan.ranges) <= max_ranges
+        # the kernel counts the ranges as ceil(G*V / range_len)
+        assert len(plan.ranges) == -(-g * v // plan.range_len)
+        covered = np.zeros(g * v, np.int64)
+        for lo, hi in plan.ranges:
+            assert 0 < hi - lo <= plan.range_len
+            covered[lo:hi] += 1
+        assert (covered == 1).all()  # [0, G*V) exactly, without overlap
+        assert plan.smem_bytes <= H100_SMEM
+
+    def test_fewest_ranges_first(self):
+        # CQ4 takes two ranges of 16 blocks when two are allowed
+        plan = tuning.scatter_plan(1_500_000, 1, 16, H100_SMEM, max_ranges=2)
+        assert (plan.cluster, plan.ranges) == (16, ((0, 750_000), (750_000, 1_500_000)))
+
+    def test_wide_route_past_the_limit(self):
+        g = 8 * (H100_SMEM // 32) * tuning.SCATTER_CHUNK
+        # the largest table a cluster of 8 takes leaves no inbox: 16 blocks
+        assert tuning.scatter_plan(g // 2, 1, 16, H100_SMEM).cluster == 8
+        assert tuning.scatter_plan(g, 1, 16, H100_SMEM).cluster == 16
+        assert tuning.scatter_plan(2 * g, 1, 16, H100_SMEM).route == "atomic"
+        # a card with no room for a table chunk takes the wide route
+        assert tuning.scatter_plan(5, 1, 16, 16).route == "atomic"
+        assert tuning.scatter_plan(5, 1, 4, H100_SMEM).route == "atomic"
+
+    def test_inbox_fill_limit(self):
+        # inboxes shrink as the table grows, down to SCATTER_MIN_FILL
+        caps = [tuning.scatter_plan(g, 1, 16, H100_SMEM).capacity
+                for g in (100_000, 600_000, 800_000)]
+        assert caps == sorted(caps, reverse=True)
+        assert tuning.scatter_plan(900_000, 1, 16, H100_SMEM).route == "atomic"
+
+    def test_smem_bytes_matches_layout(self):
+        plan = tuning.scatter_plan(360_000, 1, 16, H100_SMEM)
+        assert plan.smem_bytes == (plan.slice_chunks * 32
+                                   + tuning.SCATTER_BUFFERS * 8 * plan.capacity * 8
+                                   + (tuning.SCATTER_BUFFERS + 2) * 8 * 4)
+        assert tuning.ScatterPlan("atomic").smem_bytes == 0
+
+    @pytest.mark.parametrize("active, ranges, want", [(15, 1, 15), (7, 2, 7), (1, 2, 2),
+                                                      (0, 1, 1)])
+    def test_scatter_clusters(self, active, ranges, want):
+        assert tuning.scatter_clusters(active, ranges) == want
+
+    @pytest.mark.parametrize("g, v, chunks", [(200, 1, 2), (333, 3, 8), (4096, 1, 32),
+                                             (57, 2, 1)])
+    def test_range_decomposition_matches_reference(self, g, v, chunks):
+        # room for `chunks` table chunks a block forces several ranges at a small G
+        plan = tuning.scatter_plan(g, v, 8, _small_smem(chunks), max_ranges=8)
+        assert plan.route == "cluster" and len(plan.ranges) >= 2
+        rng = np.random.default_rng(g + v)
+        n = 3001
+        keys = rng.integers(-3, g + 3, n).astype(np.int32)
+        # keys on every range boundary, on both sides
+        edges = np.array([b // v + d for lo, hi in plan.ranges for b in (lo, hi)
+                          for d in (-1, 0, 1)], np.int32)
+        keys[: len(edges)] = edges
+        vals = rng.standard_normal((n, v)).astype(np.float32)
+        assert (keys < 0).any() and (keys >= g).any()
+        got = _ranges_sum(keys, vals, g, plan.ranges)
+        want = np.asarray(jsegagg_ref(jnp.asarray(keys), jnp.asarray(vals), g))
+        np.testing.assert_allclose(got, want, **F32)
+
+
+class TestZipfKeys:
+    def test_hot_group_share_and_range(self):
+        g, n = 360_000, 400_000
+        keys = zipf_keys(n, g, seed=5)
+        assert keys.dtype == torch.int32 and keys.shape == (n,)
+        assert int(keys.min()) >= 0 and int(keys.max()) < g
+        share = torch.bincount(keys, minlength=g).max().item() / n
+        harmonic = float(np.sum(1.0 / np.arange(1, g + 1)))
+        assert abs(share - 1.0 / harmonic) < 0.005  # 7.5% at 360,000 groups
+
+    def test_seeded(self):
+        assert torch.equal(zipf_keys(1000, 50, seed=1), zipf_keys(1000, 50, seed=1))
+        assert not torch.equal(zipf_keys(1000, 50, seed=1), zipf_keys(1000, 50, seed=2))
+
+    def test_port_matches_reference_on_zipf_keys(self):
+        keys = zipf_keys(5000, 300, seed=3).numpy()
+        vals = np.random.default_rng(3).standard_normal((5000, 2)).astype(np.float32)
+        want = np.asarray(jsegagg_ref(jnp.asarray(keys), jnp.asarray(vals), 300))
+        np.testing.assert_allclose(_port(keys, vals, 300), want, **F32)
+        plan = tuning.scatter_plan(300, 2, 8, _small_smem(5), max_ranges=8)
+        assert len(plan.ranges) >= 2
+        np.testing.assert_allclose(_ranges_sum(keys, vals, 300, plan.ranges), want, **F32)
+
+
+class TestAtomicScatterWrapper:
+    def test_refuses_cpu_tensors(self):
+        keys, vals = torch.zeros(8, dtype=torch.int32), torch.ones((8, 1))
+        before = (segagg_scatter_atomic_cuda.launches, segagg_scatter_cuda.launches)
+        for fn in (segagg_scatter_atomic_cuda, segagg_scatter_cuda):
+            with pytest.raises(ValueError, match="CUDA"):
+                fn(keys, vals, 4)
+        with pytest.raises(ValueError, match="CUDA"):
+            segagg_scatter_cuda(keys, vals, 4, plan=tuning.ScatterPlan("atomic"))
+        assert (segagg_scatter_atomic_cuda.launches,
+                segagg_scatter_cuda.launches) == before
