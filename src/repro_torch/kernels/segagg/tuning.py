@@ -30,12 +30,12 @@ _G_NARROW = 1_024
 
 # Largest G sent to the narrow kernel (the reference's XLA crossover was 64).
 # Measured on an H100 SXM (700 W) by chip_smoke.py's crossover table, V = 1,
-# uniform keys: at 29.25M rows narrow wins at every G its table holds; at
-# 1.26M rows it wins up to G = 2048 (each block's final flush costs G*V
-# global atomics), and from 4096 the two kernels are within the table's
-# noise (against the cluster-table scatter, narrow won at 4096 in one run
-# and lost in the next).
-MATMUL_MAX_G = 2048
+# uniform keys: against the cluster-table scatter narrow wins at every G its
+# 48 KB table holds (12,288 groups) at 29.25M rows in every run, and at
+# 1.26M rows in two runs of three (the third lost at 4,096 by 0.007 ms, at
+# 3 launches a timing).  Against the global-atomic scatter it had lost from
+# 4,096 groups at 1.26M rows.
+MATMUL_MAX_G = 12288
 
 
 def shape_class(n: int, g: int) -> str:
