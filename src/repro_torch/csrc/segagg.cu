@@ -27,7 +27,7 @@
 //   ranges; each range's clusters read every row, and two ranges already
 //   lose to:
 //
-// * segagg_scatter_atomic, the first design (PR 11): one thread per (row, v)
+// * segagg_scatter_atomic, the first design: one thread per (row, v)
 //   element in a grid-stride loop, each added with a global atomicAdd into
 //   the zeroed (G, V) f32 output, which stays in the 50 MB L2.  Skewed keys
 //   contend on the atomics of their hot groups.

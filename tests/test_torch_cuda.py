@@ -95,7 +95,7 @@ def _check_scatter(fn, k, x, g, **kw):
 
 @pytest.mark.cuda
 class TestScatterOnCard:
-    """The cluster-table scatter and PR 11's global-atomic kernel against the
+    """The cluster-table scatter and the global-atomic kernel against the
     plain version: counts by ``torch.equal``, |values| sums within 1e-4."""
 
     @pytest.mark.parametrize("fn", [segagg_scatter_cuda, segagg_scatter_atomic_cuda])
