@@ -82,7 +82,33 @@ Phases (any failure exits non-zero and prints no result line):
    distance between two plain paths that differ only in chunk (the seeded
    model amplifies bf16 roundings with depth); the kernel against its plain
    version on the inputs the model gave its first call, and a profile of
-   one batch of 8.
+   one batch of 8;
+12. pane-shared scans at the paper's scale (run after phase 7, on its
+   stream): ``run_shared_jobs`` for CQ3 and TPC-Q6-like over four sliding
+   windows of 3,000 files (slide 500, so GCD panes of 500 files), each with
+   phase 4's measured cost model under ``llf-dynamic``, shared and
+   unshared; every window's aggregate against its float64 host one-shot
+   and shared against unshared, pane-cache hits, and ``pane_segagg`` run on
+   the card with the plain version never called on a CUDA tensor; wall
+   seconds, rows scanned, the pane store's counters and the kernel each
+   composite key space (panes x G) took are readings;
+13. a recurring session over the real backend (after phase 12):
+   ``run_session`` for CQ4 over three tumbling windows of 1,500 files with
+   the files' own arrival times, phase 4's CQ4 model and ``calibrate=True``;
+   each window's aggregate against its float64 one-shot, all three windows
+   complete, three ``window_open`` events; modelled finishes, refits and
+   batch seconds are readings;
+14. online admission on the LM path (after phase 9, on its executor and
+   calibrated model): ``serve_session`` with two feasible jobs (4 and 6
+   prompts) submitted at staggered instants and one whose deadline lies
+   below its least cost; the two admitted and completed with finite (n,
+   256000) logits, the third rejected with no prefill run for it, and
+   flash-attention and RG-LRU launched once per layer of their kind in every
+   prefill call, with no plain version called on a CUDA tensor.
+
+Phases 12-14 count their launches apart from phases 4-5 (phase 6's counts)
+and the serving paths; the result line carries them under
+``launches_by_phase``.
 
 Each parity line prints the largest absolute error and its worst ratio to
 the ``torch.allclose`` limit ``atol + rtol |want|`` (the check passes up to
@@ -150,6 +176,17 @@ SSM_SEQ = 32768             # models/base.py SHAPES["prefill_32k"].seq_len
 SSM_SWAP_BATCH = 2          # the plain SSD's f32 intermediates at 48 layers
 # examples/multi_query_serving.py's jobs: (prompts, window s, slack)
 MULTI_JOBS = ((24, 30.0, 3.0), (16, 20.0, 2.0), (32, 40.0, 2.5))
+# Phase 12: benchmarks/bench_shared_panes.py's sliding regime at the paper's
+# window: (stream offset, files), slide 500, range 3,000, 6x overlap.
+SHARED_WINDOWS = ((0, 3000), (500, 3000), (1000, 3000), (1500, 3000))
+SHARED_QUERIES = ("CQ3", "TPC-Q6-like")
+SESSION_FILES = 1500        # phase 13: three tumbling windows of the stream
+# Phase 14: (job, prompts, window start s, window s, deadline slack in
+# cost(n) units, submit instant s); the last one's deadline lies below the
+# cost(1) its final prompt needs after the window closes.
+ADMISSION_JOBS = (("feasible-4", 4, 0.0, 10.0, 2.0, 0.0),
+                  ("feasible-6", 6, 5.0, 10.0, 2.0, 5.0),
+                  ("infeasible", 3, 2.0, 10.0, None, 2.0))
 
 
 def log(*args) -> None:
@@ -462,8 +499,8 @@ def ssd_kernel_parity(ssd_cuda, ssd_plain) -> None:
 def serving_path(args, cfg, seq, lm, engine, core, counters):
     """The LM serving main path at full width over prompts of ``seq``
     tokens; fails unless every job meets its modelled deadline with finite
-    (n, V) logits.  Returns the prefill executor, one batch of prompts and
-    the launch counts of the path."""
+    (n, V) logits.  Returns the prefill executor, its calibrated cost model,
+    one batch of prompts and the launch counts of the path."""
     from repro_torch.models.params import init_params, num_params
 
     specs = lm.build_specs(cfg)
@@ -533,7 +570,237 @@ def serving_path(args, cfg, seq, lm, engine, core, counters):
         if j.processed != j.num_requests or out.shape != (j.num_requests, cfg.vocab_size) \
                 or not np.isfinite(out).all():
             raise AssertionError(f"{j.job_id}: processed {j.processed}, logits {out.shape}")
-    return ex, mk(SERVE_BUCKETS[-1]), launches
+    return ex, cm, mk(SERVE_BUCKETS[-1]), launches
+
+
+# -- phases 12-13 ------------------------------------------------------------
+
+def pane_oneshots(aq, files, width: int, num_groups: int) -> list:
+    """Float64 host aggregates of each run of ``width`` files, by
+    ``np.bincount``; a window made of whole panes sums its panes'."""
+    out = []
+    for lo in range(0, len(files), width):
+        keys = np.concatenate([np.asarray(aq.key_fn(f)) for f in files[lo:lo + width]])
+        vals = np.concatenate([np.asarray(aq.value_fn(f), np.float64)
+                               for f in files[lo:lo + width]])
+        out.append(np.stack([np.bincount(keys, weights=vals[:, j], minlength=num_groups)
+                             for j in range(vals.shape[1])], axis=1))
+    return out
+
+
+class SegaggRecorder:
+    """Rows scanned by the analytics executors' ``segagg`` and
+    ``pane_segagg`` calls, the kernel each call launched by composite key
+    space, the calls on CUDA tensors, the plain version's calls on CUDA
+    tensors, and the host seconds spent in ``concat_files`` and in the two
+    calls (synchronised: the caller's spill waits for the card anyway), over
+    one phase (the module attributes are swapped for recorders while the
+    phase runs)."""
+
+    def __init__(self, analytics, ops, segagg_ref, kernels):
+        self.analytics, self.ops, self.segagg_ref, self.kernels = (
+            analytics, ops, segagg_ref, kernels)
+        self.real = {n: getattr(analytics, n)
+                     for n in ("segagg", "pane_segagg", "concat_files")}
+
+    def counts(self) -> dict:
+        return {n: k.launches for n, k in self.kernels.items()}
+
+    def __enter__(self):
+        self.rows = {"segagg": 0, "pane_segagg": 0}
+        self.cuda_calls = {"segagg": 0, "pane_segagg": 0}
+        self.seconds = {"segagg": 0.0, "pane_segagg": 0.0, "concat_files": 0.0}
+        self.plain_cuda = 0
+        self.routes = {}   # (call, panes, composite G) -> {kernel: launches}
+        for k in self.kernels.values():
+            k.launches = 0
+
+        def plain(keys, values, num_groups):
+            self.plain_cuda += values.is_cuda
+            return self.segagg_ref(keys, values, num_groups)
+
+        def concat(files):
+            t0 = time.perf_counter()
+            out = self.real["concat_files"](files)
+            self.seconds["concat_files"] += time.perf_counter() - t0
+            return out
+
+        def recorder(name):
+            def call(keys, values, *a, **kw):
+                before = self.counts()
+                t0 = time.perf_counter()
+                out = self.real[name](keys, values, *a, **kw)
+                if out.is_cuda:
+                    torch.cuda.synchronize()
+                self.seconds[name] += time.perf_counter() - t0
+                self.rows[name] += keys.shape[0]
+                self.cuda_calls[name] += keys.is_cuda
+                panes, g = (a[1], a[2]) if name == "pane_segagg" else (1, a[0])
+                row = self.routes.setdefault((name, panes, panes * g), {})
+                for n, c in self.counts().items():
+                    if c > before[n]:
+                        row[n] = row.get(n, 0) + c - before[n]
+                return out
+            return call
+
+        self.ops.segagg_ref = plain
+        for n in ("segagg", "pane_segagg"):
+            setattr(self.analytics, n, recorder(n))
+        self.analytics.concat_files = concat
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.segagg_ref = self.segagg_ref
+        for n, fn in self.real.items():
+            setattr(self.analytics, n, fn)
+        self.launches = self.counts()
+        return False
+
+
+def shared_scans(aq, files, model, sc, rec, run_shared_jobs) -> None:
+    """Phase 12 for one query: ``run_shared_jobs`` shared and unshared over
+    ``SHARED_WINDOWS``; every window against its float64 host one-shot, and
+    shared against unshared."""
+    g = aq.num_groups(sc)
+    slide = SHARED_WINDOWS[1][0] - SHARED_WINDOWS[0][0]
+    panes = pane_oneshots(aq, files[:max(lo + n for lo, n in SHARED_WINDOWS)], slide, g)
+    runs = {}
+    for share in (True, False):
+        rows_before, secs_before = dict(rec.rows), dict(rec.seconds)
+        t0 = time.perf_counter()
+        results, trace, book = run_shared_jobs(aq, files, SHARED_WINDOWS, sc, model,
+                                               policy="llf-dynamic", share=share,
+                                               device="cuda")
+        wall = time.perf_counter() - t0
+        verdicts = []
+        for i, (lo, n) in enumerate(SHARED_WINDOWS):
+            want = np.sum(panes[lo // slide:(lo + n) // slide], axis=0)
+            verdicts.append(check_result(aq.query_id, results[f"{aq.query_id}-w{i}"], want))
+        batches = [e.num_tuples for e in trace.executions if e.kind == "batch"]
+        st = book.store.stats
+        scanned = {k: rec.rows[k] - rows_before[k] for k in rec.rows}
+        secs = {k: rec.seconds[k] - secs_before[k] for k in rec.seconds}
+        device_s = secs["segagg"] + secs["pane_segagg"]
+        log(f"  {aq.query_id:12s} share={share!s:5}: {wall:.3f} s wall ({secs['concat_files']:.3f} "
+            f"in concat_files, {device_s:.3f} in segagg and pane_segagg calls, "
+            f"{wall - secs['concat_files'] - device_s:.3f} else), {len(batches)} batches "
+            f"(files: {sorted(set(batches))}), rows scanned {sum(scanned.values())} "
+            f"({scanned['pane_segagg']} by pane_segagg); pane width "
+            f"{book.widths.get(f'{aq.query_id}-stream', 'none')}; store scans {st.scans}, "
+            f"hits {st.hits}, fragment scans {st.fragment_scans}, evictions "
+            f"{st.evictions}, peak resident {st.peak_resident}; windows {verdicts}; "
+            f"modelled deadlines met {sum(o.met_deadline for o in trace.outcomes)}/"
+            f"{len(trace.outcomes)}")
+        runs[share] = (results, wall, sum(scanned.values()), st)
+    (shared, wall_s, rows_s, st), (unshared, wall_u, rows_u, _) = runs[True], runs[False]
+    for key in shared:
+        check_result(aq.query_id, shared[key], unshared[key].astype(np.float64))
+    if st.hits <= 0:
+        raise AssertionError(f"{aq.query_id}: the shared run never hit the pane cache")
+    log(f"  {aq.query_id:12s} shared against unshared: wall {wall_s:.3f} / {wall_u:.3f} s "
+        f"({wall_u / wall_s:.2f}x), rows scanned {rows_s} / {rows_u} "
+        f"({rows_u / rows_s:.2f}x); results equal")
+
+
+def pane_id_cost(aq, files, count: int, width: int) -> str:
+    """The host cost of ``_scan_panes``'s pane ids for ``count`` panes of
+    ``width`` files (its own arithmetic), and their copy to the card."""
+    chunk = files[:count * width]
+    t0 = time.perf_counter()
+    sizes = [len(next(iter(f.values()))) for f in chunk]
+    pane_of_file = np.repeat(np.arange(count, dtype=np.int32), width)[: len(chunk)]
+    pane_ids = np.repeat(pane_of_file, sizes).astype(np.int32)
+    t1 = time.perf_counter()
+    torch.from_numpy(pane_ids).cuda()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (f"{count} pane(s) of {width} files: {pane_ids.size} pane ids, "
+            f"{pane_ids.nbytes / 1e6:.1f} MB, np.repeat {(t1 - t0) * 1e3:.2f} ms, "
+            f"copy in {(t2 - t1) * 1e3:.2f} ms")
+
+
+def session_windows(aq, files, times, model, sc, run_session, analytics) -> None:
+    """Phase 13: ``run_session`` over three tumbling windows of
+    ``SESSION_FILES`` files with their own arrival times, calibrating."""
+    g = aq.num_groups(sc)
+    nw = len(files) // SESSION_FILES
+    windows = [files[w * SESSION_FILES:(w + 1) * SESSION_FILES] for w in range(nw)]
+    stamps = [times[w * SESSION_FILES:(w + 1) * SESSION_FILES] for w in range(nw)]
+    wants = [np.sum(pane_oneshots(aq, w, SESSION_FILES, g), axis=0) for w in windows]
+    batches = []   # (rows, wall s) of every process_batch call
+    process = analytics.AnalyticsExecutor.process_batch
+
+    def recorded(self, *a, **kw):
+        res = process(self, *a, **kw)
+        batches.append((res.num_records, res.seconds))
+        return res
+
+    analytics.AnalyticsExecutor.process_batch = recorded
+    try:
+        t0 = time.perf_counter()
+        results, trace = run_session(aq, windows, stamps, sc, model,
+                                     period=float(SESSION_FILES), calibrate=True,
+                                     device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        analytics.AnalyticsExecutor.process_batch = process
+    if sorted(results) != list(range(nw)):
+        raise AssertionError(f"session windows completed: {sorted(results)} of {nw}")
+    series = trace.outcome_series(aq.query_id)
+    opened = [e.kind for e in trace.events].count("window_open")
+    if len(series) != nw or not all(o.complete for o in series) or opened != nw:
+        raise AssertionError(f"session: {len(series)} outcomes, {opened} window_open events")
+    refits = trace.events_for("recalibrate")
+    log(f"  {aq.query_id} {nw} windows of {SESSION_FILES} files: {wall:.2f} s wall, "
+        f"{len(batches)} batches, {len(refits)} recalibrate events")
+    for w, o in enumerate(series):
+        log(f"    window {w}: {check_result(aq.query_id, results[w], wants[w])}; "
+            f"{o.num_batches} batches, modelled finish {o.completion_time:.4f} vs deadline "
+            f"{o.deadline:.4f}: {outcome(o.completion_time, o.deadline)}")
+    secs = sorted(dt for _, dt in batches)
+    log(f"    batch seconds: min {secs[0] * 1e3:.3f}, median {secs[len(secs) // 2] * 1e3:.3f}, "
+        f"max {secs[-1] * 1e3:.3f} ms over batches of {min(r for r, _ in batches)}-"
+        f"{max(r for r, _ in batches)} rows; refits: "
+        + "; ".join(f"t={e.time:.3f} {e.detail}" for e in refits[:4]))
+
+
+# -- phase 14 ----------------------------------------------------------------
+
+def admission_path(args, cfg, ex, cm, engine, core, counters) -> dict:
+    """``serve_session`` over ``ADMISSION_JOBS``: the feasible jobs
+    admitted and served in full, the infeasible one rejected with no prefill
+    run for it, every prefill call through the LM kernels.  Returns the
+    launch counts of the phase."""
+    rng = np.random.default_rng(args.seed + 1)
+    jobs, submits = [], []
+    for job_id, n, start, span, slack, at in ADMISSION_JOBS:
+        deadline = start + span + (0.5 * cm.cost(1) if slack is None else slack * cm.cost(n))
+        jobs.append(engine.WindowJob(
+            job_id, rng.integers(0, cfg.vocab_size, (n, SERVE_SEQ)).astype(np.int32),
+            core.UniformWindowArrival(start, start + span, n), deadline=deadline))
+        submits.append(at)
+    counters.reset()
+    t0 = time.perf_counter()
+    report, session = engine.serve_session(jobs, ex, cm, policy="llf-dynamic",
+                                           submit_times=submits)
+    wall = time.perf_counter() - t0
+    got = counters.read()
+    for job, (_, _, _, _, slack, _) in zip(jobs, ADMISSION_JOBS):
+        row = report[job.job_id]
+        log(f"  {job.job_id}: {row}")
+        if slack is None:
+            if row != {"admitted": False} or job.processed or job.results:
+                raise AssertionError(f"{job.job_id} must be rejected and never run")
+            continue
+        out = np.concatenate(job.results) if job.results else np.zeros((0, 0))
+        if not (row["admitted"] and row["completed"]) or job.processed != job.num_requests \
+                or out.shape != (job.num_requests, cfg.vocab_size) or not np.isfinite(out).all():
+            raise AssertionError(f"{job.job_id}: {row}, logits {out.shape}")
+    rejected = [e for e in session.trace.events if e.kind == "reject"]
+    log(f"  reject events {[(e.query_id, round(e.time, 3)) for e in rejected]}; session "
+        f"clock {session.now:.3f}")
+    check_launches(cfg, got, wall)
+    return got
 
 
 # -- phase 10 ----------------------------------------------------------------
@@ -809,8 +1076,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels.segagg.ref import segagg_ref, zipf_keys
     from repro_torch.kernels.segagg.segagg import (
         scatter_plan_for, segagg_narrow_cuda, segagg_scatter_atomic_cuda, segagg_scatter_cuda)
+    from repro_torch.serve import analytics
     from repro_torch.serve.analytics import (
-        AnalyticsRuntimeExecutor, concat_files, measure_cost_model, run_batched, run_plan)
+        AnalyticsRuntimeExecutor, concat_files, measure_cost_model, run_batched, run_plan,
+        run_session, run_shared_jobs)
     from repro_torch import core
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.flash_attention import (
@@ -893,6 +1162,7 @@ def main(argv=None) -> int:
     segagg_scatter_cuda.launches = 0
     segagg_scatter_atomic_cuda.launches = 0
     largest = {}   # query id -> its largest batch in rows on the main path
+    models = {}    # query id -> phase 4's measured cost model
 
     # 4. single-query path
     log(f"[4] single-query path, {n} files, Planner('single')")
@@ -908,6 +1178,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         cm = measure_cost_model(aq, files, sc, batch_sizes=CALIBRATION_FILES, device="cuda")
         t_cal = time.perf_counter() - t0
+        models[qid] = cm
         deadline = arrival.wind_end + 0.6 * cm.cost(n)
         q = Query(f"{qid}-deadline", arrival.wind_start, arrival.wind_end,
                   deadline, n, cm, arrival)
@@ -966,6 +1237,7 @@ def main(argv=None) -> int:
         f"{plain_cuda_calls[0]} times")
     if min(launches.values()) <= 0 or plain_cuda_calls[0]:
         raise AssertionError("the main path must run through the three kernels only")
+    by_phase = {k: {"4-5": n} for k, n in launches.items()}
 
     # 7. kernel times at the main path's largest batch per query
     log("[7] kernel parity and times at each query's largest main-path batch "
@@ -1063,6 +1335,45 @@ def main(argv=None) -> int:
     log(f"    narrow wins up to G={min(crossings)} (per N: {crossings}); "
         f"tuning.MATMUL_MAX_G = {tuning.MATMUL_MAX_G}")
 
+    # 12. pane-shared scans on the same stream; counts from the first
+    # run_shared_jobs to the last
+    seg_kernels = {"segagg_narrow": segagg_narrow_cuda, "segagg_scatter": segagg_scatter_cuda,
+                   "segagg_scatter_atomic": segagg_scatter_atomic_cuda}
+    recorder = SegaggRecorder(analytics, ops, segagg_ref, seg_kernels)
+    log(f"[12] pane-shared scans: run_shared_jobs over windows {list(SHARED_WINDOWS)} "
+        f"(offset, files), llf-dynamic, phase 4's cost models")
+    with recorder:
+        for qid in SHARED_QUERIES:
+            shared_scans(by_id[qid], streams[by_id[qid].stream], models[qid], sc, recorder,
+                         run_shared_jobs)
+    log(f"  launches {recorder.launches}; pane_segagg calls on CUDA tensors "
+        f"{recorder.cuda_calls['pane_segagg']}, segagg {recorder.cuda_calls['segagg']}; "
+        f"plain version on CUDA tensors {recorder.plain_cuda} times")
+    for (call, p, total), row in sorted(recorder.routes.items()):
+        log(f"    {call:11s} panes {p} x G = {total:>9}: {row}")
+    width = SHARED_WINDOWS[1][0] - SHARED_WINDOWS[0][0]
+    for count in sorted({p for call, p, _ in recorder.routes if call == "pane_segagg"}):
+        log("    pane ids of " + pane_id_cost(by_id["CQ3"], streams["lineitem"], count, width))
+    if recorder.cuda_calls["pane_segagg"] <= 0 or recorder.plain_cuda \
+            or sum(recorder.launches.values()) <= 0:
+        raise AssertionError("the pane-shared path must run pane_segagg through the kernels")
+    for k, v in recorder.launches.items():
+        by_phase[k]["12"] = v
+
+    # 13. a recurring session over the real backend; counts over run_session
+    log(f"[13] recurring session: run_session for CQ4, {n // SESSION_FILES} tumbling windows "
+        f"of {SESSION_FILES} files, the files' own arrival times, calibrate=True")
+    with recorder:
+        session_windows(by_id["CQ4"], streams["lineitem"], times, models["CQ4"], sc,
+                        run_session, analytics)
+    log(f"  launches {recorder.launches}; plain version on CUDA tensors "
+        f"{recorder.plain_cuda} times")
+    if sum(recorder.launches.values()) <= 0 or recorder.plain_cuda \
+            or recorder.cuda_calls["segagg"] <= 0:
+        raise AssertionError("the session path must run through the segagg kernels only")
+    for k, v in recorder.launches.items():
+        by_phase[k]["13"] = v
+
     # 8. LM kernel parity
     del streams, oneshot, rex
     torch.cuda.empty_cache()
@@ -1084,9 +1395,18 @@ def main(argv=None) -> int:
          (ssd_ops, "ssd_chunked_ref")])
     cfg = get_config(SERVE_ARCH)
     t0 = time.perf_counter()
-    ex, batch8, lm_launches = serving_path(args, cfg, SERVE_SEQ, lm, engine, core, counters)
+    ex, cm, batch8, lm_launches = serving_path(args, cfg, SERVE_SEQ, lm, engine, core,
+                                               counters)
     check_launches(cfg, lm_launches, time.perf_counter() - t0)
     launches.update({k: lm_launches[k] for k in ("flash_attention", "rglru")})
+    by_phase.update({k: {"9": lm_launches[k]} for k in ("flash_attention", "rglru")})
+
+    # 14. online admission on the same executor and model
+    log(f"[14] online admission: serve_session on {SERVE_ARCH}, jobs "
+        f"{[(j, n, sub) for j, n, _, _, _, sub in ADMISSION_JOBS]} (id, prompts, submit s)")
+    adm_launches = admission_path(args, cfg, ex, cm, engine, core, counters)
+    for k in ("flash_attention", "rglru"):
+        by_phase[k]["14"] = adm_launches[k]
     # The same batch of 8 with the plain versions swapped in, at three depths
     # of the same weights; the gate is the first unit (both kernels, 3
     # layers), since this random-weight model amplifies any rounding
@@ -1158,9 +1478,11 @@ def main(argv=None) -> int:
         f"(prefill_32k's batch is {SHAPES['prefill_32k'].global_batch}), no decode")
     cfg = get_config(SSM_ARCH)
     t0 = time.perf_counter()
-    ex, batch8, ssm_launches = serving_path(args, cfg, SSM_SEQ, lm, engine, core, counters)
+    ex, _, batch8, ssm_launches = serving_path(args, cfg, SSM_SEQ, lm, engine, core,
+                                               counters)
     check_launches(cfg, ssm_launches, time.perf_counter() - t0)
     launches["ssd"] = ssm_launches["ssd"]
+    by_phase["ssd"] = {"11": ssm_launches["ssd"]}
     # A batch of 2 with the plain SSD swapped in, at 8 and at all 48 layers.
     # The seeded model amplifies a 1-ulp bf16 rounding difference of y with
     # depth (PERF.md), so at 48 layers the kernel path is held against the
@@ -1210,7 +1532,7 @@ def main(argv=None) -> int:
         kernels.append({"name": kname, "route": "cuda",
                         "source": "src/repro_torch/csrc/segagg.cu",
                         "replaces": replaces[kname], "launches": launches[kname],
-                        **r})
+                        "launches_by_phase": by_phase[kname], **r})
     lm_sources = {
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/flash_attention.py:29"),
@@ -1219,7 +1541,7 @@ def main(argv=None) -> int:
     for kname, (source, replaced) in lm_sources.items():
         kernels.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaced, "launches": launches[kname],
-                        **lm_times[kname]})
+                        "launches_by_phase": by_phase[kname], **lm_times[kname]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -264,8 +264,15 @@ class Planner:
         ``workers=W`` wraps ``executor`` in an ``ExecutorPool`` of W workers
         (``workers=4`` with no executor: a 4-way simulated pool).
 
-        ``share=True`` (pane-based shared execution, ``core/panes.py`` in
-        the JAX package) raises until pane sharing is ported.
+        ``share=True`` enables pane-based shared execution for queries that
+        name a common ``Query.stream`` (``repro.core.panes``): their cost
+        models become amortized one-scan-+-k-merges ``SharedCostModel``s and
+        pane partials are cached/reused across overlapping windows.
+        ``pane_tuples`` overrides the per-stream GCD pane width.  The
+        returned trace carries the pane bookkeeping as ``trace.pane_book``
+        (scan/hit/eviction stats under ``.store.stats``).  With
+        ``share=False`` (default) the run is byte-identical to the unshared
+        runtime.
 
         ``runtime="heap"`` opts dynamic policies into the event-heap
         decision core (``repro.core.runtime.HeapLoopCore``): O(log n) per
@@ -278,9 +285,14 @@ class Planner:
         if workers is not None:
             executor = ExecutorPool(backend=executor, workers=workers)
         if share:
-            raise NotImplementedError(
-                "share=True needs pane sharing (core/panes.py), which is not "
-                "ported to repro_torch yet")
+            from .panes import run_shared
+
+            trace, book = run_shared(
+                self.policy, workload, executor,
+                pane_tuples=pane_tuples, **runtime_kw,
+            )
+            trace.pane_book = book
+            return trace
         if pane_tuples is not None:
             raise ValueError("pane_tuples= only applies with share=True")
         return _run(self.policy, workload, executor=executor, **runtime_kw)
@@ -294,3 +306,154 @@ def as_queries(queries: Union[Query, Sequence[Query]]) -> List[Query]:
     if isinstance(queries, Query):
         return [queries]
     return list(queries)
+
+
+# ---------------------------------------------------------------------------
+# Session facade (continuous operation)
+# ---------------------------------------------------------------------------
+
+
+class Session:
+    """Facade over ``repro.core.session.SessionRuntime``: the long-running
+    counterpart of ``Planner`` for CONTINUOUS operation.
+
+    Where ``Planner.run`` drains a fixed workload and returns, a Session
+    stays live: recurring queries roll over window after window on one
+    carried-over executor timeline, new queries are admitted (gated by a
+    schedulability pre-flight) or withdrawn mid-run, and — with
+    ``calibrate=True`` — cost models refit themselves from execution
+    feedback, triggering replans of future windows when drift crosses the
+    threshold::
+
+        s = Session(policy="llf-dynamic", calibrate=True)
+        s.submit(RecurringQuerySpec(base=q, period=60.0, num_windows=None))
+        s.run_until(600.0)            # ten windows roll over
+        s.submit(urgent_query)        # online admission at t=600
+        s.run_until(1200.0)
+        s.withdraw(q.query_id)
+        series = s.trace.outcome_series(q.query_id)
+
+    Accepts everything ``Planner.run`` accepts (policy name or instance,
+    ``executor=``, ``workers=`` pool shorthand) plus the session knobs
+    (``calibrate``, ``drift_threshold``, ``min_samples``, ``refit_every``,
+    ``c_max``, ``admission_control``, ``start_time``), the pane-sharing
+    knobs (``sharing=True`` to share pane partials across overlapping
+    windows of queries on a common ``Query.stream``, ``pane_tuples`` to
+    override the GCD pane width — docs/API.md "Pane sharing"), the
+    overload knobs (``overload=``, ``on_renegotiate=`` — docs/API.md
+    "Overload control"), the predictive-scheduling knob (``forecast=``
+    — arrival forecasting, proactive shedding ahead of forecast bursts,
+    speculative pane pre-warming; docs/API.md "Predictive scheduling")
+    and the scaling knobs (``runtime="heap"`` for the O(log n) event-heap
+    decision core, ``admission="incremental"`` for the maintained
+    ``DemandLedger`` admission fast path — docs/API.md "Scaling the
+    decision core").  ``tenancy=`` (a ``repro.core.tenancy.TenancyConfig``
+    or a ``{tenant: TenantQuota}`` dict) turns on multi-tenant arbitration:
+    per-tenant rate/capacity quotas at admission, weighted max-min fairness
+    ACROSS tenants when overload shedding kicks in, and ``set_quota`` for
+    runtime quota changes (docs/API.md "Multi-tenancy").
+    """
+
+    def __init__(self, policy: Union[str, SchedulingPolicy] = "llf-dynamic",
+                 executor: Optional[Executor] = None, **session_kw):
+        from .session import SessionRuntime
+
+        self._runtime = SessionRuntime(policy, executor, **session_kw)
+
+    # -- delegation (the facade IS the runtime, minus its internals) -----
+    @property
+    def policy(self) -> SchedulingPolicy:
+        """The scheduling policy driving this session."""
+        return self._runtime.policy
+
+    @property
+    def executor(self) -> Executor:
+        """The session's (single, carried-over) execution backend."""
+        return self._runtime.executor
+
+    @property
+    def now(self) -> float:
+        """Current modelled time of the session's continuous timeline."""
+        return self._runtime.now
+
+    @property
+    def trace(self):
+        """The live ``SessionTrace``: executions, outcomes and session
+        lifecycle events recorded so far."""
+        return self._runtime.trace
+
+    @property
+    def live_ids(self) -> List[str]:
+        """Base ids of every submitted, not-yet-withdrawn query."""
+        return self._runtime.live_ids
+
+    @property
+    def book(self):
+        """Pane-sharing bookkeeping (``repro.core.panes.SharedBook``) when
+        the session runs with ``sharing=True``; None otherwise."""
+        return self._runtime.book
+
+    @property
+    def pane_stats(self):
+        """Pane-cache scan/hit/eviction counters (None without sharing)."""
+        return self._runtime.pane_stats
+
+    def calibrator(self, base_id: str):
+        """The live ``CalibratingCostModel`` of ``base_id`` (None unless
+        the session was built with ``calibrate=True``)."""
+        return self._runtime.calibrator(base_id)
+
+    def history(self, base_id: Optional[str] = None):
+        """Public per-spec observation record
+        (``repro.core.forecast.SpecHistory``): per-window realized arrival
+        observations (collected at every window close, with or without
+        ``forecast=``) plus the calibration loop's cost samples and the
+        admission-time shed in force.  With ``base_id`` one spec's record;
+        without, a dict over every spec ever submitted."""
+        return self._runtime.history(base_id)
+
+    def forecaster(self, base_id: str):
+        """The live ``ArrivalForecaster`` of ``base_id`` (None unless the
+        session was built with ``forecast=``)."""
+        return self._runtime.forecaster(base_id)
+
+    def submit(self, spec, *, force: bool = False):
+        """Admit a Query / DynamicQuerySpec / RecurringQuerySpec into the
+        live session, gated by the schedulability pre-flight
+        (``repro.core.schedulability.admission_check``); ``force=True``
+        records the report but admits regardless.  Returns an
+        ``AdmissionResult`` (truthy iff admitted)."""
+        return self._runtime.submit(spec, force=force)
+
+    def withdraw(self, base_id: str) -> None:
+        """Remove a live query mid-run: active windows are deleted at the
+        next between-batch instant (§4.2), future windows never open."""
+        self._runtime.withdraw(base_id)
+
+    def set_quota(self, tenant: str, quota=None):
+        """Set, replace or (``quota=None``) remove one tenant's
+        ``TenantQuota`` at run time, then rebalance so a tightened quota
+        immediately sheds that tenant's own live windows against its new
+        share.  Returns the applied ``SheddingPlan`` (None when nothing
+        had to move)."""
+        return self._runtime.set_quota(tenant, quota)
+
+    def rebalance(self):
+        """Mid-run overload response: shed the minimum from the lowest
+        tiers (fair shares first under ``tenancy=``) when the live set has
+        drifted infeasible.  Returns the applied ``SheddingPlan`` or None."""
+        return self._runtime.rebalance()
+
+    def run_until(self, horizon: float, max_steps: int = 1_000_000):
+        """Advance the continuous timeline to ``horizon``, processing every
+        decision instant (window roll-overs, admissions, batches,
+        recalibrations) on the way; returns the ``SessionTrace``."""
+        return self._runtime.run_until(horizon, max_steps=max_steps)
+
+    def run(self, max_steps: int = 1_000_000):
+        """Drain every admitted window (bounded specs only — open-ended
+        recurrence needs ``run_until``)."""
+        return self._runtime.run(max_steps=max_steps)
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging nicety
+        return repr(self._runtime).replace("SessionRuntime", "Session", 1)

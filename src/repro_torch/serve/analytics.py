@@ -12,9 +12,16 @@ Executor model (as in the JAX package's ``repro/serve/analytics.py``):
 
 ``AnalyticsRuntimeExecutor`` adapts this to the ``Executor`` protocol of
 ``repro_torch.core.api``, so the shared runtime loop drives real segagg
-batches; ``run_plan`` replays a plan through ``execute_plan``.  Partials
-are keyed by tuple offset, so a C_max straggler re-queue overwrites rather
-than double-counts.
+batches; ``run_plan`` replays a plan through ``execute_plan`` and
+``run_session`` runs one recurring query window after window in a
+``Session``.  Partials are keyed by tuple offset, so a C_max straggler
+re-queue overwrites rather than double-counts.
+
+``SharedAnalyticsExecutor`` runs overlapping windows over one stream with
+pane sharing (``repro_torch.core.panes``): each uncached run of panes is
+scanned once on the card by ``pane_segagg``, and the pane partials are kept
+on the host in the book's ``PaneStore`` for later windows;
+``run_shared_jobs`` drives it end to end, shared or unshared.
 
 ``measure_cost_model`` reproduces §6.2: run batches of different sizes,
 time them, fit the piecewise-linear cost model the scheduler consumes.
@@ -38,8 +45,12 @@ import torch
 from ..core import (
     CostModelBase,
     LinearCostModel,
+    Planner,
     Query,
+    RecurringQuerySpec,
     Schedule,
+    Session,
+    SessionTrace,
     ShiftedArrival,
     ThinnedArrival,
     TraceArrival,
@@ -49,7 +60,7 @@ from ..core.runtime import BaseExecutor, execute_plan
 from ..data.tpch import AnalyticsQuery, StreamScale
 from ..device import DeviceLike, resolve_device
 from ..kernels import _build
-from ..kernels.segagg.ops import segagg
+from ..kernels.segagg.ops import pane_segagg, segagg
 
 
 @dataclasses.dataclass
@@ -210,6 +221,156 @@ class AnalyticsRuntimeExecutor(BaseExecutor):
         return agg_s
 
 
+class SharedAnalyticsExecutor(BaseExecutor):
+    """``Executor`` over real segagg jobs with PANE SHARING: every job is a
+    window over ONE shared stream of record files, and pane partial
+    aggregates are computed once, cached in the ``SharedBook``'s
+    ``PaneStore``, and fanned out to every subscribed window.
+
+    ``_execute`` decomposes a batch's global file range into full panes and
+    edge fragments.  Cached panes are folded in at merge cost (a numpy add
+    on the host, no device scan); runs of uncomputed panes are scanned in
+    ONE ``pane_segagg`` pass on ``device`` (composite pane x group keys
+    through the same kernels) and each pane's partial is spilled to the host
+    and deposited for later subscribers.  Fragments are scanned directly and
+    never cached (only a fully covered pane is valid for reuse).  Per-query
+    accumulators stay offset-keyed exactly like
+    ``AnalyticsExecutor.partials``, so C_max straggler re-queues overwrite
+    instead of double-counting, and ``_finalize`` combines them into
+    ``results[query_id]`` (the fan-out finalize).
+
+    The modelled clock still advances by the scheduler-visible cost models
+    (``SharedCostModel`` when the workload was share-transformed); this
+    class deduplicates the PHYSICAL work and records measured wall seconds.
+    """
+
+    def __init__(
+        self,
+        query: AnalyticsQuery,
+        stream_files: Sequence[Dict[str, np.ndarray]],
+        scale: StreamScale,
+        book,  # repro_torch.core.panes.SharedBook (shared with the runtime loop)
+        device: DeviceLike = None,
+    ):
+        super().__init__()
+        self.aquery = query
+        self.files = list(stream_files)
+        self.num_groups = query.num_groups(scale)
+        self.book = book
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            _build.build_all()
+        # query_id -> {local offset: partial}: straggler-idempotent, like
+        # AnalyticsExecutor.partials.
+        self._acc: Dict[str, Dict[int, np.ndarray]] = {}
+        self.results: Dict[str, np.ndarray] = {}
+        self.agg_seconds: Dict[str, float] = {}
+
+    # -- physical helpers ------------------------------------------------
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _scan(self, records: Dict[str, np.ndarray]) -> np.ndarray:
+        keys = np.asarray(self.aquery.key_fn(records), np.int32)
+        vals = np.asarray(self.aquery.value_fn(records), np.float32)
+        part = segagg(self._to_device(keys), self._to_device(vals),
+                      self.num_groups)
+        return part.cpu().numpy()
+
+    def _scan_panes(self, stream: str, first_pane: int, count: int,
+                    width: int, by: str) -> np.ndarray:
+        """Scan ``count`` contiguous panes in one ``pane_segagg`` pass,
+        deposit each pane's partial, and return their sum (this caller's
+        share of the batch)."""
+        lo = first_pane * width
+        chunk = self.files[lo: lo + count * width]
+        records = concat_files(chunk)
+        keys = np.asarray(self.aquery.key_fn(records), np.int32)
+        vals = np.asarray(self.aquery.value_fn(records), np.float32)
+        # Row counts straight from the record arrays (every field of a file
+        # has one row per record): running key_fn per file would pay a
+        # second full key pass inside the timed region.
+        sizes = [len(next(iter(f.values()))) for f in chunk]
+        pane_of_file = np.repeat(
+            np.arange(count, dtype=np.int32), width)[: len(chunk)]
+        pane_ids = np.repeat(pane_of_file, sizes).astype(np.int32)
+        parts = pane_segagg(
+            self._to_device(keys), self._to_device(vals),
+            self._to_device(pane_ids), count, self.num_groups,
+        ).cpu().numpy()
+        for j in range(count):
+            self.book.store.deposit(stream, first_pane + j, by=by,
+                                    data=parts[j])
+        return parts.sum(axis=0)
+
+    # -- BaseExecutor hooks ----------------------------------------------
+    def _execute(self, query: Query, num_tuples: int, offset: int) -> Optional[float]:
+        if num_tuples <= 0:
+            return None
+        stream = query.stream
+        if stream is None:
+            raise ValueError(
+                f"{query.query_id}: SharedAnalyticsExecutor needs stream-"
+                "placed queries (Query.stream/stream_offset)"
+            )
+        width = self.book.widths.get(stream, max(query.num_tuples_total, 1))
+        store = self.book.store
+        g0 = query.stream_offset + offset
+        g1 = g0 + num_tuples
+        t0 = time.perf_counter()
+        acc: Optional[np.ndarray] = None
+        pos = g0
+        pending_scan: Optional[int] = None  # first pane of an uncached run
+
+        def fold(part: np.ndarray) -> None:
+            nonlocal acc
+            acc = part if acc is None else acc + part
+
+        def flush(upto_pane: int) -> None:
+            nonlocal pending_scan
+            if pending_scan is not None:
+                fold(self._scan_panes(stream, pending_scan,
+                                      upto_pane - pending_scan, width,
+                                      by=query.query_id))
+                pending_scan = None
+
+        while pos < g1:
+            pane_idx = pos // width
+            pane_lo, pane_hi = pane_idx * width, (pane_idx + 1) * width
+            if pos == pane_lo and pane_hi <= g1:
+                entry = store.entry(stream, pane_idx)
+                if entry is not None and entry.computed and entry.data is not None:
+                    flush(pane_idx)
+                    fold(entry.data)  # cache hit: merge, no scan
+                else:
+                    if pending_scan is None:
+                        pending_scan = pane_idx
+                pos = pane_hi
+            else:
+                # Edge fragment (batch boundary inside a pane): scan
+                # directly, never cached.
+                flush(pane_idx)
+                frag_hi = min(pane_hi, g1)
+                fold(self._scan(concat_files(self.files[pos:frag_hi])))
+                pos = frag_hi
+        flush(-(-g1 // width))
+        self._acc.setdefault(query.query_id, {})[offset] = (
+            acc if acc is not None
+            else np.zeros((self.num_groups, 1), np.float32)
+        )
+        return time.perf_counter() - t0
+
+    def _finalize(self, query: Query, num_batches: int) -> Optional[float]:
+        t0 = time.perf_counter()
+        parts = list(self._acc.get(query.query_id, {}).values())
+        total = (np.sum(np.stack(parts), axis=0) if parts
+                 else np.zeros((self.num_groups, 1), np.float32))
+        self.results[query.query_id] = total
+        dt = time.perf_counter() - t0
+        self.agg_seconds[query.query_id] = dt
+        return dt
+
+
 def _plan_query(query_id: str, num_files: int) -> Query:
     """Untimed stand-in Query for replaying a vetted plan over materialized
     files (all inputs present; modelled costs zero)."""
@@ -252,6 +413,163 @@ def run_batched(query: AnalyticsQuery, files: Sequence[Dict[str, np.ndarray]],
     result, agg_s = ex.finalize()
     total = sum(b.seconds for b in ex.batch_log) + agg_s
     return result, total, ex.num_batches
+
+
+def run_session(
+    query: AnalyticsQuery,
+    windows: Sequence[Sequence[Dict[str, np.ndarray]]],
+    window_timestamps: Sequence[Sequence[float]],
+    scale: StreamScale,
+    cost_model: CostModelBase,
+    *,
+    period: Optional[float] = None,
+    deadline_offset: Optional[float] = None,
+    policy: str = "llf-dynamic",
+    calibrate: bool = True,
+    device: DeviceLike = None,
+    forecast=None,
+    latency_target: Optional[float] = None,
+    tenant: Optional[str] = None,
+    **session_kw,
+) -> Tuple[Dict[int, np.ndarray], SessionTrace]:
+    """Session mode over the REAL segagg backend: the paper's continuously
+    running scheduler, one recurring GROUP-BY query, one result per window.
+
+    ``windows[w]`` are window ``w``'s files; ``window_timestamps[w]`` their
+    ACTUAL arrival instants (the per-window truth — predictions come from
+    window 0's trace shifted by ``period``).  Every window must carry the
+    same file count (the recurring spec's shape).  With ``calibrate=True``
+    the scheduler's cost model refits online from measured wall seconds
+    (cost units == seconds, §1/§6.2), so a mis-measured offline model heals
+    while the session runs.
+
+    Predictive-scheduling knobs (docs/API.md "Predictive scheduling"):
+    ``forecast=`` (bool or ``repro_torch.core.ForecastConfig``) turns on arrival
+    forecasting and proactive replanning over the real backend —
+    per-window FILE-arrival observations feed the forecaster exactly like
+    tuple arrivals in simulation; ``latency_target=`` stamps a Cameo-style
+    per-query latency target (seconds past window close) onto the
+    recurring query, tightening its urgency in the dynamic policies and
+    reported per window via ``QueryOutcome.met_target``; ``tenant=``
+    stamps the tenant identity onto the recurring query so per-window
+    outcomes carry it (``QueryOutcome.tenant``) and a ``tenancy=``
+    session config (forwarded via ``**session_kw``) can enforce the
+    tenant's quota.
+
+    Returns ({window_index: combined_aggregate}, SessionTrace).
+    """
+    if not windows:
+        raise ValueError("need at least one window")
+    n = len(windows[0])
+    if any(len(w) != n for w in windows):
+        raise ValueError("every window must carry the same file count "
+                         f"(window 0 has {n})")
+    if len(window_timestamps) != len(windows):
+        raise ValueError("windows and window_timestamps must align")
+    base_arr = TraceArrival(timestamps=tuple(window_timestamps[0]))
+    if period is None:
+        period = base_arr.wind_end - base_arr.wind_start or 1.0
+    if deadline_offset is None:
+        deadline_offset = 2.0 * cost_model.cost(n)
+    base = Query(
+        query_id=query.query_id,
+        wind_start=base_arr.wind_start,
+        wind_end=base_arr.wind_end,
+        deadline=base_arr.wind_end + deadline_offset,
+        num_tuples_total=n,
+        cost_model=cost_model,
+        arrival=base_arr,
+        latency_target=latency_target,
+        tenant=tenant,
+    )
+    truths = [TraceArrival(timestamps=tuple(ts)) for ts in window_timestamps]
+    rspec = RecurringQuerySpec(
+        base=base,
+        period=period,
+        num_windows=len(windows),
+        deadline_offset=deadline_offset,
+        truth_factory=lambda w: truths[w],
+        num_groups=query.num_groups(scale),
+    )
+    jobs = {
+        rspec.window_query(w).query_id: (query, list(files))
+        for w, files in enumerate(windows)
+    }
+    executor = AnalyticsRuntimeExecutor(jobs, scale, device)
+    session = Session(policy=policy, executor=executor, calibrate=calibrate,
+                      forecast=forecast, **session_kw)
+    session.submit(rspec)
+    trace = session.run()
+    results = {
+        w: executor.results[rspec.window_query(w).query_id]
+        for w in range(len(windows))
+        if rspec.window_query(w).query_id in executor.results
+    }
+    return results, trace
+
+
+def run_shared_jobs(
+    query: AnalyticsQuery,
+    files: Sequence[Dict[str, np.ndarray]],
+    windows: Sequence[Tuple[int, int]],
+    scale: StreamScale,
+    cost_model: CostModelBase,
+    *,
+    policy: str = "llf-dynamic",
+    share: bool = True,
+    pane_tuples: Optional[int] = None,
+    deadline_frac: float = 3.0,
+    device: DeviceLike = None,
+    **policy_params,
+):
+    """Overlapping GROUP-BY windows over ONE real stream, end to end.
+
+    ``windows[i] = (stream_offset, num_files)`` places job ``i``'s window on
+    the shared stream (one file arrives per modelled time unit).  With
+    ``share=True`` the workload is pane-share-transformed
+    (``repro_torch.core.panes.share_workload``) and executed on a
+    ``SharedAnalyticsExecutor``: overlapping windows reuse cached pane
+    partials, so shared files are scanned once.  With ``share=False`` the
+    same executor class runs with an empty book — every window rescans its
+    own files — which is the apples-to-apples unshared baseline.
+
+    Returns ``({job_id: (num_groups, V) aggregate}, trace, book)``.
+    """
+    from ..core.panes import SharedBook, share_workload
+    from ..core.runtime import run as run_loop
+
+    stream = f"{query.query_id}-stream"
+    qs = []
+    for i, (off, n) in enumerate(windows):
+        if off < 0 or off + n > len(files):
+            raise ValueError(
+                f"window {i} [{off}, {off + n}) outside the stream "
+                f"(0..{len(files)})"
+            )
+        arr = TraceArrival(timestamps=tuple(float(t) for t in range(off, off + n)))
+        qs.append(Query(
+            query_id=f"{query.query_id}-w{i}",
+            wind_start=arr.wind_start,
+            wind_end=arr.wind_end,
+            deadline=arr.wind_end + deadline_frac * cost_model.cost(n),
+            num_tuples_total=n,
+            cost_model=cost_model,
+            arrival=arr,
+            stream=stream,
+            stream_offset=off,
+        ))
+    pol = Planner(policy=policy, **policy_params).policy
+    if share:
+        specs, book = share_workload(qs, pane_tuples=pane_tuples)
+    else:
+        specs, book = qs, SharedBook(pane_tuples=pane_tuples)
+    executor = SharedAnalyticsExecutor(query, files, scale, book,
+                                       device=device)
+    trace = run_loop(pol, specs, executor,
+                     sharing=book if share else None)
+    if share:
+        book.close()
+    return executor.results, trace, book
 
 
 def measure_cost_model(query: AnalyticsQuery,

@@ -8,7 +8,9 @@ The engine plans batch points with the ``single`` policy, or time-shares
 several jobs under a ``*-dynamic`` policy, and every scheduled MinBatch
 runs a real prefill on the card.  ``ServingExecutor`` implements the
 runtime loop's executor protocol, so C_max straggler handling is the loop's
-own.  ``serve_session`` (online admission) waits for the port's Session.
+own.  ``serve_session`` runs the engine as a continuous ``Session``: jobs
+join one by one, each admitted only if the schedulability pre-flight finds
+it feasible against the live set.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from ..core import (
     DynamicQuerySpec,
     Planner,
     Query,
+    Session,
     Strategy,
     fit_piecewise_linear,
 )
@@ -182,6 +185,73 @@ def serve_single_job(job: WindowJob, executor: PrefillExecutor,
         "processed": job.processed,
         "straggler_events": trace.stragglers.count(job.job_id),
     }
+
+
+def serve_session(jobs: Sequence[WindowJob], executor: PrefillExecutor,
+                  cost_model: CostModelBase,
+                  *,
+                  policy: str = "llf-dynamic",
+                  submit_times: Optional[Sequence[float]] = None,
+                  calibrate: bool = False,
+                  workers: Optional[int] = None,
+                  c_max: Optional[float] = None,
+                  run_to: Optional[float] = None,
+                  **session_kw) -> Tuple[Dict[str, Dict], "Session"]:
+    """Session mode over the REAL prefill backend: jobs join a CONTINUOUSLY
+    running engine one by one (online admission, schedulability-gated)
+    instead of being drained as one fixed workload.
+
+    ``submit_times[i]`` delays job i's submission to that modelled instant
+    (default: its window start).  Jobs whose admission pre-flight proves
+    them infeasible against the live set are rejected — their report row
+    carries ``admitted=False`` and they never run.  With ``calibrate=True``
+    per-job cost models refit from measured prefill wall seconds.  Returns
+    (per-job report, the live Session) so callers can keep submitting.
+    """
+    serving = ServingExecutor(executor, jobs)
+    session = Session(policy=policy, executor=serving, workers=workers,
+                      calibrate=calibrate, c_max=c_max, **session_kw)
+    admitted: Dict[str, bool] = {}
+    order = sorted(
+        range(len(jobs)),
+        key=lambda i: (submit_times[i] if submit_times is not None
+                       else jobs[i].arrival.wind_start),
+    )
+    for i in order:
+        job = jobs[i]
+        at = (submit_times[i] if submit_times is not None
+              else job.arrival.wind_start)
+        session.run_until(max(at, session.now))
+        q = job.as_query(cost_model)
+        if at > q.submit_time:
+            q = dataclasses.replace(q, submit_time=at)
+        admitted[job.job_id] = bool(session.submit(q))
+    trace = session.run() if run_to is None else session.run_until(run_to)
+    by_id = {j.job_id: j for j in jobs}
+    report: Dict[str, Dict] = {}
+    for job_id, ok in admitted.items():
+        if not ok:
+            report[job_id] = {"admitted": False}
+            continue
+        row: Dict = {"admitted": True}
+        try:
+            o = trace.outcome(job_id)
+        except KeyError:
+            row["completed"] = False  # still running at ``run_to``
+        else:
+            row.update({
+                "completed": True,
+                "met_modelled": o.met_deadline,
+                "completion": o.completion_time,
+                "deadline": o.deadline,
+                "num_batches": o.num_batches,
+                "shortfall": o.shortfall,
+                "wall_exec_seconds": serving.wall_seconds.get(job_id, 0.0),
+                "processed": by_id[job_id].processed,
+                "straggler_events": trace.stragglers.count(job_id),
+            })
+        report[job_id] = row
+    return report, session
 
 
 def serve_multi_jobs(jobs: Sequence[WindowJob], executor: PrefillExecutor,

@@ -1,8 +1,11 @@
 """The port's copy of the scheduler (``repro_torch.core``) schedules exactly
-like the JAX package's ``repro.core``: equal plans (or the same
-``InfeasibleDeadline`` message) for the paper's 13 queries under both cost
-regimes, and equal simulated traces for the dynamic policies, pooled too."""
+like the JAX package's ``repro.core``: every copied module equals its
+reference file (read with ``repro_torch`` as ``repro``), the package exports
+the same names, and it gives equal plans (or the same ``InfeasibleDeadline``
+message) for the paper's 13 queries under both cost regimes and equal
+simulated traces for the dynamic policies, pooled too."""
 import dataclasses
+import pathlib
 import sys
 
 import pytest
@@ -13,6 +16,10 @@ from repro.data import tpch as RT
 from repro_torch.data import tpch as TT
 
 PACKAGES = {"ref": (R, RT), "port": (T, TT)}
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+COPIED = sorted(p.relative_to(SRC / "repro_torch" / "core").as_posix()
+                for p in (SRC / "repro_torch" / "core").rglob("*.py")
+                if p.name != "__init__.py" or p.parent.name == "policies")
 DEADLINE_FRACS = (0.02, 0.1, 0.3, 1.0, 2.0)
 
 
@@ -118,7 +125,30 @@ def test_static_run_identical():
     assert _trace_rows(traces[1]) == _trace_rows(traces[0])
 
 
-def test_pane_sharing_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="pane sharing"):
-        T.Planner(policy="llf-dynamic").run(_workload("port"), share=True)
-    assert not hasattr(T, "Session")
+@pytest.mark.parametrize("module", COPIED)
+def test_copied_module_equals_reference(module):
+    port = (SRC / "repro_torch" / "core" / module).read_text()
+    assert port.replace("repro_torch", "repro") == (SRC / "repro" / "core" / module).read_text()
+
+
+def test_every_reference_module_is_copied():
+    ref = sorted(p.relative_to(SRC / "repro" / "core").as_posix()
+                 for p in (SRC / "repro" / "core").rglob("*.py")
+                 if p.name != "__init__.py" or p.parent.name == "policies")
+    assert COPIED == ref
+    assert "session.py" in COPIED and "api.py" in COPIED
+
+
+def test_exports_equal_reference():
+    assert T.__all__ == R.__all__
+    for name in T.__all__:
+        assert hasattr(T, name), name
+    assert T.Session.__module__ == "repro_torch.core.api"
+    assert T.SessionRuntime.__module__ == "repro_torch.core.session"
+
+
+def test_planner_share_attaches_the_pane_book():
+    trace = T.Planner(policy="llf-dynamic").run(_workload("port"), share=True)
+    want = R.Planner(policy="llf-dynamic").run(_workload("ref"), share=True)
+    assert _trace_rows(trace) == _trace_rows(want)
+    assert isinstance(trace.pane_book, T.SharedBook)

@@ -156,6 +156,42 @@ class TestScatterOnCard:
         assert segagg_scatter_atomic_cuda.launches == atomic + 1
 
 
+@pytest.mark.cuda
+class TestPaneSegaggOnCard:
+    """``pane_segagg`` (composite keys ``pane * G + group``) on the card
+    against its plain version, at composite key spaces that take each
+    kernel: narrow (TPC-Q6-like's G = 1), the cluster table (one CQ3 pane)
+    and the global-atomic scatter (several CQ3 panes)."""
+
+    @pytest.mark.parametrize("panes, g, kernel", [
+        (6, 1, segagg_narrow_cuda),
+        (1, 360_000, segagg_scatter_cuda),
+        (6, 360_000, segagg_scatter_atomic_cuda),
+    ])
+    def test_matches_plain_version(self, cuda, panes, g, kernel):
+        n = 700_001
+        rng = np.random.default_rng(panes + g)
+        keys = torch.from_numpy(rng.integers(0, g, n).astype(np.int32)).to(cuda)
+        pane_ids = torch.from_numpy(np.sort(rng.integers(0, panes, n)).astype(np.int32)).to(cuda)
+        vals = torch.from_numpy(rng.random((n, 1)).astype(np.float32)).to(cuda)
+        ones = torch.ones_like(vals)
+        total = panes * g
+        if kernel is segagg_narrow_cuda:
+            assert tuning.pick_formulation(total, 1) == "narrow"
+        else:
+            assert tuning.pick_formulation(total, 1) == "scatter"
+            route = "cluster" if kernel is segagg_scatter_cuda else "atomic"
+            assert scatter_plan_for(total, 1, cuda).route == route
+        before = kernel.launches
+        got = ops.pane_segagg(keys, ones, pane_ids, panes, g)
+        assert kernel.launches == before + 1
+        want = segagg_ref(pane_ids * g + keys, ones, total).reshape(panes, g, 1)
+        assert torch.equal(got, want)
+        got = ops.pane_segagg(keys, vals, pane_ids, panes, g).double()
+        want = segagg_ref(pane_ids * g + keys, vals.double(), total).reshape(panes, g, 1)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
 # -- flash attention and RG-LRU ----------------------------------------------
 
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402

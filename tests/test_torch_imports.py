@@ -50,7 +50,11 @@ def test_scan_covers_the_port():
                    "kernels/rglru/rglru.py", "kernels/rglru/ref.py",
                    "kernels/ssd/ops.py", "kernels/ssd/ssd.py", "kernels/ssd/ref.py",
                    "layers/ssd.py", "configs/recurrentgemma_9b.py",
-                   "configs/mamba2_370m.py"):
+                   "configs/mamba2_370m.py", "core/schedulability.py",
+                   "core/tenancy.py", "core/overload.py", "core/forecast.py",
+                   "core/simulator.py", "core/panes.py", "core/session.py",
+                   "core/_deprecation.py", "core/constraints.py",
+                   "core/single_query.py", "core/multi_query.py"):
         assert f"src/repro_torch/{module}" in names
     assert len(FILES) >= 50
 
