@@ -307,8 +307,9 @@ def tenant_session(core, runtime):
 def test_tenancy_session_trace_identical(runtime):
     want, got = both(tenant_session, runtime)
     assert got == want
-    assert any(e["kind"] == "quota" for e in got[0]["events"]) or \
-        not all(r["admitted"] for r in got[1])
+    assert any(e["kind"] == "quota" for e in got[0]["events"])
+    assert [r["decision"] for r in got[1]] == ["admit"] * 4 + ["shed"]
+    assert got[2] is not None  # the tightened quota shed live windows
 
 
 def test_zipf_traffic_identical():
