@@ -5,7 +5,9 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. environment: torch, the card, its power limit; TF32 off;
+1. environment: torch, the card, its power limit; TF32 off; the probe
+   (``repro_torch.dist.measure_machine_spec``): copy bandwidth and f32 and
+   bf16 matmul rates measured on the card, each beside its published peak;
 2. build: every kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a, one
    process per source, started together), the earlier flash and RG-LRU
    designs among them;
@@ -106,7 +108,18 @@ Phases (any failure exits non-zero and prints no result line):
    flash-attention and RG-LRU launched once per layer of their kind in every
    prefill call, with no plain version called on a CUDA tensor.
 
-Phases 12-14 count their launches apart from phases 4-5 (phase 6's counts)
+15. the device mesh (after phase 13, on phase 4's stream, one-shots and
+   models), for CQ3, CQ4 and TPC-Q6-like: ``run_plan`` with
+   ``mesh=DeviceMesh(["cuda:0"])`` over phase 4's plan, its aggregate
+   against phase 4's (counts exact; the float sum within ``FLOAT_RTOL``, its
+   bitwise equality a reading) with the same launches by route; then
+   ``MeshAnalyticsBackend`` in ``ExecutorPool(worker_backend=...)`` under
+   ``llf-dynamic`` over ``DeviceMesh(["cuda:0"] * W)`` for W = 1 and 2
+   (``shard_across=W``, ``ShardedCostModel(phase 4's model, W)``), each
+   aggregate against its float64 one-shot, W = 2 with at least one fused
+   shard group; wall seconds, batches and launches by route are readings.
+
+Phases 12-15 count their launches apart from phases 4-5 (phase 6's counts)
 and the serving paths; the result line carries them under
 ``launches_by_phase``.
 
@@ -131,9 +144,6 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 # Float sums: f32 atomics add in an order that changes from run to run; a
 # group summing m terms drifts by about sqrt(m) * 2^-24 relative (observed up
 # to 2e-5 for 13M rows into one group through scatter).  Counts are exact.
@@ -184,6 +194,8 @@ SESSION_FILES = 1500        # phase 13: three tumbling windows of the stream
 # Phase 14: (job, prompts, window start s, window s, deadline slack in
 # cost(n) units, submit instant s); the last one's deadline lies below the
 # cost(1) its final prompt needs after the window closes.
+MESH_QUERIES = ("CQ3", "CQ4", "TPC-Q6-like")   # phase 15: the three segagg routes
+MESH_SLACK = 0.6            # phase 15's deadline: wind_end + 0.6 * cost(n), as phase 4's
 ADMISSION_JOBS = (("feasible-4", 4, 0.0, 10.0, 2.0, 0.0),
                   ("feasible-6", 6, 5.0, 10.0, 2.0, 5.0),
                   ("infeasible", 3, 2.0, 10.0, None, 2.0))
@@ -332,14 +344,13 @@ def kernel_times(name: str, fn, keys, vals, g: int, exact: bool, segagg_ref,
     want = segagg_ref(keys, vals.double(), g)
     if not torch.allclose(got, want, rtol=FLOAT_RTOL, atol=FLOAT_RTOL):
         raise AssertionError(f"{name} N={keys.shape[0]} G={g}: float sums differ")
-    ops, nbytes = flops_bytes(keys.shape[0], g, vals.shape[1])
-    byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    bound_ms, bound_by = bound(*flops_bytes(keys.shape[0], g, vals.shape[1]), "float32")
     return {
         "max_abs_err": (got - want).abs().max().item(),
         "ms": cuda_ms(lambda: fn(keys, vals, g)),
         "plain_ms": cuda_ms(lambda: segagg_ref(keys, vals, g)),
-        "bound_ms": max(byte_ms, op_ms),
-        "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": cuda_ms(library),
     }
 
@@ -764,6 +775,72 @@ def session_windows(aq, files, times, model, sc, run_session, analytics) -> None
         + "; ".join(f"t={e.time:.3f} {e.detail}" for e in refits[:4]))
 
 
+# -- phase 15 ----------------------------------------------------------------
+
+def diff(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def same_as(qid: str, got: np.ndarray, want: np.ndarray, what: str) -> str:
+    """``got`` against ``want`` (both f32 aggregates of one run): counts
+    bitwise, the float sum within ``FLOAT_RTOL`` (its atomics add in an
+    order that changes from run to run), its bitwise equality a reading."""
+    if np.array_equal(got, want):
+        return f"equal to {what} bitwise"
+    if qid != "TPC-Q6-like" or not np.allclose(got, want, rtol=FLOAT_RTOL, atol=0.0):
+        raise AssertionError(f"{qid}: differs from {what}")
+    return (f"within rel {np.abs(got - want).max() / np.abs(want).max():.2e} of {what} "
+            f"(not bitwise)")
+
+
+def mesh_path(aq, files, arrival, oneshot, model, phase4, sc, rec) -> None:
+    """Phase 15 for one query: ``run_plan`` over a one-slot mesh against
+    phase 4's run of the same plan, then ``MeshAnalyticsBackend`` under
+    ``llf-dynamic`` over one and two slots of the card."""
+    from repro_torch import core
+    from repro_torch.dist import DeviceMesh
+    from repro_torch.serve.analytics import MeshAnalyticsBackend, run_plan
+
+    qid, n = aq.query_id, len(files)
+    plan, want, want_launches = phase4
+    before = rec.counts()
+    t0 = time.perf_counter()
+    got, blog, _ = run_plan(aq, files, plan, sc, mesh=DeviceMesh(["cuda:0"]))
+    wall = time.perf_counter() - t0
+    launched = diff(rec.counts(), before)
+    if launched != want_launches:
+        raise AssertionError(f"{qid}: run_plan over a one-slot mesh launched {launched}, "
+                             f"phase 4's run_plan {want_launches}")
+    log(f"  {qid:12s} run_plan, mesh ['cuda:0']: {len(blog)} batches, {wall:.2f} s wall, "
+        f"launches {launched} (phase 4: the same); {same_as(qid, got, want, 'phase 4')}")
+    deadline = arrival.wind_end + MESH_SLACK * model.cost(n)
+    for ways in (1, 2):
+        mesh = DeviceMesh(["cuda:0"] * ways)
+        wb = MeshAnalyticsBackend({qid: (aq, files)}, sc, mesh)
+        cm = core.ShardedCostModel(model, ways) if ways > 1 else model
+        q = core.Query(qid, arrival.wind_start, arrival.wind_end, deadline, n, cm, arrival)
+        before = rec.counts()
+        t0 = time.perf_counter()
+        trace = core.run(core.get_policy("llf-dynamic", shard_across=ways), [q],
+                         core.ExecutorPool(worker_backend=wb))
+        wall = time.perf_counter() - t0
+        o = trace.outcome(qid)
+        if not o.complete:
+            raise AssertionError(f"{qid}: the mesh run over {ways} slot(s) did not complete")
+        verdict = check_result(qid, wb.results[qid], oneshot)
+        batches = [e for e in trace.executions if e.kind == "batch"]
+        calls = len({(e.start, e.end) for e in batches})
+        if ways > 1 and calls >= len(batches):
+            raise AssertionError(f"{qid}: no shard group was fused over {ways} slots")
+        files_per = sorted({e.num_tuples for e in batches})
+        log(f"  {qid:12s} MeshAnalyticsBackend, {ways} slot(s) of cuda:0: {wall:.2f} s wall "
+            f"({sum(wb.wall_seconds.values()):.2f} in dispatches), {len(batches)} batches "
+            f"in {calls} mesh calls (files a batch {files_per[0]}-{files_per[-1]}), "
+            f"stragglers {len(trace.stragglers)}, launches {diff(rec.counts(), before)}; "
+            f"measured finish {o.completion_time:.4f} vs deadline {o.deadline:.4f}: "
+            f"{outcome(o.completion_time, o.deadline)}; {verdict}")
+
+
 # -- phase 14 ----------------------------------------------------------------
 
 def admission_path(args, cfg, ex, cm, engine, core, counters) -> dict:
@@ -805,9 +882,16 @@ def admission_path(args, cfg, ex, cm, engine, core, counters) -> dict:
 
 # -- phase 10 ----------------------------------------------------------------
 
-def bound(ops: float, nbytes: float, ops_per_s: float):
-    byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
-    return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
+def bound(ops: float, nbytes: float, dtype: str):
+    """The least time of the work in ms at the card's published peaks for
+    ``dtype`` (``KernelRooflineManager`` over ``PUBLISHED_H100_SXM``), and
+    what bounds it."""
+    from repro_torch.dist import PUBLISHED_H100_SXM, KernelRooflineManager
+
+    roof = KernelRooflineManager(PUBLISHED_H100_SXM[dtype]).get_roofline(
+        {"flops": ops, "bytes": nbytes, "seconds": 0.0})
+    return roof["bound_s"] * 1e3, ("bytes" if roof["memory_s"] >= roof["compute_s"]
+                                   else "operations")
 
 
 def lm_kernel_times(flash_cuda, flash_sync, flash_plain, flash_fb, rglru_cuda,
@@ -841,7 +925,7 @@ def lm_kernel_times(flash_cuda, flash_sync, flash_plain, flash_fb, rglru_cuda,
 
         # the yardstick computes the same function (logged, not a gate of the port)
         sdpa_err = (sdpa().transpose(1, 2).float() - want.float()).abs().max().item()
-        b_ms, b_by = bound(*flash_fb(B, S, S, H, Hkv, D, True, W), BF16_OPS_PER_S)
+        b_ms, b_by = bound(*flash_fb(B, S, S, H, Hkv, D, True, W), "bfloat16")
         r = {"max_abs_err": err[0],
              "ms": cuda_ms(lambda: flash_cuda(qb, kb, vb, True, W), reps=KERNEL_REPS),
              "old_ms": cuda_ms(lambda: flash_sync(qb, kb, vb, True, W), reps=KERNEL_REPS),
@@ -871,7 +955,7 @@ def lm_kernel_times(flash_cuda, flash_sync, flash_plain, flash_fb, rglru_cuda,
             errs.append((check_close(f"{what} B={B} at the path's shape", y, y_ref, BF16_TOL),
                          check_close(f"{what} h_last B={B} at the path's shape", h, h_ref,
                                      STATE_TOL)))
-        b_ms, b_by = bound(*rglru_fb(B, S, N), F32_OPS_PER_S)
+        b_ms, b_by = bound(*rglru_fb(B, S, N), "float32")
         r = {"max_abs_err": errs[0][0][0],
              "ms": cuda_ms(lambda: rglru_cuda(*args), reps=KERNEL_REPS),
              "old_ms": cuda_ms(lambda: rglru_serial(*args), reps=KERNEL_REPS),
@@ -903,7 +987,7 @@ def ssd_kernel_times(ssd_cuda, ssd_plain, ssd_bf16ops, ssd_fb) -> dict:
                           ssd_bf16ops(*args[:6], 128, h0)[0], SSD_BF16OPS_Y_TOL)
     log(f"  ssd against the plain version of its arithmetic: y max abs err {shown(err_ops)} "
         f"(limit {SSD_BF16OPS_Y_TOL})")
-    b_ms, b_by = bound(*ssd_fb(B, S, H, P, N), BF16_OPS_PER_S)
+    b_ms, b_by = bound(*ssd_fb(B, S, H, P, N), "bfloat16")
     return {"design": SSD_DESIGN, "max_abs_err": err[0], "ms": cuda_ms(lambda: ssd_cuda(*args)),
             "plain_ms": cuda_ms(lambda: ssd_plain(x, dt, A, Bm, Cm, D, 128, h0), reps=2),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -1095,6 +1179,7 @@ def main(argv=None) -> int:
     from repro_torch.models import lm
     from repro_torch.models.base import SHAPES, get_config
     from repro_torch.serve import engine
+    from repro_torch.dist import PUBLISHED_H100_SXM, measure_machine_spec
 
     t_start = time.perf_counter()
     # 1. environment
@@ -1104,6 +1189,16 @@ def main(argv=None) -> int:
     log(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    measured = measure_machine_spec("cuda")
+    pub = PUBLISHED_H100_SXM
+    log(f"[1] probe: copy {measured['float32'].peak_bw / 1e12:.4f} TB/s (published "
+        f"{pub['float32'].peak_bw / 1e12:.2f}), f32 matmul 8192^2 TF32 off "
+        f"{measured['float32'].peak_flops / 1e12:.2f} TFLOP/s (published "
+        f"{pub['float32'].peak_flops / 1e12:.0f}), bf16 matmul 8192^2 "
+        f"{measured['bfloat16'].peak_flops / 1e12:.2f} TFLOP/s (published "
+        f"{pub['bfloat16'].peak_flops / 1e12:.0f}); {smi}; "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # 2. build
     t0 = time.perf_counter()
@@ -1163,6 +1258,12 @@ def main(argv=None) -> int:
     segagg_scatter_atomic_cuda.launches = 0
     largest = {}   # query id -> its largest batch in rows on the main path
     models = {}    # query id -> phase 4's measured cost model
+    phase4 = {}    # query id -> (plan, run_plan's aggregate, its launches by kernel)
+    seg_kernels = {"segagg_narrow": segagg_narrow_cuda, "segagg_scatter": segagg_scatter_cuda,
+                   "segagg_scatter_atomic": segagg_scatter_atomic_cuda}
+
+    def seg_counts():
+        return {k: fn.launches for k, fn in seg_kernels.items()}
 
     # 4. single-query path
     log(f"[4] single-query path, {n} files, Planner('single')")
@@ -1185,9 +1286,11 @@ def main(argv=None) -> int:
         plan = Planner(policy="single").schedule(q)
         for size in sorted(set(plan.sch_tuples)):
             run_batched(aq, files[:size], size, sc, device="cuda")
+        before = seg_counts()
         t0 = time.perf_counter()
         result, blog, agg_s = run_plan(aq, files, plan, sc, device="cuda")
         t_run = time.perf_counter() - t0
+        phase4[qid] = (plan, result, diff(seg_counts(), before))
         verdict = check_result(qid, result, oneshot[qid])
         largest[qid] = max(largest.get(qid, 0), max(b.num_records for b in blog))
         finish = finish_time(plan, [b.seconds for b in blog], agg_s)
@@ -1337,8 +1440,6 @@ def main(argv=None) -> int:
 
     # 12. pane-shared scans on the same stream; counts from the first
     # run_shared_jobs to the last
-    seg_kernels = {"segagg_narrow": segagg_narrow_cuda, "segagg_scatter": segagg_scatter_cuda,
-                   "segagg_scatter_atomic": segagg_scatter_atomic_cuda}
     recorder = SegaggRecorder(analytics, ops, segagg_ref, seg_kernels)
     log(f"[12] pane-shared scans: run_shared_jobs over windows {list(SHARED_WINDOWS)} "
         f"(offset, files), llf-dynamic, phase 4's cost models")
@@ -1373,6 +1474,23 @@ def main(argv=None) -> int:
         raise AssertionError("the session path must run through the segagg kernels only")
     for k, v in recorder.launches.items():
         by_phase[k]["13"] = v
+
+    # 15. the device mesh on the same stream; counts over the phase
+    log(f"[15] the device mesh: run_plan over DeviceMesh(['cuda:0']) against phase 4, "
+        f"MeshAnalyticsBackend over 1 and 2 slots of cuda:0 (llf-dynamic, shard_across=W, "
+        f"ShardedCostModel of phase 4's model)")
+    t0 = time.perf_counter()
+    with recorder:
+        for qid in MESH_QUERIES:
+            aq = by_id[qid]
+            mesh_path(aq, streams[aq.stream], arrival, oneshot[qid], models[qid],
+                      phase4[qid], sc, recorder)
+    log(f"  launches {recorder.launches}; plain version on CUDA tensors "
+        f"{recorder.plain_cuda} times; {time.perf_counter() - t0:.1f} s")
+    if min(recorder.launches.values()) <= 0 or recorder.plain_cuda:
+        raise AssertionError("the mesh path must run through the three kernels only")
+    for k, v in recorder.launches.items():
+        by_phase[k]["15"] = v
 
     # 8. LM kernel parity
     del streams, oneshot, rex

@@ -1,13 +1,53 @@
-"""Pure-Python shard extents for pool dispatch.
+"""Pure-Python shard extents for pool dispatch, and divisibility-fallback
+reporting.
 
-Copied from the JAX package's ``repro/dist/sharding.py`` (only the two
-functions that need no JAX): ``core/policies/dynamic.py`` imports them
-lazily whenever a decision is split across pool workers.
+Copied from the JAX package's ``repro/dist/sharding.py`` (only the
+functions that need no JAX): ``core/policies/dynamic.py`` imports the two
+extents functions lazily whenever a decision is split across pool workers;
+``dist/mesh.py`` reports a batch that stays replicated through
+``on_fallback``.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
+
+# Divisibility-fallback listeners: when a batch-like dim stays REPLICATED
+# because the data-parallel axis size does not divide it, every registered
+# listener receives one ``{"kind": "sharding_fallback", ...}`` event dict.
+# Under-sharding is correct but slow (the whole array lands on every
+# device), so it must be reported, not silent — a ``DeviceMesh`` registers
+# a listener and surfaces the events on its trace hook.
+_fallback_listeners: List[Callable[[Dict], None]] = []
+
+
+def on_fallback(listener: Callable[[Dict], None]) -> Callable[[], None]:
+    """Register a divisibility-fallback listener; returns an unsubscribe
+    callable (idempotent)."""
+    _fallback_listeners.append(listener)
+
+    def unsubscribe() -> None:
+        try:
+            _fallback_listeners.remove(listener)
+        except ValueError:
+            pass
+
+    return unsubscribe
+
+
+def _emit_fallback(dim: int, axes: Tuple[str, ...], axis_size: int) -> None:
+    event = {
+        "kind": "sharding_fallback",
+        "dim": dim,
+        "axes": axes,
+        "axis_size": axis_size,
+        "detail": (
+            f"dim {dim} not divisible by axis size {axis_size} "
+            f"({'x'.join(axes)}); dim stays replicated"
+        ),
+    }
+    for listener in tuple(_fallback_listeners):
+        listener(event)
 
 
 def batch_shard_extents(

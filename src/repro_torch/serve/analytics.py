@@ -30,8 +30,13 @@ Under load shedding (a ``ThinnedArrival``) batch offsets arrive in
 KEPT-tuple units; the executor maps them to the underlying file indices and
 weights each sampled record by the inverse keep rate (Horvitz-Thompson).
 
-The knob is ``device=``: the CUDA card unless the caller passes
-``device="cpu"`` (see ``repro_torch.device.resolve_device``).
+The knobs are ``device=``: the CUDA card unless the caller passes
+``device="cpu"`` (see ``repro_torch.device.resolve_device``); and ``mesh=``
+(a ``repro_torch.dist.DeviceMesh``), which sends every scan through the
+sharded path: rows split over the mesh's devices, one segagg per device,
+partials merged on its first device, which is then the executor's device.
+``MeshAnalyticsBackend`` is the pool's worker backend over a mesh, with
+worker clocks from measured wall seconds.
 """
 from __future__ import annotations
 
@@ -59,6 +64,7 @@ from ..core import (
 from ..core.runtime import BaseExecutor, execute_plan
 from ..data.tpch import AnalyticsQuery, StreamScale
 from ..device import DeviceLike, resolve_device
+from ..dist.mesh import MeshBackend
 from ..kernels import _build
 from ..kernels.segagg.ops import pane_segagg, segagg
 
@@ -69,20 +75,42 @@ class BatchResult:
     seconds: float
 
 
+def _executor_device(device: DeviceLike, mesh) -> torch.device:
+    """The device an executor's partials come back on: ``device``, or the
+    first device of ``mesh``; both given, they must agree.  On the card the
+    kernels are built and loaded here, so no timed batch ever pays for the
+    build."""
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        dev = mesh.devices[0]
+        if device is not None:
+            want = resolve_device(device)
+            if want.type != dev.type or (
+                    want.index is not None and want.index != dev.index):
+                raise ValueError(
+                    f"device={want} but the mesh's first device is {dev}")
+    if dev.type == "cuda":
+        _build.build_all()
+    return dev
+
+
 class AnalyticsExecutor:
     """Executes one AnalyticsQuery in intermittent batches on ``device``.
 
-    On the card the kernels are built and loaded here, so no timed batch
-    ever pays for the build."""
+    ``mesh=`` (a ``repro_torch.dist.DeviceMesh``) routes every scan through
+    the sharded path: rows split over the mesh's devices, one segagg per
+    device, partials merged across devices.  Equal to the single-device
+    path for integer-valued f32 (exact under any association); ``mesh=None``
+    is the unsharded path."""
 
     def __init__(self, query: AnalyticsQuery, scale: StreamScale,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         self.query = query
         self.scale = scale
         self.num_groups = query.num_groups(scale)
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            _build.build_all()
+        self.device = _executor_device(device, mesh)
+        self.mesh = mesh
         # Partials keyed by slot (tuple offset when driven by the runtime
         # loop): re-queued stragglers overwrite instead of double-counting.
         self.partials: Dict[int, np.ndarray] = {}
@@ -99,8 +127,11 @@ class AnalyticsExecutor:
         if weights is not None:
             vals = vals * np.asarray(weights, np.float32).reshape(-1, 1)
         t0 = time.perf_counter()
-        part = segagg(torch.from_numpy(keys).to(self.device),
-                      torch.from_numpy(vals).to(self.device), self.num_groups)
+        if self.mesh is not None:
+            part = self.mesh.segagg(keys, vals, self.num_groups)
+        else:
+            part = segagg(torch.from_numpy(keys).to(self.device),
+                          torch.from_numpy(vals).to(self.device), self.num_groups)
         part = part.cpu().numpy()  # spill to host; device buffers released
         dt = time.perf_counter() - t0
         if slot is None:  # sequential mode: next free key, never clobber
@@ -175,10 +206,11 @@ class AnalyticsRuntimeExecutor(BaseExecutor):
         jobs: Dict[str, Tuple[AnalyticsQuery, Sequence[Dict[str, np.ndarray]]]],
         scale: StreamScale,
         device: DeviceLike = None,
+        mesh=None,
     ):
         super().__init__()
         self._jobs = {
-            qid: (AnalyticsExecutor(aq, scale, device), files)
+            qid: (AnalyticsExecutor(aq, scale, device, mesh), files)
             for qid, (aq, files) in jobs.items()
         }
         self.results: Dict[str, np.ndarray] = {}
@@ -251,15 +283,15 @@ class SharedAnalyticsExecutor(BaseExecutor):
         scale: StreamScale,
         book,  # repro_torch.core.panes.SharedBook (shared with the runtime loop)
         device: DeviceLike = None,
+        mesh=None,
     ):
         super().__init__()
         self.aquery = query
         self.files = list(stream_files)
         self.num_groups = query.num_groups(scale)
         self.book = book
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            _build.build_all()
+        self.device = _executor_device(device, mesh)
+        self.mesh = mesh
         # query_id -> {local offset: partial}: straggler-idempotent, like
         # AnalyticsExecutor.partials.
         self._acc: Dict[str, Dict[int, np.ndarray]] = {}
@@ -273,8 +305,11 @@ class SharedAnalyticsExecutor(BaseExecutor):
     def _scan(self, records: Dict[str, np.ndarray]) -> np.ndarray:
         keys = np.asarray(self.aquery.key_fn(records), np.int32)
         vals = np.asarray(self.aquery.value_fn(records), np.float32)
-        part = segagg(self._to_device(keys), self._to_device(vals),
-                      self.num_groups)
+        if self.mesh is not None:
+            part = self.mesh.segagg(keys, vals, self.num_groups)
+        else:
+            part = segagg(self._to_device(keys), self._to_device(vals),
+                          self.num_groups)
         return part.cpu().numpy()
 
     def _scan_panes(self, stream: str, first_pane: int, count: int,
@@ -294,10 +329,15 @@ class SharedAnalyticsExecutor(BaseExecutor):
         pane_of_file = np.repeat(
             np.arange(count, dtype=np.int32), width)[: len(chunk)]
         pane_ids = np.repeat(pane_of_file, sizes).astype(np.int32)
-        parts = pane_segagg(
-            self._to_device(keys), self._to_device(vals),
-            self._to_device(pane_ids), count, self.num_groups,
-        ).cpu().numpy()
+        if self.mesh is not None:
+            parts = self.mesh.pane_segagg(keys, vals, pane_ids, count,
+                                          self.num_groups)
+        else:
+            parts = pane_segagg(
+                self._to_device(keys), self._to_device(vals),
+                self._to_device(pane_ids), count, self.num_groups,
+            )
+        parts = parts.cpu().numpy()
         for j in range(count):
             self.book.store.deposit(stream, first_pane + j, by=by,
                                     data=parts[j])
@@ -371,6 +411,90 @@ class SharedAnalyticsExecutor(BaseExecutor):
         return dt
 
 
+class MeshAnalyticsBackend(MeshBackend):
+    """``repro_torch.dist.mesh.MeshBackend`` over real segagg analytics
+    jobs: one pool worker per mesh slot, worker clocks stitched from
+    MEASURED wall seconds, shard groups run as one mesh call.
+
+    Usage::
+
+        mesh = DeviceMesh(["cuda:0", "cuda:0"])
+        wb = MeshAnalyticsBackend(jobs, scale, mesh)
+        pool = ExecutorPool(worker_backend=wb)
+        run(Planner(policy="llf-dynamic", shard_across=2).policy, specs, pool)
+
+    A dispatch's partial aggregate is kept on the mesh's first device (the
+    host spill is deferred to ``_agg_execute``), and each dispatch returns
+    only when every device of the mesh has finished, so the measured
+    seconds cover the device work.  Partials stay offset-keyed like
+    ``AnalyticsExecutor.partials``: a straggler requeue of a shard group
+    re-runs the covering range and OVERWRITES its slot.
+    """
+
+    def __init__(
+        self,
+        jobs: Dict[str, Tuple[AnalyticsQuery, Sequence[Dict[str, np.ndarray]]]],
+        scale: StreamScale,
+        mesh,  # repro_torch.dist.DeviceMesh
+        names: Optional[Sequence[str]] = None,
+    ):
+        super().__init__(mesh, names)
+        _executor_device(None, mesh)  # builds the kernels on the card
+        self._jobs = {qid: (aq, list(files)) for qid, (aq, files) in jobs.items()}
+        self._groups = {qid: aq.num_groups(scale) for qid, (aq, _) in jobs.items()}
+        # query_id -> {offset: partial on the mesh's first device}.
+        self._partials: Dict[str, Dict[int, torch.Tensor]] = {}
+        self.results: Dict[str, np.ndarray] = {}
+
+    def reset(self, t: float) -> None:
+        super().reset(t)
+        self._partials.clear()
+        self.results.clear()
+
+    # -- physical hooks ----------------------------------------------------
+    def _run_range(self, query: Query, num_tuples: int, offset: int) -> None:
+        aq, files = self._jobs[query.query_id]
+        chunk = files[offset: offset + num_tuples]
+        if not chunk:
+            return
+        records = concat_files(chunk)
+        keys = np.asarray(aq.key_fn(records), np.int32)
+        vals = np.asarray(aq.value_fn(records), np.float32)
+        part = self.mesh.segagg(keys, vals, self._groups[query.query_id])
+        self.mesh.synchronize()  # the measured dt covers the device work
+        self._partials.setdefault(query.query_id, {})[offset] = part
+
+    def _batch_execute(self, query: Query, num_tuples: int, offset: int) -> None:
+        self._run_range(query, num_tuples, offset)
+
+    def _group_execute(
+        self,
+        query: Query,
+        sizes: Tuple[int, ...],
+        base_offset: int,
+        workers: Tuple[str, ...],
+    ) -> None:
+        # ONE mesh call over the covering range: the shard split is
+        # realized by the mesh's own row split (its shard_extents match the
+        # pool's batch_shard_extents), not by per-shard dispatches.
+        self._run_range(query, sum(sizes), base_offset)
+
+    def _agg_execute(self, query: Query, num_batches: int) -> None:
+        parts = self._partials.get(query.query_id, {})
+        if parts:
+            total = np.sum(
+                np.stack([p.cpu().numpy() for p in parts.values()]), axis=0
+            )
+        else:
+            total = np.zeros((self._groups[query.query_id], 1), np.float32)
+        self.results[query.query_id] = total
+
+    def requeue_batch(self, query: Query, num_tuples: int, offset: int) -> None:
+        """Straggler redo: re-run the covering range; the offset-keyed
+        partial overwrites, so no double counting."""
+        self._run_range(query, num_tuples, offset)
+
+
 def _plan_query(query_id: str, num_files: int) -> Query:
     """Untimed stand-in Query for replaying a vetted plan over materialized
     files (all inputs present; modelled costs zero)."""
@@ -387,12 +511,12 @@ def _plan_query(query_id: str, num_files: int) -> Query:
 
 def run_plan(query: AnalyticsQuery, files: Sequence[Dict[str, np.ndarray]],
              plan: Schedule, scale: StreamScale,
-             device: DeviceLike = None
+             device: DeviceLike = None, mesh=None
              ) -> Tuple[np.ndarray, List[BatchResult], float]:
     """Execute a scheduler plan (batch sizes in FILES) against real files
     through the shared runtime loop (strict mode: replay the plan verbatim)."""
     rex = AnalyticsRuntimeExecutor({query.query_id: (query, files)}, scale,
-                                   device)
+                                   device, mesh)
     q = _plan_query(query.query_id, len(files))
     execute_plan(q, plan, rex, strict=True)
     return (
@@ -404,10 +528,11 @@ def run_plan(query: AnalyticsQuery, files: Sequence[Dict[str, np.ndarray]],
 
 def run_batched(query: AnalyticsQuery, files: Sequence[Dict[str, np.ndarray]],
                 batch_files: int, scale: StreamScale,
-                device: DeviceLike = None) -> Tuple[np.ndarray, float, int]:
+                device: DeviceLike = None,
+                mesh=None) -> Tuple[np.ndarray, float, int]:
     """Process in fixed-size batches of ``batch_files``; returns
     (result, total_seconds incl. final agg, num_batches)."""
-    ex = AnalyticsExecutor(query, scale, device)
+    ex = AnalyticsExecutor(query, scale, device, mesh)
     for i in range(0, len(files), batch_files):
         ex.process_batch(concat_files(files[i:i + batch_files]))
     result, agg_s = ex.finalize()
@@ -427,6 +552,7 @@ def run_session(
     policy: str = "llf-dynamic",
     calibrate: bool = True,
     device: DeviceLike = None,
+    mesh=None,
     forecast=None,
     latency_target: Optional[float] = None,
     tenant: Optional[str] = None,
@@ -495,7 +621,7 @@ def run_session(
         rspec.window_query(w).query_id: (query, list(files))
         for w, files in enumerate(windows)
     }
-    executor = AnalyticsRuntimeExecutor(jobs, scale, device)
+    executor = AnalyticsRuntimeExecutor(jobs, scale, device, mesh)
     session = Session(policy=policy, executor=executor, calibrate=calibrate,
                       forecast=forecast, **session_kw)
     session.submit(rspec)
@@ -520,6 +646,7 @@ def run_shared_jobs(
     pane_tuples: Optional[int] = None,
     deadline_frac: float = 3.0,
     device: DeviceLike = None,
+    mesh=None,
     **policy_params,
 ):
     """Overlapping GROUP-BY windows over ONE real stream, end to end.
@@ -564,7 +691,7 @@ def run_shared_jobs(
     else:
         specs, book = qs, SharedBook(pane_tuples=pane_tuples)
     executor = SharedAnalyticsExecutor(query, files, scale, book,
-                                       device=device)
+                                       device=device, mesh=mesh)
     trace = run_loop(pol, specs, executor,
                      sharing=book if share else None)
     if share:
@@ -576,18 +703,19 @@ def measure_cost_model(query: AnalyticsQuery,
                        files: Sequence[Dict[str, np.ndarray]],
                        scale: StreamScale,
                        batch_sizes: Sequence[int] = (1, 4, 16, 64),
-                       device: DeviceLike = None) -> CostModelBase:
+                       device: DeviceLike = None,
+                       mesh=None) -> CostModelBase:
     """§6.2 calibration: measure execution time vs batch size, fit the
-    piecewise-linear model (file units).  Calibrate on the device the
-    queries will run on: the model describes that device's wall clock."""
+    piecewise-linear model (file units).  Calibrate on the device (or the
+    mesh) the queries will run on: the model describes its wall clock."""
     samples = []
     agg_samples = [(1, 0.0)]
     for bs in batch_sizes:
         bs = min(bs, len(files))
         # warmup: the first batches of a shape fill the allocator's cache
         # (the kernels themselves were built before any timed call)
-        run_batched(query, files[:bs], bs, scale, device)
-        ex = AnalyticsExecutor(query, scale, device)
+        run_batched(query, files[:bs], bs, scale, device, mesh)
+        ex = AnalyticsExecutor(query, scale, device, mesh)
         reps = max(3, min(8, len(files) // bs))
         for i in range(reps):
             lo = (i * bs) % max(len(files) - bs, 1)
@@ -597,7 +725,7 @@ def measure_cost_model(query: AnalyticsQuery,
     # final-agg cost vs #batches
     for nb in (2, 8, 32):
         per = max(len(files) // nb, 1)
-        ex = AnalyticsExecutor(query, scale, device)
+        ex = AnalyticsExecutor(query, scale, device, mesh)
         for i in range(nb):
             ex.process_batch(concat_files(files[i * per: (i + 1) * per] or
                                           files[:1]))

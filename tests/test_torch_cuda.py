@@ -192,6 +192,48 @@ class TestPaneSegaggOnCard:
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.cuda
+class TestDeviceMeshOnCard:
+    """``DeviceMesh(["cuda:0"] * 2)``: two shards of one card, each on its
+    slot's stream, merged on the card; one launch of the route's kernel a
+    shard, against the plain version.  Run twice, so a partial freed or
+    reused before the merge read it would show as a wrong sum."""
+
+    @pytest.mark.parametrize("g, kernel", [
+        (5, segagg_narrow_cuda),
+        (360_000, segagg_scatter_cuda),
+        (1_500_000, segagg_scatter_atomic_cuda),
+    ])
+    @pytest.mark.parametrize("n", [1, 1_000_001])
+    def test_two_slots_on_one_card(self, cuda, g, kernel, n):
+        from repro_torch.dist import DeviceMesh
+
+        mesh = DeviceMesh(["cuda:0"] * 2)
+        keys, vals = _inputs(n, g, 1, seed=g + n)
+        k, x = torch.from_numpy(keys), torch.from_numpy(np.abs(vals))
+        ones = torch.ones_like(x)
+        want = segagg_ref(k, ones, g).to(cuda)
+        for _ in range(2):
+            before = kernel.launches
+            got = mesh.segagg(keys, np.ones_like(vals), g)
+            assert kernel.launches == before + 2
+            assert got.device == torch.device("cuda", 0)
+            assert torch.equal(got, want)
+        got = mesh.segagg(k.to(cuda), x.to(cuda), g).double()
+        torch.testing.assert_close(got, segagg_ref(k, x.double(), g).to(cuda),
+                                   rtol=1e-4, atol=1e-4)
+
+    def test_one_slot_is_the_single_device_op(self, cuda):
+        from repro_torch.dist import DeviceMesh
+
+        keys, vals = _inputs(100_003, 360_000, 1, seed=4)
+        before = segagg_scatter_cuda.launches
+        got = DeviceMesh(["cuda:0"]).segagg(keys, np.ones_like(vals), 360_000)
+        assert segagg_scatter_cuda.launches == before + 1
+        k = torch.from_numpy(keys)
+        assert torch.equal(got.cpu(), segagg_ref(k, torch.ones((k.shape[0], 1)), 360_000))
+
+
 # -- flash attention and RG-LRU ----------------------------------------------
 
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402

@@ -54,7 +54,9 @@ def test_scan_covers_the_port():
                    "core/tenancy.py", "core/overload.py", "core/forecast.py",
                    "core/simulator.py", "core/panes.py", "core/session.py",
                    "core/_deprecation.py", "core/constraints.py",
-                   "core/single_query.py", "core/multi_query.py"):
+                   "core/single_query.py", "core/multi_query.py",
+                   "dist/mesh.py", "dist/roofline.py", "dist/machine.py",
+                   "dist/sharding.py"):
         assert f"src/repro_torch/{module}" in names
     assert len(FILES) >= 50
 

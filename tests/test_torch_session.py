@@ -534,14 +534,37 @@ def admission_jobs(engine, core):
     return jobs, cm
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the port's prefill while the test runs: with
+    one per core in each of several test processes, a batch that takes
+    10 ms alone took up to 2.2 s, past the test's ``c_max``."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("calibrate", [False, True])
-def test_serve_session_matches_reference(calibrate):
+def test_serve_session_matches_reference(calibrate, one_torch_thread):
     out = []
     for (engine, ex), core in zip(prefill_executors(), (R, T)):
+        # Every bucket at SEQ once before the session, as the engine's
+        # ``calibrate`` does: the reference's first call of a bucket times
+        # its jit compile, which can pass c_max and re-queue the batch.
+        for b in ex.buckets:
+            ex.run_batch(np.zeros((b, SEQ), np.int32))
         jobs, cm = admission_jobs(engine, core)
         report, session = engine.serve_session(
             jobs, ex, cm, policy="llf-dynamic", submit_times=[0.0, 3.0, 1.0],
             calibrate=calibrate, c_max=2.0)
+        assert session.trace.stragglers == [], (
+            f"{engine.__name__}: a prefill batch took longer than c_max=2.0 s "
+            f"of wall time: {session.trace.stragglers}")
         out.append((jobs, report, session))
     (jjobs, want, wsession), (tjobs, got, tsession) = out
     assert set(got) == set(want) == {"j0", "j1", "hopeless"}
