@@ -195,7 +195,6 @@ SESSION_FILES = 1500        # phase 13: three tumbling windows of the stream
 # cost(n) units, submit instant s); the last one's deadline lies below the
 # cost(1) its final prompt needs after the window closes.
 MESH_QUERIES = ("CQ3", "CQ4", "TPC-Q6-like")   # phase 15: the three segagg routes
-MESH_SLACK = 0.6            # phase 15's deadline: wind_end + 0.6 * cost(n), as phase 4's
 ADMISSION_JOBS = (("feasible-4", 4, 0.0, 10.0, 2.0, 0.0),
                   ("feasible-6", 6, 5.0, 10.0, 2.0, 5.0),
                   ("infeasible", 3, 2.0, 10.0, None, 2.0))
@@ -802,7 +801,7 @@ def mesh_path(aq, files, arrival, oneshot, model, phase4, sc, rec) -> None:
     from repro_torch.serve.analytics import MeshAnalyticsBackend, run_plan
 
     qid, n = aq.query_id, len(files)
-    plan, want, want_launches = phase4
+    q4, plan, want, want_launches = phase4
     before = rec.counts()
     t0 = time.perf_counter()
     got, blog, _ = run_plan(aq, files, plan, sc, mesh=DeviceMesh(["cuda:0"]))
@@ -813,12 +812,11 @@ def mesh_path(aq, files, arrival, oneshot, model, phase4, sc, rec) -> None:
                              f"phase 4's run_plan {want_launches}")
     log(f"  {qid:12s} run_plan, mesh ['cuda:0']: {len(blog)} batches, {wall:.2f} s wall, "
         f"launches {launched} (phase 4: the same); {same_as(qid, got, want, 'phase 4')}")
-    deadline = arrival.wind_end + MESH_SLACK * model.cost(n)
     for ways in (1, 2):
         mesh = DeviceMesh(["cuda:0"] * ways)
         wb = MeshAnalyticsBackend({qid: (aq, files)}, sc, mesh)
         cm = core.ShardedCostModel(model, ways) if ways > 1 else model
-        q = core.Query(qid, arrival.wind_start, arrival.wind_end, deadline, n, cm, arrival)
+        q = core.Query(qid, arrival.wind_start, arrival.wind_end, q4.deadline, n, cm, arrival)
         before = rec.counts()
         t0 = time.perf_counter()
         trace = core.run(core.get_policy("llf-dynamic", shard_across=ways), [q],
@@ -1258,7 +1256,7 @@ def main(argv=None) -> int:
     segagg_scatter_atomic_cuda.launches = 0
     largest = {}   # query id -> its largest batch in rows on the main path
     models = {}    # query id -> phase 4's measured cost model
-    phase4 = {}    # query id -> (plan, run_plan's aggregate, its launches by kernel)
+    phase4 = {}    # query id -> (query, plan, run_plan's aggregate, its launches by kernel)
     seg_kernels = {"segagg_narrow": segagg_narrow_cuda, "segagg_scatter": segagg_scatter_cuda,
                    "segagg_scatter_atomic": segagg_scatter_atomic_cuda}
 
@@ -1290,7 +1288,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         result, blog, agg_s = run_plan(aq, files, plan, sc, device="cuda")
         t_run = time.perf_counter() - t0
-        phase4[qid] = (plan, result, diff(seg_counts(), before))
+        phase4[qid] = (q, plan, result, diff(seg_counts(), before))
         verdict = check_result(qid, result, oneshot[qid])
         largest[qid] = max(largest.get(qid, 0), max(b.num_records for b in blog))
         finish = finish_time(plan, [b.seconds for b in blog], agg_s)

@@ -2,8 +2,8 @@
 roofline utilities.
 
 * ``sharding`` — the scheduler's 1-D batch splits (``batch_shard_extents``
-                 / ``weighted_shard_extents``) and divisibility-fallback
-                 reporting (``on_fallback``), copied from the JAX package.
+                 / ``weighted_shard_extents``) and the divisibility-fallback
+                 event (``fallback_event``), copied from the JAX package.
 * ``mesh``     — ``DeviceMesh``/``MeshBackend``: real multi-device
                  execution of the scheduler's shard dispatch (segagg shards
                  on per-slot CUDA streams, merged on the first device;
@@ -11,13 +11,13 @@ roofline utilities.
 * ``roofline`` — compute/memory/collective roofline record, HLO collective
                  parser and ``KernelRooflineManager`` (a byte-identical copy
                  of the JAX package's module).
-* ``machine``  — the H100's published peaks, a measured copy and matmul
-                 probe, and the roof of a mesh.
+* ``machine``  — the H100's published peaks and a measured copy and
+                 matmul probe.
 
 The JAX package's ``context`` module and its partition-spec functions are
 bound to XLA and are not ported.
 """
-from .machine import PUBLISHED_H100_SXM, measure_machine_spec, mesh_spec
+from .machine import PUBLISHED_H100_SXM, measure_machine_spec
 from .mesh import DeviceMesh, MeshBackend
 from .roofline import (
     CollectiveStats,
@@ -26,7 +26,7 @@ from .roofline import (
     Roofline,
     parse_collectives,
 )
-from .sharding import batch_shard_extents, on_fallback, weighted_shard_extents
+from .sharding import batch_shard_extents, weighted_shard_extents
 
 __all__ = [
     "CollectiveStats",
@@ -38,8 +38,6 @@ __all__ = [
     "Roofline",
     "batch_shard_extents",
     "measure_machine_spec",
-    "mesh_spec",
-    "on_fallback",
     "parse_collectives",
     "weighted_shard_extents",
 ]

@@ -1,7 +1,7 @@
 """The card's roofs: published peaks and a measured probe.
 
-The torch twins of the JAX package's ``benchmarks/bench_roofline.py``
-``measure_machine_spec`` and ``mesh_spec``:
+The torch twin of the JAX package's ``benchmarks/bench_roofline.py``
+``measure_machine_spec``:
 
 * ``PUBLISHED_H100_SXM`` — NVIDIA's data-sheet peaks of one H100 SXM
   (dense, at its full 700 W power limit), one ``MachineSpec`` per dtype:
@@ -12,8 +12,6 @@ The torch twins of the JAX package's ``benchmarks/bench_roofline.py``
   ``a @ a`` in float32 (TF32 off, the reference's dtype) and in bf16, timed
   with CUDA events after a warm-up.  A reading printed beside the published
   peaks, not a roof to grade against.
-* ``mesh_spec`` — the roof of a ``DeviceMesh``: the per-device spec scaled
-  by the number of DISTINCT cards in it.
 """
 from __future__ import annotations
 
@@ -81,11 +79,3 @@ def measure_machine_spec(device: DeviceLike = None, *,
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     return out
-
-
-def mesh_spec(spec: MachineSpec, mesh) -> MachineSpec:
-    """The roof of ``mesh`` (a ``DeviceMesh``): ``spec`` scaled by the number
-    of distinct CUDA devices in it.  A card listed twice is one roof, and
-    CPU slots share one host, whose measured rate already is the whole."""
-    cards = {d for d in mesh.devices if d.type == "cuda"}
-    return spec.scaled(len(cards)) if len(cards) > 1 else spec

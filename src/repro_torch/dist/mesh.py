@@ -33,7 +33,7 @@ import torch
 from ..core.runtime import Dispatch, WorkerBackend
 from ..device import resolve_device
 from ..kernels.segagg import ops
-from .sharding import _emit_fallback, batch_shard_extents, on_fallback
+from .sharding import batch_shard_extents, fallback_event
 
 DeviceSpec = Union[str, torch.device]
 
@@ -132,18 +132,13 @@ class DeviceMesh:
             raise ValueError(f"a batch array has rank >= 1, got {ndim}")
         d = self.num_devices
         if batch_rows % d:
-            unsub = on_fallback(self._emit)
-            try:
-                _emit_fallback(batch_rows, ("data",), d)
-            finally:
-                unsub()
+            self._emit(fallback_event(batch_rows, ("data",), d))
             return None
         rows = batch_rows // d
         return tuple((i * rows, rows) for i in range(d))
 
     # -- sharded kernels ---------------------------------------------------
-    def segagg(self, keys, values, num_groups: int, *,
-               backend: Optional[str] = None) -> torch.Tensor:
+    def segagg(self, keys, values, num_groups: int) -> torch.Tensor:
         """GROUP-BY partial aggregation sharded across the mesh: rows split
         over the devices, one ``ops.segagg`` per device on its slot's
         stream, partials merged on the first device.  Bit-compatible with
@@ -156,8 +151,7 @@ class DeviceMesh:
         dev0 = self.devices[0]
         D = self.num_devices
         if D == 1:
-            return ops.segagg(keys.to(dev0), values.to(dev0), num_groups,
-                              backend=backend)
+            return ops.segagg(keys.to(dev0), values.to(dev0), num_groups)
         keys = keys.to(torch.int32)
         N, V = keys.shape[0], values.shape[1]
         Np = -(-max(N, 1) // D) * D
@@ -174,16 +168,14 @@ class DeviceMesh:
         for i, (dev, stream) in enumerate(zip(self.devices, self._streams)):
             k, v = keys[i * rows:(i + 1) * rows], values[i * rows:(i + 1) * rows]
             if stream is None:
-                parts.append(ops.segagg(k.to(dev), v.to(dev), num_groups,
-                                        backend=backend).to(dev0))
+                parts.append(ops.segagg(k.to(dev), v.to(dev), num_groups).to(dev0))
                 continue
             # The slot's stream starts after the caller's work on its device
             # (the inputs may come from it), runs the shard and moves the
             # partial to the first device; the caller waits on its event.
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
-                part = ops.segagg(k.to(dev), v.to(dev), num_groups,
-                                  backend=backend).to(dev0)
+                part = ops.segagg(k.to(dev), v.to(dev), num_groups).to(dev0)
                 event = torch.cuda.Event()
                 event.record(stream)
             parts.append(part)
@@ -196,8 +188,7 @@ class DeviceMesh:
         return ops.merge_panes(torch.stack(parts))
 
     def pane_segagg(self, keys, values, pane_ids, num_panes: int,
-                    num_groups: int, *,
-                    backend: Optional[str] = None) -> torch.Tensor:
+                    num_groups: int) -> torch.Tensor:
         """Pane-partial aggregation sharded across the mesh, via the same
         composite-key reduction as the single-device op: (N,) keys +
         pane_ids -> (num_panes, num_groups, V) per-pane group sums."""
@@ -207,7 +198,7 @@ class DeviceMesh:
         total = ops.pane_composite_groups(num_panes, num_groups)
         composite = (_tensor(pane_ids).to(torch.int32) * num_groups
                      + _tensor(keys).to(torch.int32))
-        flat = self.segagg(composite, values, total, backend=backend)
+        flat = self.segagg(composite, values, total)
         return flat.reshape(num_panes, num_groups, values.shape[1])
 
 

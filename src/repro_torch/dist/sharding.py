@@ -1,42 +1,25 @@
-"""Pure-Python shard extents for pool dispatch, and divisibility-fallback
-reporting.
+"""Pure-Python shard extents for pool dispatch, and the divisibility-fallback
+event.
 
 Copied from the JAX package's ``repro/dist/sharding.py`` (only the
 functions that need no JAX): ``core/policies/dynamic.py`` imports the two
 extents functions lazily whenever a decision is split across pool workers;
-``dist/mesh.py`` reports a batch that stays replicated through
-``on_fallback``.
+``dist/mesh.py`` reports a batch that stays replicated with
+``fallback_event``.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Sequence, Tuple
-
-# Divisibility-fallback listeners: when a batch-like dim stays REPLICATED
-# because the data-parallel axis size does not divide it, every registered
-# listener receives one ``{"kind": "sharding_fallback", ...}`` event dict.
-# Under-sharding is correct but slow (the whole array lands on every
-# device), so it must be reported, not silent — a ``DeviceMesh`` registers
-# a listener and surfaces the events on its trace hook.
-_fallback_listeners: List[Callable[[Dict], None]] = []
+from typing import Dict, Sequence, Tuple
 
 
-def on_fallback(listener: Callable[[Dict], None]) -> Callable[[], None]:
-    """Register a divisibility-fallback listener; returns an unsubscribe
-    callable (idempotent)."""
-    _fallback_listeners.append(listener)
-
-    def unsubscribe() -> None:
-        try:
-            _fallback_listeners.remove(listener)
-        except ValueError:
-            pass
-
-    return unsubscribe
-
-
-def _emit_fallback(dim: int, axes: Tuple[str, ...], axis_size: int) -> None:
-    event = {
+def fallback_event(dim: int, axes: Tuple[str, ...], axis_size: int) -> Dict:
+    """The ``sharding_fallback`` event of a batch-like dim that stays
+    REPLICATED because the data-parallel axis size does not divide it: the
+    dict the JAX package's ``_emit_fallback`` sends to its listeners.
+    Under-sharding is correct but slow (the whole array lands on every
+    device), so it is reported, not silent."""
+    return {
         "kind": "sharding_fallback",
         "dim": dim,
         "axes": axes,
@@ -46,8 +29,6 @@ def _emit_fallback(dim: int, axes: Tuple[str, ...], axis_size: int) -> None:
             f"({'x'.join(axes)}); dim stays replicated"
         ),
     }
-    for listener in tuple(_fallback_listeners):
-        listener(event)
 
 
 def batch_shard_extents(

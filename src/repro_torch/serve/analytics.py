@@ -439,7 +439,8 @@ class MeshAnalyticsBackend(MeshBackend):
         names: Optional[Sequence[str]] = None,
     ):
         super().__init__(mesh, names)
-        _executor_device(None, mesh)  # builds the kernels on the card
+        if mesh.devices[0].type == "cuda":
+            _build.build_all()
         self._jobs = {qid: (aq, list(files)) for qid, (aq, files) in jobs.items()}
         self._groups = {qid: aq.num_groups(scale) for qid, (aq, _) in jobs.items()}
         # query_id -> {offset: partial on the mesh's first device}.

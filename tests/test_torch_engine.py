@@ -72,12 +72,34 @@ def test_single_job_matches_reference(arch):
                                np.concatenate(jjob.results), **TOL)
 
 
-def test_multi_jobs_llf_matches_reference():
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the port's prefill while the test runs: with
+    one per core in each of several test processes, a batch can pass the
+    test's wall-clock ``c_max``."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def test_multi_jobs_llf_matches_reference(one_torch_thread):
     jex, tex = _executors("recurrentgemma_9b")
+    # Every bucket at SEQ once first: the reference's first call of a bucket
+    # times its jit compile, which can pass c_max and re-queue the batch.
+    for ex in (jex, tex):
+        for b in ex.buckets:
+            ex.run_batch(np.zeros((b, SEQ), np.int32))
     jjobs, jcm = _jobs(RE, R, (6, 10), seed=1)
     tjobs, tcm = _jobs(TE, T, (6, 10), seed=1)
     want = RE.serve_multi_jobs(jjobs, jex, jcm, R.Strategy.LLF, delta_rsf=0.5, c_max=2.0)
     got = TE.serve_multi_jobs(tjobs, tex, tcm, T.Strategy.LLF, delta_rsf=0.5, c_max=2.0)
+    for name, report in (("reference", want), ("port", got)):
+        assert all(r["straggler_events"] == 0 for r in report.values()), (
+            f"{name}: a prefill batch took longer than c_max=2.0 s of wall "
+            f"time: {report}")
     assert set(got) == set(want)
     for jid in want:
         _same_report(got[jid], want[jid])

@@ -23,7 +23,7 @@ from repro.dist.sharding import batch_shard_extents as r_extents
 from repro.kernels.segagg import ops as rops
 from repro.serve import analytics as RA
 from repro_torch.data import tpch as TT
-from repro_torch.dist import DeviceMesh, MeshBackend, on_fallback
+from repro_torch.dist import DeviceMesh, MeshBackend
 from repro_torch.dist import mesh as tmesh
 from repro_torch.kernels.segagg.ref import pane_segagg_ref, segagg_ref
 from repro_torch.serve import analytics as TA
@@ -79,14 +79,14 @@ def test_non_divisible_rows_fall_back_with_the_reference_event(d):
     assert len(want) == 1 and want[0]["kind"] == "sharding_fallback"
 
 
-def test_on_fallback_unsubscribe():
-    events = []
-    unsub = on_fallback(events.append)
-    cpu_mesh(2).batch_sharding(7, 1)
-    unsub()
-    unsub()  # idempotent
-    cpu_mesh(2).batch_sharding(7, 1)
-    assert [e["dim"] for e in events] == [7]
+def test_fallback_events_stay_with_their_mesh():
+    seen = []
+    two, three = cpu_mesh(2, on_event=seen.append), cpu_mesh(3)
+    assert two.batch_sharding(7, 1) is None
+    assert three.batch_sharding(7, 1) is None
+    assert two.batch_sharding(8, 1) == ((0, 4), (4, 4))
+    assert [e["axis_size"] for e in seen] == [e["axis_size"] for e in two.events] == [2]
+    assert [e["axis_size"] for e in three.events] == [3]
 
 
 # -- segagg and pane_segagg ---------------------------------------------------

@@ -1,8 +1,8 @@
 """The port's roofline module (``repro_torch.dist.roofline``, a copy of the
 JAX package's) and the card's peaks (``repro_torch.dist.machine``), on the
 CPU: the copy is byte-identical and gives equal results on equal inputs;
-the published peaks are the H100 SXM data sheet's; the probe runs at a
-small size on the host, and a mesh's roof counts distinct cards."""
+the published peaks are the H100 SXM data sheet's and bound a kernel's work
+as the card check counts it; the probe runs at a small size on the host."""
 import dataclasses
 import math
 import pathlib
@@ -112,20 +112,16 @@ def test_probe_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
         machine.measure_machine_spec()
 
 
-class _Mesh:
-    def __init__(self, *devices):
-        self.devices = tuple(torch.device(d) for d in devices)
-
-
-@pytest.mark.parametrize("devices, scale", [
-    (("cpu",) * 4, 1),                      # host slots share one host
-    (("cuda:0",), 1),
-    (("cuda:0", "cuda:0"), 1),              # one card listed twice: one roof
-    (("cuda:0", "cuda:1"), 2),
-    (("cuda:0", "cuda:1", "cuda:1", "cuda:3"), 3),
+@pytest.mark.parametrize("dtype, flops, nbytes, bound_s", [
+    ("float32", 0.0, 3.35e9, 1e-3),           # bytes only
+    ("float32", 67e9, 0.0, 1e-3),             # operations only
+    ("float32", 67e9, 6.7e9, 2e-3),           # bytes bound
+    ("bfloat16", 989e9, 3.35e9, 1e-3),        # a tie
+    ("bfloat16", 9.89e12, 3.35e9, 1e-2),      # operations bound
 ])
-def test_mesh_spec_counts_distinct_cards(devices, scale):
-    spec = machine.PUBLISHED_H100_SXM["bfloat16"]
-    got = machine.mesh_spec(spec, _Mesh(*devices))
-    assert got == spec.scaled(scale)
-    assert got.devices == scale
+def test_published_peaks_bound_the_work(dtype, flops, nbytes, bound_s):
+    """The least time of a kernel's work at the data-sheet peaks, as the
+    card check computes its ``bound_ms``: the larger of bytes over 3.35 TB/s
+    and operations over the dtype's peak."""
+    roof = TR.KernelRooflineManager(machine.PUBLISHED_H100_SXM[dtype]).get_roofline({"flops": flops, "bytes": nbytes, "seconds": 0.0})
+    assert roof["bound_s"] == pytest.approx(bound_s, rel=1e-12)
