@@ -42,11 +42,16 @@ Phases (any failure exits non-zero and prints no result line):
    reading); then the narrow/scatter crossover table behind
    ``tuning.MATMUL_MAX_G``;
 8. LM kernel parity: the flash-attention kernel (causal or not, window,
-   soft-cap, GQA and MQA, ragged S, D in {64, 128, 256}), the RG-LRU
+   soft-cap, GQA and MQA, ragged S, D in {64, 128, 256}; then prefill
+   continuations, Sq < Sk with ``q_offset = Sk - Sq``, causal with and
+   without a window, ragged per-row ``kv_valid_len`` of at least 1, D in
+   {128, 256}, GQA and MQA: the rows that see a key against the plain
+   version, the rows that see none exactly zero), the RG-LRU
    kernel (ragged S and N, B in {1, 8}) and the SSD kernel (B in {1, 2, 8},
    ragged S, with and without h0, B and C head-shared by stride 0 or per
    head, mamba2's H 32, P 64, N 128 and a smaller set, bf16 and f32)
-   against their plain versions on the card, taken in f32;
+   against their plain versions on the card, taken in f32 (flash: on its
+   bf16 inputs, which it pre-scales in bf16 as the kernel does);
 9. the serving path (the main path, part 3) at recurrentgemma-9b's full
    width and depth (10,444,664,832 bf16 parameters from ``--seed``):
    ``PrefillExecutor`` with buckets (1, 2, 4, 8) over prompts of 4,096
@@ -66,12 +71,15 @@ Phases (any failure exits non-zero and prints no result line):
    each batch size of the serving path (B in 1, 2, 4, 8), each held
    against the plain version together with the earlier design it
    replaced (``flash_attention_sync_cuda``, ``rglru_serial_cuda``), the
-   two times, ``scaled_dot_product_attention``'s (flash) and the bound,
-   and the plain version's time at B = 8; the SSD at B = 8 against the
+   two times, ``scaled_dot_product_attention``'s (flash), the plain
+   version's and the bound; the SSD at B = 8 against the
    plain version, kernel and plain times beside the bound; the bf16 SSD
    kernel also against the plain version of its own
    arithmetic (``ssd_chunked_bf16ops_ref``), and its time beside that of
-   the earlier f32 CUDA-core kernel at the same shape;
+   the earlier f32 CUDA-core kernel at the same shape; the flash kernel
+   also at a continuation shape (olmoe-1b-7b's heads, 512 new queries
+   after 4,096 keys, full and ragged valid lengths) beside its plain
+   version and bound;
 11. the serving path (the main path, part 4) at mamba2-370m's full width
    and depth (368,178,688 bf16 parameters from ``--seed``, 48 SSM layers):
    the same entry points over prompts of 32,768 tokens (``prefill_32k``'s
@@ -119,9 +127,39 @@ Phases (any failure exits non-zero and prints no result line):
    aggregate against its float64 one-shot, W = 2 with at least one fused
    shard group; wall seconds, batches and launches by route are readings.
 
+16. the serving path (the main path, part 5) at olmoe-1b-7b's full width
+   and depth (6,919,096,320 bf16 parameters from ``--seed``, 16 ``moe``
+   layers, 64 experts, top-8): ``PrefillExecutor`` with buckets (1, 2, 4,
+   8) over prompts of 4,096 tokens (two routing groups of 2,048),
+   ``calibrate``, ``serve_single_job`` and ``serve_multi_jobs`` as in
+   phase 9; logits finite and (n, 50304), 16 flash launches per prefill
+   call, plain versions never called on a CUDA tensor; one batch of 8
+   with the plain flash swapped in at 2 layers of the same weights within
+   a relative L2 error of 5e-2 of the kernels' (16 layers reported); the
+   token-choices dropped by capacity, the card's peak memory and the batch
+   walls are readings;
+17. decode on each LM while its phase holds it (recurrentgemma-9b after
+   phase 14, mamba2-370m after phase 11, olmoe-1b-7b after phase 16):
+   at full depth, 8 prompts of the phase's length prefilled into a cache
+   of P + 32, then 32 greedy ``CausalLM.decode_step`` calls: logits finite
+   and (8, 1, V), no kernel launched and no plain version called on a
+   CUDA tensor by the steps; ms a step and tokens/s are readings. Then
+   teacher-forced at the phase's gate depth (3, 8 and 2 layers), 2 rows,
+   8 steps: each step's logits against the last logits of a prefill of
+   the same P + t + 1 tokens (recurrentgemma's P exceeds its window, so
+   the ring has wrapped; olmoe takes ``capacity_factor = num_experts`` and
+   P = 512, one routing group, so that nothing is dropped). The gate, a
+   relative L2 error of at most 5e-4 at every step (the JAX package's
+   prefill/decode tolerance), runs in f32 weights
+   (the RG-LRU and SSD kernels in f32, the plain flash version, since the
+   kernel takes bf16 only); the bf16 kernel path is reported: its seeded
+   attention is nearly one-hot (scores up to about 5,000), and a bf16
+   rounding that differs between a one-token and a whole-prompt
+   projection flips near-ties.
+
 Phases 12-15 count their launches apart from phases 4-5 (phase 6's counts)
 and the serving paths; the result line carries them under
-``launches_by_phase``.
+``launches_by_phase`` (flash's ``launches`` is phases 9 and 16 together).
 
 Each parity line prints the largest absolute error and its worst ratio to
 the ``torch.allclose`` limit ``atol + rtol |want|`` (the check passes up to
@@ -156,7 +194,9 @@ CALIBRATION_FILES = (1, 4, 16, 64, 256, 1024, 2048, 3072)
 CROSSOVER_GROUPS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096,
                     8192, 12288)
 # LM kernels: bf16 output against the plain version in f32 (bf16 rounds the
-# inputs, p and the output); the RG-LRU state stays f32 in both.
+# inputs, p and the output); the RG-LRU state stays f32 in both.  The flash
+# kernel scales q and rounds it to bf16 first, as the JAX layer does, so its
+# plain version takes the same bf16 inputs (f32 arithmetic inside).
 BF16_TOL = 2e-2
 STATE_TOL = 2e-4
 LOGITS_REL_L2 = 5e-2        # kernel path against plain path, full width
@@ -184,6 +224,24 @@ KERNEL_REPS = 20            # phase 10's launches per timing of those two (0.07-
 SSM_ARCH = "mamba2_370m"
 SSM_SEQ = 32768             # models/base.py SHAPES["prefill_32k"].seq_len
 SSM_SWAP_BATCH = 2          # the plain SSD's f32 intermediates at 48 layers
+MOE_ARCH = "olmoe_1b_7b"
+MOE_SEQ = 4096              # two routing groups of 2,048 a prompt
+MOE_GATE_UNITS = 2
+RG_GATE_UNITS = 1           # one (rglru, rglru, attn) unit: 3 layers
+DECODE_STEPS = 32           # phase 17 at full depth, greedy
+TF_BATCH, TF_STEPS = 2, 8   # phase 17's teacher-forced gate
+MOE_TF_SEQ = 512            # one routing group: olmoe's teacher-forced prompt
+# Phase 17's f32 gate: the JAX package's own prefill/decode tolerance
+# (tests/test_arch_smoke.py), here on the logits' relative L2 error.
+DECODE_F32_REL_L2 = 5e-4
+# Phase 8, prefill continuations: (B, Sq, Sk, H, Hkv, D, causal, window,
+# ragged kv_valid_len); q_offset = Sk - Sq.
+CONTINUATIONS = ((2, 333, 1000, 16, 2, 128, True, 0, False),
+                 (3, 200, 1500, 16, 1, 256, True, 512, True),
+                 (2, 128, 4224, 16, 16, 128, True, 0, True),
+                 (4, 1, 777, 8, 2, 128, True, 0, True),
+                 (2, 500, 2500, 16, 1, 256, True, 2048, False),
+                 (2, 300, 900, 8, 8, 128, False, 0, True))
 # examples/multi_query_serving.py's jobs: (prompts, window s, slack)
 MULTI_JOBS = ((24, 30.0, 3.0), (16, 20.0, 2.0), (32, 40.0, 2.5))
 # Phase 12: benchmarks/bench_shared_panes.py's sliding regime at the paper's
@@ -420,7 +478,7 @@ def lm_kernel_parity(flash_cuda, flash_plain, rglru_cuda, rglru_plain) -> None:
         k = randn(B, S, Hkv, D, scale=sc).bfloat16()
         v = randn(B, S, Hkv, D).bfloat16()
         got = flash_cuda(q, k, v, causal, window, cap)
-        want = flash_plain(q.float(), k.float(), v.float(), causal, window, cap)
+        want = flash_plain(q, k, v, causal, window, cap)
         err = check_close(f"flash B={B} S={S} H={H}/{Hkv} D={D}", got, want, BF16_TOL)
         log(f"  parity flash_attention B={B} S={S:>4} H={H:>2} Hkv={Hkv} D={D:>3} "
             f"causal={causal!s:5} window={window:>4} cap={cap:>4}: max abs err {shown(err)}")
@@ -439,6 +497,33 @@ def lm_kernel_parity(flash_cuda, flash_plain, rglru_cuda, rglru_plain) -> None:
         check_close(f"rglru f32 h_last B={B} S={S} N={N}", h32, h_ref, STATE_TOL)
         log(f"  parity rglru           B={B} S={S:>4} N={N:>4}: bf16 y max abs err "
             f"{shown(err_y)}, h_last {shown(err_h)}; f32 within {STATE_TOL}")
+
+
+def flash_continuation_parity(flash_cuda, flash_plain, rows_with_keys) -> None:
+    """The flash kernel with ``q_offset`` and ``kv_valid_len`` against its
+    plain version on the rows that see a key; the rows that see none are
+    zeros (the plain version gives them a softmax over masked keys)."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for B, Sq, Sk, H, Hkv, D, causal, window, ragged in CONTINUATIONS:
+        q = torch.randn((B, Sq, H, D), device="cuda", generator=gen).bfloat16()
+        k = torch.randn((B, Sk, Hkv, D), device="cuda", generator=gen).bfloat16()
+        v = torch.randn((B, Sk, Hkv, D), device="cuda", generator=gen).bfloat16()
+        valid = (torch.randint(1, Sk + 1, (B,), device="cuda", generator=gen,
+                               dtype=torch.int32) if ragged else None)
+        off = Sk - Sq
+        got = flash_cuda(q, k, v, causal, window, 0.0, off, valid)
+        want = flash_plain(q, k, v, causal, window, 0.0, q_offset=off, kv_valid_len=valid)
+        live = rows_with_keys(B, Sq, Sk, causal, window, off, valid, device="cuda")
+        if got[~live].any():
+            raise AssertionError(f"flash continuation B={B} Sq={Sq} Sk={Sk}: rows that "
+                                 f"see no key are not zero")
+        err = check_close(f"flash continuation B={B} Sq={Sq} Sk={Sk}", got[live],
+                          want[live], BF16_TOL)
+        lens = "none" if valid is None else str(valid.tolist())
+        log(f"  parity flash_attention B={B} Sq={Sq:>3} Sk={Sk:>4} q_offset={off:>4} "
+            f"H={H:>2} Hkv={Hkv:>2} D={D:>3} causal={causal!s:5} window={window:>4} "
+            f"kv_valid_len={lens}: {int(live.sum())} of {B * Sq} rows see a key, max abs "
+            f"err {shown(err)}")
 
 
 def ssd_inputs(gen, B, S, H, P, N, dtype, shared, with_h0):
@@ -839,6 +924,153 @@ def mesh_path(aq, files, arrival, oneshot, model, phase4, sc, rec) -> None:
             f"{outcome(o.completion_time, o.deadline)}; {verdict}")
 
 
+# -- phase 16 ----------------------------------------------------------------
+
+def moe_path(args, cfg, lm, engine, core, counters, fa_ops, flash_plain, moe_layer):
+    """The olmoe-1b-7b serving path (``serving_path``) with its readings
+    (token-choices dropped by capacity, peak memory) and the plain-flash
+    swap.  Returns the prefill executor, a batch of 8 prompts and the
+    launch counts of the path."""
+    route_group = moe_layer.route_group
+    dropped = []   # token-choices each route_group call dropped by capacity
+
+    def counted_route(*a):
+        r = route_group(*a)
+        dropped.append((~r.keep).sum())
+        return r
+
+    moe_layer.route_group = counted_route
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        ex, _, batch8, moe_launches = serving_path(args, cfg, MOE_SEQ, lm, engine, core,
+                                                   counters)
+    finally:
+        moe_layer.route_group = route_group
+    routed = (sum(b * row["calls"] for b, row in moe_launches["by_batch"].items())
+              * MOE_SEQ * cfg.top_k * cfg.num_layers)
+    check_launches(cfg, moe_launches, time.perf_counter() - t0)
+    dropped = int(torch.stack(dropped).sum())
+    log(f"  token-choices dropped by capacity (capacity_factor {cfg.capacity_factor}): "
+        f"{dropped} of {routed} ({dropped / routed:.3%}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}")
+    # The same batch of 8 with the plain flash swapped in: the gate at
+    # MOE_GATE_UNITS layers, all 16 reported (seeded weights drift with depth).
+    log("  kernel path against the plain flash on one batch of 8, by depth: logits "
+        "relative L2 error, argmax agreement, wall ms (kernels / plain)")
+    swap = [(fa_ops, "flash_attention_cuda", flash_plain)]
+    for units in (MOE_GATE_UNITS, None):
+        rel, agree, t_k, t_p, _ = plain_swap(ex, batch8, units, swap)
+        layers = cfg.num_layers if units is None else units
+        log(f"    {layers:2d} layers: rel L2 {rel:.3e}, argmax agreement {agree:.3f}, "
+            f"{t_k * 1e3:.1f} / {t_p * 1e3:.1f} ms")
+        if units is not None and not rel < LOGITS_REL_L2:
+            raise AssertionError(f"kernel path and plain path disagree at {layers} layers: "
+                                 f"rel L2 {rel:.3e} (limit {LOGITS_REL_L2})")
+    try:
+        profile_batch(ex, batch8)
+    except Exception as exc:  # the profiler is a reading, not a gate
+        log(f"    profiler failed: {exc!r}")
+    return ex, batch8, moe_launches
+
+
+# -- phase 17 ----------------------------------------------------------------
+
+def teacher_forced(lm, cfg, params, P, seed) -> list:
+    """Relative L2 distance of each of ``TF_STEPS`` decode steps' logits
+    (``TF_BATCH`` rows, after a prefill of ``P`` tokens) to the last logits
+    of a prefill of the same ``P + t + 1`` tokens."""
+    rng = np.random.default_rng(seed + 17)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TF_BATCH, P + TF_STEPS))
+                            .astype(np.int32)).to("cuda")
+    _, cache, clen = lm.prefill(cfg, params, toks[:, :P], P + TF_STEPS)
+    rels = []
+    for t in range(TF_STEPS):
+        step, cache = lm.decode_step(cfg, params, cache, clen + t, toks[:, P + t:P + t + 1])
+        want, _, _ = lm.prefill(cfg, params, toks[:, :P + t + 1], P + t + 1)
+        rels.append(((step[:, 0] - want).norm() / want.norm()).item())
+    return rels
+
+
+def decode_path(lm, cfg, params, batch, seq, units, counters, seed, flash_swap,
+                tf_seq=None, **tf_over) -> dict:
+    """Decode on one LM: ``batch`` (8 prompts of ``seq`` tokens) prefilled
+    at full depth into a cache of ``seq + DECODE_STEPS``, then
+    ``DECODE_STEPS`` greedy ``CausalLM.decode_step`` calls, which launch no
+    kernel and call no plain version on a CUDA tensor.  Then teacher-forced
+    at ``units`` units (``tf_seq`` tokens, ``tf_over`` config fields): the
+    gate in f32 weights (the RG-LRU and SSD kernels in f32, the flash
+    kernel, which takes bf16 only, swapped for its plain version by
+    ``flash_swap`` = (ops module, attribute, plain version)); the bf16
+    kernel path a reading, since its attention is nearly one-hot and a bf16
+    rounding that differs between a one-token and a whole-prompt
+    projection can flip a near-tie.  Returns the readings."""
+    model = lm.CausalLM(cfg, params)
+    V = cfg.vocab_size
+    tokens = torch.from_numpy(batch).to("cuda")
+    B = tokens.shape[0]
+    counters.reset()
+    logits, cache, clen = model.prefill(tokens, seq + DECODE_STEPS)
+    before = counters.read()
+    tok = logits.argmax(-1, keepdim=True)
+    finite, walls = [], []
+    torch.cuda.synchronize()
+    for t in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        step, cache = model.decode_step(tok, cache, clen + t)
+        tok = step[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if tuple(step.shape) != (B, 1, V):
+            raise AssertionError(f"{cfg.name} decode step {t}: logits {tuple(step.shape)}")
+        finite.append(torch.isfinite(step).all())
+    after = counters.read()
+    launched = {k: after[k] - before[k] for k in counters.kernels}
+    if not torch.stack(finite).all():
+        raise AssertionError(f"{cfg.name} decode: non-finite logits")
+    if any(launched.values()) or after["plain_on_cuda"]:
+        raise AssertionError(f"{cfg.name} decode steps launched {launched}, plain versions "
+                             f"on CUDA tensors {after['plain_on_cuda']}: decode runs "
+                             f"plain PyTorch ops only")
+    steady = walls[1:]
+    r = {"batch": B, "prompt": seq, "steps": DECODE_STEPS, "first_ms": walls[0] * 1e3,
+         "ms_per_step": 1e3 * sum(steady) / len(steady),
+         "median_ms": 1e3 * sorted(steady)[len(steady) // 2]}
+    r["tokens_per_s"] = B / (r["ms_per_step"] / 1e3)
+    log(f"  decode {cfg.name} at full depth ({cfg.num_layers} layers), B={B}, prompts of "
+        f"{seq} tokens, cache {seq + DECODE_STEPS}: first step {r['first_ms']:.2f} ms, then "
+        f"{r['ms_per_step']:.2f} ms a step (median {r['median_ms']:.2f}), "
+        f"{r['tokens_per_s']:.1f} tokens/s; logits finite (B, 1, {V}); no kernel launched "
+        f"by the steps")
+    del model, cache, logits, step
+
+    cut_cfg, cut_params = cut_model(cfg, params, units)
+    cut_cfg = dataclasses.replace(cut_cfg, **tf_over)
+    P = seq if tf_seq is None else tf_seq
+    what = (f"decode {cfg.name} teacher-forced at {cut_cfg.num_layers} layers, B={TF_BATCH}, "
+            f"P={P}{' ' + str(tf_over) if tf_over else ''}: each step's logits against the "
+            f"prefill of the same P + t + 1 tokens, rel L2")
+    r["teacher_forced_bf16"] = teacher_forced(lm, cut_cfg, cut_params, P, seed)
+    log(f"  {what}, bf16 kernel path (a reading) "
+        f"{[float(f'{x:.3e}') for x in r['teacher_forced_bf16']]}")
+    mod, attr, plain = flash_swap
+    kernel = getattr(mod, attr)
+    setattr(mod, attr, plain)
+    try:
+        r["teacher_forced_f32"] = teacher_forced(
+            lm, cut_cfg, {k: v.float() for k, v in cut_params.items()}, P, seed)
+    finally:
+        setattr(mod, attr, kernel)
+    rels = r["teacher_forced_f32"]
+    log(f"  {what}, f32 (the gate) {[float(f'{x:.3e}') for x in rels]} "
+        f"(limit {DECODE_F32_REL_L2})")
+    if not max(rels) <= DECODE_F32_REL_L2:
+        raise AssertionError(f"{cfg.name}: decode and the teacher-forced prefill disagree "
+                             f"at {cut_cfg.num_layers} layers in f32: rel L2 {max(rels):.3e}")
+    return r
+
+
 # -- phase 14 ----------------------------------------------------------------
 
 def admission_path(args, cfg, ex, cm, engine, core, counters) -> dict:
@@ -928,14 +1160,15 @@ def lm_kernel_times(flash_cuda, flash_sync, flash_plain, flash_fb, rglru_cuda,
              "ms": cuda_ms(lambda: flash_cuda(qb, kb, vb, True, W), reps=KERNEL_REPS),
              "old_ms": cuda_ms(lambda: flash_sync(qb, kb, vb, True, W), reps=KERNEL_REPS),
              "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": cuda_ms(sdpa, reps=KERNEL_REPS)}
+             "library_ms": cuda_ms(sdpa, reps=KERNEL_REPS),
+             "plain_ms": cuda_ms(lambda: flash_plain(qb, kb, vb, True, W), reps=2)}
         log(f"  flash_attention B={B}: kernel {r['ms']:.4f} ms, earlier kernel "
             f"{r['old_ms']:.4f} ({r['old_ms'] / r['ms']:.2f}x), SDPA {r['library_ms']:.4f} "
-            f"({r['library_ms'] / r['ms']:.2f}x), bound {b_ms:.4f} by {b_by} "
-            f"({b_ms / r['ms']:.1%} of it reached; earlier {b_ms / r['old_ms']:.1%}); max abs "
-            f"err {shown(err)}, earlier kernel {shown(err_old)}, SDPA {sdpa_err:.3e}")
+            f"({r['library_ms'] / r['ms']:.2f}x), plain {r['plain_ms']:.4f}, bound "
+            f"{b_ms:.4f} by {b_by} ({b_ms / r['ms']:.1%} of it reached; earlier "
+            f"{b_ms / r['old_ms']:.1%}); max abs err {shown(err)}, earlier kernel "
+            f"{shown(err_old)}, SDPA {sdpa_err:.3e}")
         if B == Bmax:
-            r["plain_ms"] = cuda_ms(lambda: flash_plain(qb, kb, vb, True, W), reps=2)
             out["flash_attention"] = r
         del want, qt, kt, vt
     del q, k, v
@@ -957,15 +1190,67 @@ def lm_kernel_times(flash_cuda, flash_sync, flash_plain, flash_fb, rglru_cuda,
         r = {"max_abs_err": errs[0][0][0],
              "ms": cuda_ms(lambda: rglru_cuda(*args), reps=KERNEL_REPS),
              "old_ms": cuda_ms(lambda: rglru_serial(*args), reps=KERNEL_REPS),
-             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+             "plain_ms": cuda_ms(lambda: rglru_plain(*args), reps=2)}
         log(f"  rglru B={B}: kernel {r['ms']:.4f} ms, earlier kernel {r['old_ms']:.4f} "
-            f"({r['old_ms'] / r['ms']:.2f}x), bound {b_ms:.4f} by {b_by} "
-            f"({b_ms / r['ms']:.1%} of it reached; earlier {b_ms / r['old_ms']:.1%}); y max "
-            f"abs err {shown(errs[0][0])}, h_last {shown(errs[0][1])}; earlier kernel y "
+            f"({r['old_ms'] / r['ms']:.2f}x), plain {r['plain_ms']:.4f}, bound {b_ms:.4f} by "
+            f"{b_by} ({b_ms / r['ms']:.1%} of it reached; earlier {b_ms / r['old_ms']:.1%}); "
+            f"y max abs err {shown(errs[0][0])}, h_last {shown(errs[0][1])}; earlier kernel y "
             f"{shown(errs[1][0])}, h_last {shown(errs[1][1])}")
         if B == Bmax:
-            r["plain_ms"] = cuda_ms(lambda: rglru_plain(*args), reps=2)
             out["rglru"] = r
+    return out
+
+
+def flash_continuation_times(flash_cuda, flash_plain, flash_fb) -> dict:
+    """The flash kernel at a prefill continuation of olmoe-1b-7b's heads:
+    B 8, 512 new queries after 4,096 cached keys (``q_offset`` 4,096),
+    causal, with every row's keys valid and with ragged valid lengths in
+    [1, 4,608]; each held against the plain version on its live rows, its
+    time beside the plain version's, ``scaled_dot_product_attention``'s
+    with the same mask and the bound of this run's live pairs."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import rows_with_keys
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    B, Sq, Sk, H, D = 8, 512, 4608, 16, 128
+    q = torch.randn((B, Sq, H, D), device="cuda", generator=gen).bfloat16()
+    k = torch.randn((B, Sk, H, D), device="cuda", generator=gen).bfloat16()
+    v = torch.randn((B, Sk, H, D), device="cuda", generator=gen).bfloat16()
+    out = {}
+    for label, valid in (("full", None), ("ragged", torch.randint(
+            1, Sk + 1, (B,), device="cuda", generator=gen, dtype=torch.int32))):
+        off = Sk - Sq
+        want = flash_plain(q, k, v, True, 0, 0.0, q_offset=off, kv_valid_len=valid)
+        live = rows_with_keys(B, Sq, Sk, True, 0, off, valid, device="cuda")
+        err = check_close(f"flash continuation ({label}) at B={B} Sq={Sq} Sk={Sk}",
+                          flash_cuda(q, k, v, True, 0, 0.0, off, valid)[live], want[live],
+                          BF16_TOL)
+        lens = None if valid is None else valid.tolist()
+        pos = torch.arange(Sk, device="cuda")
+        mask = pos[None, :] <= off + torch.arange(Sq, device="cuda")[:, None]   # (Sq, Sk)
+        if valid is not None:
+            mask = mask[None, None] & (pos < valid[:, None])[:, None, None]     # (B,1,Sq,Sk)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        b_ms, b_by = bound(*flash_fb(B, Sq, Sk, H, H, D, True, 0, q_offset=off,
+                                     kv_valid_len=lens), "bfloat16")
+        r = {"shape": f"B={B} Sq={Sq} Sk={Sk} q_offset={off} H={H} Hkv={H} D={D} causal, "
+                      f"kv_valid_len {lens or 'none'}",
+             "max_abs_err": err[0],
+             "ms": cuda_ms(lambda: flash_cuda(q, k, v, True, 0, 0.0, off, valid),
+                           reps=KERNEL_REPS),
+             "plain_ms": cuda_ms(lambda: flash_plain(q, k, v, True, 0, 0.0, q_offset=off,
+                                                     kv_valid_len=valid), reps=2),
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(sdpa, reps=KERNEL_REPS)}
+        log(f"  flash_attention continuation ({label}) {r['shape']}: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, bound {b_ms:.4f} by {b_by} "
+            f"({b_ms / r['ms']:.1%} of it reached); max abs err {shown(err)}")
+        out[label] = r
     return out
 
 
@@ -991,6 +1276,19 @@ def ssd_kernel_times(ssd_cuda, ssd_plain, ssd_bf16ops, ssd_fb) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+def cut_model(cfg, params, units):
+    """The first ``units`` units of segment 0 and their weights (views of
+    ``params``); the whole model when ``units`` is None."""
+    from repro_torch.models.config import Segment
+
+    if units is None:
+        return cfg, params
+    cfg = dataclasses.replace(cfg, segments=(Segment(cfg.segments[0].pattern, units),))
+    return cfg, {k: (v[:units] if k.startswith("seg0/") else v)
+                 for k, v in params.items()
+                 if not k.startswith("seg") or k.startswith("seg0/")}
+
+
 def plain_swap(ex, batch, units, swaps, first_impls=None):
     """One batch through the first ``units`` units of segment 0 (all
     segments when None), with the kernels (or ``first_impls``, one per
@@ -998,24 +1296,18 @@ def plain_swap(ex, batch, units, swaps, first_impls=None):
     (ops module, kernel attribute, plain version).  Returns (relative L2
     error of the logits, argmax agreement, first run s, plain s, the inputs
     of each kernel's first call by attribute)."""
-    from repro_torch.models.config import Segment
     from repro_torch.serve.engine import PrefillExecutor
 
-    cfg, params = ex.cfg, ex.params
-    if units is not None:
-        cfg = dataclasses.replace(cfg, segments=(Segment(cfg.segments[0].pattern, units),))
-        params = {k: (v[:units] if k.startswith("seg0/") else v)
-                  for k, v in params.items() if not k.startswith("seg") or
-                  k.startswith("seg0/")}
+    cfg, params = cut_model(ex.cfg, ex.params, units)
     cut = PrefillExecutor(cfg, params, buckets=(batch.shape[0],), device="cuda")
     kernels = [getattr(mod, attr) for mod, attr, _ in swaps]
     impls = kernels if first_impls is None else first_impls
     first = {}
 
     def recorder(attr, kernel):
-        def rec(*a):
+        def rec(*a, **kw):
             first.setdefault(attr, tuple(t.clone() if torch.is_tensor(t) else t for t in a))
-            return kernel(*a)
+            return kernel(*a, **kw)
         return rec
 
     for (mod, attr, _), impl in zip(swaps, impls):
@@ -1074,15 +1366,18 @@ def profile_batch(ex, batch) -> None:
             f"{k} {v / 1e3:.1f} ({v / busy:.1%})" for k, v in classes.items() if v))
 
 
-KIND_KERNEL = {"attn": "flash_attention", "rglru": "rglru", "ssm": "ssd"}
+KIND_KERNEL = {"attn": "flash_attention", "moe": "flash_attention", "rglru": "rglru",
+               "ssm": "ssd"}
 
 
 def check_launches(cfg, got: dict, wall_s: float) -> None:
     """Each LM kernel launched once per layer of its kind in every prefill
     call of the path, and no plain version called on a CUDA tensor."""
     calls = got["prefill_calls"]
-    want = {k: calls * sum(seg.pattern.count(kind) * seg.num_units for seg in cfg.segments)
-            for kind, k in KIND_KERNEL.items()}
+    want = dict.fromkeys(KIND_KERNEL.values(), 0)
+    for kind, k in KIND_KERNEL.items():
+        want[k] += calls * sum(seg.pattern.count(kind) * seg.num_units
+                               for seg in cfg.segments)
     by_batch = got.pop("by_batch")
     log(f"  serving path {wall_s:.1f} s wall; launches {got}; expected {want}")
     log("  by batch size: " + "; ".join(
@@ -1166,7 +1461,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_cuda, flash_attention_sync_cuda, flops_bytes as flash_flops_bytes)
-    from repro_torch.kernels.flash_attention.ref import chunked_attention_ref
+    from repro_torch.kernels.flash_attention.ref import chunked_attention_ref, rows_with_keys
+    from repro_torch.layers import moe as moe_layer
     from repro_torch.kernels.rglru import ops as rg_ops
     from repro_torch.kernels.rglru.ref import rglru_ref
     from repro_torch.kernels.rglru.rglru import (
@@ -1494,11 +1790,13 @@ def main(argv=None) -> int:
     del streams, oneshot, rex
     torch.cuda.empty_cache()
     log(f"[8] LM kernel parity against the plain version (bf16 within {BF16_TOL} of "
-        f"the plain version in f32, f32 RG-LRU and h_last within {STATE_TOL}; SSD y "
+        f"the plain version in f32 (flash: q pre-scaled in bf16), f32 RG-LRU and h_last "
+        f"within {STATE_TOL}; SSD y "
         f"within {SSD_Y_TOL[torch.float32]} (f32) and {SSD_Y_TOL[torch.bfloat16]} (bf16), "
         f"h_last rtol {SSD_H_RTOL} and atol {SSD_H_ATOL[torch.float32]} (f32), "
         f"{SSD_H_ATOL[torch.bfloat16]} (bf16))")
     lm_kernel_parity(flash_attention_cuda, chunked_attention_ref, rglru_cuda, rglru_ref)
+    flash_continuation_parity(flash_attention_cuda, chunked_attention_ref, rows_with_keys)
     ssd_kernel_parity(ssd_cuda, ssd_chunked_ref)
     torch.cuda.synchronize()
 
@@ -1543,7 +1841,7 @@ def main(argv=None) -> int:
             # each kernel against its plain version on the inputs the model gave it
             q, k, v, causal, window, cap = first["flash_attention_cuda"]
             got = flash_attention_cuda(q, k, v, causal, window, cap).float()
-            want = chunked_attention_ref(q.float(), k.float(), v.float(), causal, window, cap)
+            want = chunked_attention_ref(q, k, v, causal, window, cap).float()
             if not torch.isfinite(got).all():
                 raise AssertionError("flash on the model's inputs: non-finite output")
             share = ((got - want).abs() > BF16_TOL + BF16_TOL * want.abs()).any(-1)
@@ -1563,7 +1861,15 @@ def main(argv=None) -> int:
         profile_batch(ex, batch8)
     except Exception as exc:  # the profiler is a reading, not a gate
         log(f"    profiler failed: {exc!r}")
-    del ex, first
+    del first
+
+    # 17. decode on the same model, then free it
+    log(f"[17] decode: {SERVE_ARCH}, {DECODE_STEPS} greedy steps at full depth, "
+        f"teacher-forced at {3 * RG_GATE_UNITS} layers")
+    flash_swap = (fa_ops, "flash_attention_cuda", chunked_attention_ref)
+    decode = {SERVE_ARCH: decode_path(lm, cfg, ex.params, batch8, SERVE_SEQ, RG_GATE_UNITS,
+                                      counters, args.seed, flash_swap)}
+    del ex
     torch.cuda.empty_cache()
 
     # 10. LM kernel times at the paths' shapes
@@ -1575,6 +1881,8 @@ def main(argv=None) -> int:
                                rglru_serial_cuda, rglru_ref, rglru_flops_bytes)
     lm_times["ssd"] = ssd_kernel_times(ssd_cuda, ssd_chunked_ref, ssd_chunked_bf16ops_ref,
                                        ssd_flops_bytes)
+    lm_times["flash_attention"]["continuation"] = flash_continuation_times(
+        flash_attention_cuda, chunked_attention_ref, flash_flops_bytes)
     for kname, r in lm_times.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {kname:15s} kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}, library {lib}, "
@@ -1635,8 +1943,30 @@ def main(argv=None) -> int:
         profile_batch(ex, batch8)
     except Exception as exc:  # the profiler is a reading, not a gate
         log(f"    profiler failed: {exc!r}")
+    log(f"[17] decode: {SSM_ARCH}, {DECODE_STEPS} greedy steps at full depth, "
+        f"teacher-forced at {SSM_GATE_UNITS} layers")
+    decode[SSM_ARCH] = decode_path(lm, cfg, ex.params, batch8, SSM_SEQ, SSM_GATE_UNITS,
+                                   counters, args.seed, flash_swap)
     del ex
     torch.cuda.empty_cache()
+
+    # 16. the olmoe-1b-7b serving path; counts from the calibration to the
+    # last job
+    log(f"[16] serving path: {MOE_ARCH} at full width and depth, prompts of {MOE_SEQ} "
+        f"tokens (routing groups of {get_config(MOE_ARCH).moe_group_size})")
+    cfg = get_config(MOE_ARCH)
+    ex, batch8, moe_launches = moe_path(args, cfg, lm, engine, core, counters, fa_ops,
+                                        chunked_attention_ref, moe_layer)
+    launches["flash_attention"] += moe_launches["flash_attention"]
+    by_phase["flash_attention"]["16"] = moe_launches["flash_attention"]
+    log(f"[17] decode: {MOE_ARCH}, {DECODE_STEPS} greedy steps at full depth, "
+        f"teacher-forced at {MOE_GATE_UNITS} layers")
+    decode[MOE_ARCH] = decode_path(lm, cfg, ex.params, batch8, MOE_SEQ, MOE_GATE_UNITS,
+                                   counters, args.seed, flash_swap, tf_seq=MOE_TF_SEQ,
+                                   capacity_factor=float(cfg.num_experts))
+    del ex
+    torch.cuda.empty_cache()
+    log(json.dumps({"decode": decode}))
 
     replaces = {"segagg_narrow": "src/repro/kernels/segagg/segagg.py:48",
                 "segagg_scatter": "src/repro/kernels/segagg/segagg.py:75",

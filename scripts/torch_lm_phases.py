@@ -13,7 +13,7 @@ read.  The time a part saves when it is off is what it costs, as long as
 the parts do not overlap.
 
 Flash parts: 1 the K/V loads after the first tile, 2 the S = Q K^T product,
-4 the P V product, 8 the online softmax (replaced by exp(s scale - 4), no
+4 the P V product, 8 the online softmax (replaced by exp(s - 4), no
 mask, maximum or rescale).  RG-LRU parts: 1 the gate math (two expf and a
 sqrtf an element, replaced by two multiply-adds), 2 the next chunks' loads.
 
@@ -44,12 +44,12 @@ FLASH_GUARDS = [
     (2, "      wgmma_ss_n64(&s[0][0],", "      if (!(SKIP & 2)) wgmma_ss_n64(&s[0][0],"),
     (4, "wgmma_rs<kD>(&acc", "if (!(SKIP & 4)) wgmma_rs<kD>(&acc"),
 ]
-FLASH_SOFTMAX = ("    // Scale, soft-cap, mask; online softmax per row.\n",
+FLASH_SOFTMAX = ("    // Soft-cap, mask; online softmax per row (Q came scaled).\n",
                  "#pragma unroll\n    for (int kk = 0; kk < kBlockK / 16; ++kk) {\n"
                  "      p[kk][0] = pack_bf16(")
 FLASH_STAND_IN = ("    uint32_t p[kBlockK / 16][4];\n#pragma unroll\n"
                   "    for (int n = 0; n < kNt; ++n)\n#pragma unroll\n"
-                  "      for (int e = 0; e < 4; ++e) s[n][e] = __expf(s[n][e] * scale - 4.f);\n")
+                  "      for (int e = 0; e < 4; ++e) s[n][e] = __expf(s[n][e] - 4.f);\n")
 RGLRU_GUARDS = [
     (1, "      const float beta = sqrtf(fmaxf(1.f - expf(2.f * log_a), 1e-12f));\n"
         "      ps[j] = expf(log_a);\n",

@@ -1,5 +1,8 @@
 // Flash-attention forward for Hopper (sm_90a): online softmax over key tiles,
-// causal / sliding-window / tanh soft-cap / GQA and MQA, bf16 in and out.
+// causal / sliding-window / tanh soft-cap / GQA and MQA, bf16 in and out, with
+// the JAX layer's prefill continuation (q_offset: query row i sits at absolute
+// position q_offset + i) and ragged key lengths (kv_valid_len: key j of batch
+// row b is live only if j < kv_valid_len[b]).
 //
 // Replaces _flash_fwd_kernel of the JAX package
 // (src/repro/kernels/flash_attention/flash_attention.py:29, launched at :121).
@@ -12,11 +15,13 @@
 // Sq, Sk and D are zero-filled in shared memory by cp.async (no padding in
 // device memory).
 //
-// Work skipped by loop bounds, not by masks: a query tile [q0, q1] visits key
-// tiles from the one holding max(0, q0 - window + 1) (window > 0) to the one
-// holding min(Sk - 1, q1) (causal), and a warpgroup skips a tile in which
-// none of its 64 rows sees a key.  Only the tiles on the diagonal and the
-// window's edge are masked element by element.  Masked scores are -inf and a
+// Work skipped by loop bounds, not by masks: a query tile at absolute
+// positions [q0, q1] visits key tiles from the one holding
+// max(0, q0 - window + 1) (window > 0) to the one holding min(L - 1, q1)
+// (causal), L the batch row's valid length (Sk without kv_valid_len), and a
+// warpgroup skips a tile in which none of its 64 rows sees a key.  Only the
+// tiles on the diagonal, the window's edge and the valid length's are masked
+// element by element.  Masked scores are -inf and a
 // row with no key yet uses 0 as its running max, so a fully masked row gives
 // zeros (as the materialised reference does after its NaN clean-up).  The
 // grid puts the query tile on its slowest axis, the last (heaviest) tiles
@@ -28,7 +33,11 @@
 // cp.async): thread 0 issues a (64-column,
 // kBlockK-key) box per column block of K and of V, completing on the
 // stage's mbarrier, so tile t + 1 loads while tile t computes; one block
-// barrier a tile frees the stage.  Q comes once through cp.async.  Each
+// barrier a tile frees the stage.  Q comes once through cp.async, and each
+// thread scales the chunks it loaded by 1/sqrt(D) in f32 and rounds them
+// back to bf16 (the JAX layer's q pre-scaling: at D = 128, where the scale
+// is no power of two, the seeded models' scores of some thousands part by
+// several units from a product scaled after the fact).  Each
 // warpgroup (64 query rows) runs its products on the tensor cores with
 // wgmma: S = Q K^T (m64n64k16, Q and K from shared memory), then the row
 // max / sum of the online softmax on the accumulator fragments (quad
@@ -90,6 +99,27 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// 16 bytes of shared memory at ``addr``, read and written as four words.
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// A packed bf16 pair times ``scale`` in f32, rounded back to bf16.
+__device__ __forceinline__ uint32_t scale_pair(uint32_t w, float scale) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
+  return pack_bf16(f.x * scale, f.y * scale);
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -314,7 +344,8 @@ __global__ void __launch_bounds__(Tiles<kD>::kThreads, 1)
 flash_fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, Strides sq_,
                  Strides so_, int sq, int sk, int heads, int kv_heads, int d, float scale,
-                 int causal, int window, float cap) {
+                 int causal, int window, float cap, int q_off,
+                 const int* __restrict__ kv_len) {
   using T = Tiles<kD>;
   constexpr int kThreads = T::kThreads;
   extern __shared__ unsigned char smem_raw[];
@@ -337,10 +368,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap
 
   const bf16* qb = q + b * sq_.b + h * sq_.h;
 
-  // Key tiles this query tile can see.
+  // Key tiles this query tile can see: its rows sit at absolute positions
+  // q_off + row, and keys at or past the batch row's valid length are dead.
+  const int sk_b = kv_len != nullptr ? max(0, min(sk, kv_len[b])) : sk;
   const int q_last = min(q0 + T::kBlockQ, sq) - 1;
-  const int k_hi = causal ? min(sk, q_last + 1) : sk;  // exclusive
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? min(sk_b, q_off + q_last + 1) : sk_b;  // exclusive
+  const int k_lo = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
   const int tile_lo = k_lo / kBlockK;
   const int tile_hi = (k_hi + kBlockK - 1) / kBlockK;
 
@@ -371,7 +404,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap
   cp_async_commit();
 #pragma unroll
   for (int j = 0; j < kStages - 1; ++j) load_kv(j);
-  cp_async_wait_all();  // Q landed ...
+  cp_async_wait_all();  // Q landed; each thread scales the chunks it loaded ...
+  for (int c = tid; c < T::kBlockQ * (kD / 8); c += kThreads) {
+    const uint32_t at = qs + swizzled(T::kBlockQ, c / (kD / 8), c % (kD / 8));
+    uint4 w = lds128(at);
+    w.x = scale_pair(w.x, scale);
+    w.y = scale_pair(w.y, scale);
+    w.z = scale_pair(w.z, scale);
+    w.w = scale_pair(w.w, scale);
+    sts128(at, w);
+  }
   fence_proxy_async();  // ... visible to wgmma ...
   __syncthreads();      // ... for every warp
 
@@ -399,8 +441,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap
     load_kv(it + kStages - 1);
     mbar_wait(full + 8 * st, (it / kStages) & 1);  // this tile landed
     // A warpgroup none of whose rows sees a key of this tile skips it.
-    if (g0 >= sq || (causal && kt0 > g_last) ||
-        (window > 0 && kt0 + kBlockK - 1 <= g0 - window))
+    if (g0 >= sq || (causal && kt0 > q_off + g_last) ||
+        (window > 0 && kt0 + kBlockK - 1 <= q_off + g0 - window))
       continue;
     const uint32_t kt = ks + st * T::kKVBytes;
     const uint32_t vt = vs + st * T::kKVBytes;
@@ -418,20 +460,20 @@ flash_fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap
     wgmma_wait_all();
     fence_regs<kNt * 4>(&s[0][0]);
 
-    // Scale, soft-cap, mask; online softmax per row.
-    const bool edge = (kt0 + kBlockK > sk) || (causal && kt0 + kBlockK - 1 > r0) ||
-                      (window > 0 && kt0 <= r0 + 15 - window);
+    // Soft-cap, mask; online softmax per row (Q came scaled).
+    const bool edge = (kt0 + kBlockK > sk_b) || (causal && kt0 + kBlockK - 1 > q_off + r0) ||
+                      (window > 0 && kt0 <= q_off + r0 + 15 - window);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int n = 0; n < kNt; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale;
+        float x = s[n][e];
         if (cap > 0.f) x = cap * tanhf(x / cap);
         if (edge) {
-          const int qp = rows[e >> 1];
+          const int qp = q_off + rows[e >> 1];
           const int kp = kt0 + n * 8 + 2 * t + (e & 1);
-          const bool ok = kp < sk && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
+          const bool ok = kp < sk_b && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
           if (!ok) x = -INFINITY;
         }
         s[n][e] = x;
@@ -550,7 +592,8 @@ bool tensor_map(CUtensorMap* map, const void* base, int batch, int seq, int kv_h
 template <int kD>
 int launch(const void* q, const void* k, const void* v, void* o, const int64_t* st,
            int batch, int sq, int sk, int heads, int kv_heads, int d, float scale,
-           int causal, int window, float cap, cudaStream_t stream) {
+           int causal, int window, float cap, int q_off, const int* kv_len,
+           cudaStream_t stream) {
   using T = Tiles<kD>;
   auto kernel = flash_fwd_kernel<kD>;
   static bool configured = false;  // one attribute call per instantiation
@@ -568,7 +611,7 @@ int launch(const void* q, const void* k, const void* v, void* o, const int64_t* 
   const dim3 grid(heads, batch, (sq + T::kBlockQ - 1) / T::kBlockQ);
   kernel<<<grid, T::kThreads, T::kBytes, stream>>>((const bf16*)q, tk, tv, (bf16*)o, sq_,
                                                     so_, sq, sk, heads, kv_heads, d, scale,
-                                                    causal, window, cap);
+                                                    causal, window, cap, q_off, kv_len);
   return (int)cudaGetLastError();
 }
 
@@ -576,22 +619,26 @@ int launch(const void* q, const void* k, const void* v, void* o, const int64_t* 
 
 // q (B, Sq, H, D), k and v (B, Sk, Hkv, D), o (B, Sq, H, D), all bf16 with a
 // contiguous last dim; strides[12] = (b, s, h) element strides of q, k, v, o.
-// The caller checks D <= 256, D % 8 == 0, 16-byte alignment, H % Hkv == 0
-// and B below 65,536.
+// q_offset >= 0 is the absolute position of query row 0; kv_len is a (B,)
+// int32 array on the device, or null for Sk keys in every row.  The caller
+// checks D <= 256, D % 8 == 0, 16-byte alignment, H % Hkv == 0 and B below
+// 65,536.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    const int64_t* strides, int batch, int sq, int sk,
                                    int heads, int kv_heads, int d, float scale, int causal,
-                                   int window, float cap, void* stream) {
+                                   int window, float cap, int q_offset, const void* kv_len,
+                                   void* stream) {
   if (batch <= 0 || sq <= 0 || heads <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  const int* kl = (const int*)kv_len;
   if (d <= 64)
     return launch<64>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale, causal,
-                      window, cap, s);
+                      window, cap, q_offset, kl, s);
   if (d <= 128)
     return launch<128>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale, causal,
-                       window, cap, s);
+                       window, cap, q_offset, kl, s);
   return launch<256>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale, causal,
-                     window, cap, s);
+                     window, cap, q_offset, kl, s);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

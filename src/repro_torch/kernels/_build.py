@@ -49,17 +49,19 @@ LIBRARIES: Dict[str, tuple] = {
     }),
     "flash_attention": ("flash_attention.cu", {
         # q, k, v, o, strides[12], batch, sq, sk, heads, kv_heads, d, scale,
-        # causal, window, cap, stream
+        # causal, window, cap, q_offset, kv_len (or null), stream
         "flash_attention_fwd": (_PTR, _PTR, _PTR, _PTR, _I64P, _I32, _I32, _I32,
-                                _I32, _I32, _I32, _F32, _I32, _I32, _F32, _PTR),
+                                _I32, _I32, _I32, _F32, _I32, _I32, _F32, _I32, _PTR,
+                                _PTR),
     }),
     "rglru": ("rglru.cu", {
         # x, r, i, a_param, h0, y, h_last, batch, seq, width, is_bf16, stream
         "rglru_scan": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32,
                        _I32, _I32, _PTR),
     }),
-    # The earlier designs of the two kernels above, same arguments: the
-    # yardsticks that chip_smoke.py times the kernels against.
+    # The earlier designs of the two kernels above (the flash one without
+    # q_offset and kv_len): the yardsticks that chip_smoke.py times the
+    # kernels against.
     "flash_attention_sync": ("flash_attention_sync.cu", {
         "flash_attention_sync_fwd": (_PTR, _PTR, _PTR, _PTR, _I64P, _I32, _I32, _I32,
                                      _I32, _I32, _I32, _F32, _I32, _I32, _F32, _PTR),

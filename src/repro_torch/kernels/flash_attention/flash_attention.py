@@ -4,17 +4,21 @@
 ``flash_attention_cuda`` replaces the JAX package's ``_flash_fwd_kernel``
 (``repro/kernels/flash_attention/flash_attention.py:29``).  It reads the
 model's (B, S, H, D) layout through strides: only the head dim must be
-contiguous.  It checks device, dtype, shape and layout, allocates the
-output, launches on the current stream, raises on a launch error and counts
-its launches in ``.launches`` (a plain int, reset by the caller).
-``flash_attention_sync_cuda`` launches the earlier design (synchronous K/V
-loads, no ldmatrix) on the same terms; no model path calls it, it is the
+contiguous.  It takes the JAX layer's ``q_offset`` (the absolute position of
+query row 0, for a prefill continuation) and ``kv_valid_len`` (a (B,) count
+of live keys a batch row).  It checks device, dtype, shape and layout,
+allocates the output, launches on the current stream, raises on a launch
+error and counts its launches in ``.launches`` (a plain int, reset by the
+caller).  ``flash_attention_sync_cuda`` launches the earlier design
+(synchronous K/V loads, no ldmatrix, neither ``q_offset`` nor
+``kv_valid_len``) on the same terms; no model path calls it, it is the
 yardstick ``chip_smoke.py`` times.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Sequence
 
 import torch
 
@@ -51,7 +55,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                              f"aligned start (got strides {t.stride()})")
 
 
-def _launch(library: str, fn: str, q, k, v, causal, window, logit_cap):
+def _launch(library: str, fn: str, q, k, v, causal, window, logit_cap, *extra):
+    """``extra``: the launcher's arguments between the soft-cap and the
+    stream."""
     _check(q, k, v)
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -66,20 +72,32 @@ def _launch(library: str, fn: str, q, k, v, causal, window, logit_cap):
         code = getattr(lib, fn)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
             B, Sq, Sk, H, Hkv, D, 1.0 / math.sqrt(D), int(bool(causal)),
-            int(window), float(logit_cap), stream)
+            int(window), float(logit_cap), *extra, stream)
     _build.check(library, code, fn)
     return out, True
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: int = 0,
-                         logit_cap: float = 0.0) -> torch.Tensor:
+                         logit_cap: float = 0.0, q_offset: int = 0,
+                         kv_valid_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, Sq, H, D), k/v (B, Sk, Hkv, D) bf16 on the card -> (B, Sq, H, D)
     bf16: softmax(q k^T / sqrt(D)) v with optional tanh soft-cap
     ``cap * tanh(s / cap)``, causal mask ``k <= q`` and window mask
-    ``k > q - window``; query head h reads KV head ``h // (H / Hkv)``."""
+    ``k > q - window`` at query position ``q = q_offset + row``, and keys at
+    or past ``kv_valid_len[b]`` masked; query head h reads KV head
+    ``h // (H / Hkv)``.  A row that sees no key gets zeros."""
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} must be >= 0")
+    kv_len = None
+    if kv_valid_len is not None:
+        if tuple(kv_valid_len.shape) != (q.shape[0],):
+            raise ValueError(f"flash_attention: kv_valid_len must be ({q.shape[0]},), "
+                             f"got {tuple(kv_valid_len.shape)}")
+        kv_len = kv_valid_len.to(device=q.device, dtype=torch.int32).contiguous()
     out, launched = _launch("flash_attention", "flash_attention_fwd", q, k, v,
-                            causal, window, logit_cap)
+                            causal, window, logit_cap, int(q_offset),
+                            None if kv_len is None else kv_len.data_ptr())
     flash_attention_cuda.launches += launched
     return out
 
@@ -102,15 +120,19 @@ flash_attention_sync_cuda.launches = 0
 
 
 def flops_bytes(B: int, Sq: int, Sk: int, H: int, Hkv: int, D: int, causal: bool,
-                window: int, itemsize: int = 2) -> tuple:
+                window: int, itemsize: int = 2, q_offset: int = 0,
+                kv_valid_len: Optional[Sequence[int]] = None) -> tuple:
     """(operations, device-memory bytes) of one call: 4·D flops (q·k and
-    p·v) for every (b, h, q, k) pair the masks let through, and q, k, v
-    read once and o written once."""
+    p·v) for every (b, h, q, k) pair the masks let through, and q, o and
+    each row's live keys and values moved once."""
+    lens = [Sk] * B if kv_valid_len is None else [min(Sk, max(0, int(n)))
+                                                   for n in kv_valid_len]
     live = 0
-    for qp in range(Sq):
-        hi = min(Sk, qp + 1) if causal else Sk
-        lo = max(0, qp - window + 1) if window > 0 else 0
-        live += max(0, hi - lo)
-    ops = 4.0 * B * H * D * live
-    nbytes = itemsize * (2.0 * B * Sq * H * D + 2.0 * B * Sk * Hkv * D)
+    for n in lens:
+        for qp in range(q_offset, q_offset + Sq):
+            hi = min(n, qp + 1) if causal else n
+            lo = max(0, qp - window + 1) if window > 0 else 0
+            live += max(0, hi - lo)
+    ops = 4.0 * H * D * live
+    nbytes = itemsize * (2.0 * B * Sq * H * D + 2.0 * sum(lens) * Hkv * D)
     return ops, nbytes

@@ -3,8 +3,8 @@
 Dispatch follows the tensors: a CUDA tensor launches the Hopper kernel
 (``flash_attention_cuda``) or raises; a CPU tensor takes the plain PyTorch
 version (``ref.chunked_attention_ref``).  No path runs the plain version on
-a CUDA tensor.  What the kernel does not take (a ``q_offset``, a
-``kv_valid_len``, a dtype other than bf16) raises on the card.
+a CUDA tensor.  What the kernel does not take (a dtype other than bf16, a
+negative ``q_offset``) raises on the card.
 """
 from __future__ import annotations
 
@@ -21,17 +21,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     *, chunk: int = 256, q_offset: int = 0,
                     kv_valid_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, Sq, H, D), k/v (B, Sk, Hkv, D) -> (B, Sq, H, D) in q's dtype.
-    ``chunk`` is the KV chunk of the plain version; ``q_offset`` and
-    ``kv_valid_len`` are taken on the CPU only."""
+    ``chunk`` is the KV chunk of the plain version; ``q_offset`` is the
+    absolute position of q[0] and ``kv_valid_len`` (B,) masks keys at or
+    past each row's valid length."""
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"query heads {q.shape[2]} are not a multiple of KV "
                          f"heads {k.shape[2]}")
     if q.device.type == "cuda":
-        if q_offset != 0 or kv_valid_len is not None:
-            raise NotImplementedError(
-                "the flash-attention kernel takes neither q_offset nor "
-                "kv_valid_len (prefill continuation and decode are not ported)")
-        return flash_attention_cuda(q, k, v, causal, window, logit_cap)
+        return flash_attention_cuda(q, k, v, causal, window, logit_cap,
+                                    q_offset=q_offset, kv_valid_len=kv_valid_len)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
     return chunked_attention_ref(q, k, v, causal, window, logit_cap, chunk,

@@ -86,3 +86,19 @@ def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     out = acc / torch.clamp(l, min=1e-20)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def rows_with_keys(B: int, Sq: int, Sk: int, causal: bool = True, window: int = 0,
+                   q_offset: int = 0, kv_valid_len: Optional[torch.Tensor] = None,
+                   device=None) -> torch.Tensor:
+    """(B, Sq) bool: the query rows that see at least one key under the
+    masks.  The kernel gives the other rows zeros and the plain version a
+    softmax over masked keys, so comparisons leave them out."""
+    if device is None and kv_valid_len is not None:
+        device = kv_valid_len.device
+    pos = q_offset + torch.arange(Sq, device=device)[None, :]
+    n = (torch.full((B, 1), Sk, device=device) if kv_valid_len is None
+         else kv_valid_len.to(device).long().clamp(0, Sk)[:, None])
+    hi = torch.minimum(n, pos + 1) if causal else n.expand(B, Sq)
+    lo = (pos - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(pos)
+    return hi > lo

@@ -1,4 +1,5 @@
-"""Decoder-only LM, prefill (the JAX package's ``models/lm.py`` in PyTorch).
+"""Decoder-only LM, prefill and single-token decode (the JAX package's
+``models/lm.py`` in PyTorch).
 
 One code path, driven by ``ModelConfig.segments``.  Conventions kept from
 the reference, so that its parameters carry across as a copy:
@@ -9,10 +10,10 @@ the reference, so that its parameters carry across as a copy:
 
 The reference's ``lax.scan`` over units is a Python loop over the unit
 index; its sharding constraints have no counterpart here.  Ported kinds:
-``attn`` (attention + MLP), ``rglru`` (RG-LRU + MLP) and ``ssm`` (the
-Mamba-2 block).  ``moe`` and ``xattn`` blocks raise ``NotImplementedError``:
-their specs are data and are built, but their layers come with later slices
-of the port.
+``attn`` (attention + MLP), ``moe`` (attention + MoE FFN), ``rglru``
+(RG-LRU + MLP) and ``ssm`` (the Mamba-2 block).  ``xattn`` blocks raise
+``NotImplementedError``: their specs are data and are built, but the
+cross-attention decoder comes with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -25,18 +26,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike
-from ..layers.attention import AttnSpec, chunked_attention
+from ..layers.attention import AttnSpec, chunked_attention, decode_attention
 from ..layers.common import apply_rope, gated_mlp, layer_norm, mlp, rms_norm, sinusoidal_at
-from ..layers.rglru import rglru_scan, short_conv1d
-from ..layers.ssd import ssd_chunked
+from ..layers.moe import MoESpec, moe_ffn
+from ..layers.rglru import rglru_scan, rglru_step, short_conv1d
+from ..layers.ssd import ssd_chunked, ssd_step
 from .config import ModelConfig
 from .params import ParamSpec, Params, Specs, init_params, params_from_numpy
 
 Cache = Dict[str, torch.Tensor]
 
-PORTED_KINDS = ("attn", "rglru", "ssm")
+PORTED_KINDS = ("attn", "moe", "rglru", "ssm")
 _NOT_PORTED = {
-    "moe": "the MoE block (layers/moe.py) is not ported yet",
     "xattn": "the cross-attention decoder (whisper) is not ported yet",
 }
 
@@ -228,22 +229,42 @@ def _mlp_block(cfg, p, prefix, x):
     return x + y
 
 
-def _rglru_block(cfg, p, prefix, x, conv_state=None, h_state=None):
-    """Griffin recurrent block.  Returns (y, (conv_state, h_state))."""
+def _moe_block(cfg, p, prefix, x):
+    """Norm, MoE FFN, residual.  Returns (y, aux_loss)."""
+    h = _norm(cfg, x, p, prefix)
+    spec = MoESpec(num_experts=cfg.num_experts, top_k=cfg.top_k,
+                   capacity_factor=cfg.capacity_factor, act=cfg.act,
+                   group_size=cfg.moe_group_size)
+    y, aux = moe_ffn(h, p[f"{prefix}/router"], p[f"{prefix}/w_gate"],
+                     p[f"{prefix}/w_up"], p[f"{prefix}/w_down"], spec)
+    return x + y, aux
+
+
+def _rglru_block(cfg, p, prefix, x, conv_state=None, h_state=None, step=False):
+    """Griffin recurrent block.  Returns (y, (conv_state, h_state)).
+    ``step``: x is one decode token and the recurrence takes its single-step
+    update (``rglru_step``) instead of the scan."""
     h = _norm(cfg, x, p, prefix)
     xb = h @ p[f"{prefix}/w_x"]
     gate = F.gelu(h @ p[f"{prefix}/w_gate"], approximate="tanh")
     xb, conv_state = short_conv1d(xb, p[f"{prefix}/conv_w"], conv_state)
     r = torch.sigmoid(xb @ p[f"{prefix}/w_r"])
     i = torch.sigmoid(xb @ p[f"{prefix}/w_i"])
-    y, h_last = rglru_scan(xb, r, i, p[f"{prefix}/a_param"], h_state)
+    if step:
+        y, h_last = rglru_step(xb[:, 0], r[:, 0], i[:, 0], p[f"{prefix}/a_param"],
+                               h_state)
+        y = y[:, None]
+    else:
+        y, h_last = rglru_scan(xb, r, i, p[f"{prefix}/a_param"], h_state)
     y = y * gate
     return x + y @ p[f"{prefix}/w_out"], (conv_state, h_last)
 
 
-def _ssm_block(cfg, p, prefix, x, conv_state=None, h_state=None):
+def _ssm_block(cfg, p, prefix, x, conv_state=None, h_state=None, step=False):
     """Mamba-2 block.  Returns (y, (conv_state, h_state)).  B and C are
-    shared by the heads: they go to the SSD as stride-0 head views."""
+    shared by the heads: they go to the SSD as stride-0 head views.
+    ``step``: x is one decode token and the state takes its single-step
+    update (``ssd_step``) instead of the chunked SSD."""
     B_, S, _ = x.shape
     Hs, P, N = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state
     h = _norm(cfg, x, p, prefix)
@@ -258,8 +279,13 @@ def _ssm_block(cfg, p, prefix, x, conv_state=None, h_state=None):
     xh = xi.reshape(B_, S, Hs, P)
     Bh = Bm[:, :, None, :].expand(B_, S, Hs, N)
     Ch = Cm[:, :, None, :].expand(B_, S, Hs, N)
-    y, h_last = ssd_chunked(xh, dt, A, Bh, Ch, p[f"{prefix}/d_skip"],
-                            chunk=cfg.ssm_chunk, h0=h_state)
+    if step:
+        y, h_last = ssd_step(xh[:, 0], dt[:, 0], A, Bh[:, 0], Ch[:, 0],
+                             p[f"{prefix}/d_skip"], h_state)
+        y = y[:, None]
+    else:
+        y, h_last = ssd_chunked(xh, dt, A, Bh, Ch, p[f"{prefix}/d_skip"],
+                                chunk=cfg.ssm_chunk, h0=h_state)
     y = y.reshape(B_, S, -1)
     y = rms_norm(y, p[f"{prefix}/gate_norm"]) * F.silu(z)
     return x + y @ p[f"{prefix}/w_out"], (conv_state, h_last)
@@ -364,7 +390,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             unit_params = {k: v[u] for k, v in sp.items()}
             for li, kind in enumerate(seg.pattern):
                 pref = f"seg{si}/l{li}"
-                if kind == "attn":
+                if kind in ("attn", "moe"):
                     hh = _norm(cfg, x, unit_params, f"{pref}/attn")
                     q, k, v = _qkv(cfg, unit_params, f"{pref}/attn", hh, positions)
                     o = chunked_attention(q, k, v, _attn_spec(cfg, True))
@@ -377,22 +403,20 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                     slots = torch.arange(S_total - ins, S_total, device=x.device) % size
                     kc[:, slots] = k[:, -ins:].to(kc.dtype)
                     vc[:, slots] = v[:, -ins:].to(vc.dtype)
-                    x = _mlp_block(cfg, unit_params, f"{pref}/mlp", x)
-                elif kind == "rglru":
+                    if kind == "moe":
+                        x, _ = _moe_block(cfg, unit_params, f"{pref}/moe", x)
+                    else:
+                        x = _mlp_block(cfg, unit_params, f"{pref}/mlp", x)
+                elif kind in ("rglru", "ssm"):
+                    block = _rglru_block if kind == "rglru" else _ssm_block
                     conv, hst = cache[f"{pref}/conv"][u], cache[f"{pref}/h"][u]
-                    x, (conv_new, h_new) = _rglru_block(
-                        cfg, unit_params, f"{pref}/rglru", x, conv_state=conv,
+                    x, (conv_new, h_new) = block(
+                        cfg, unit_params, f"{pref}/{kind}", x, conv_state=conv,
                         h_state=hst)
                     conv.copy_(conv_new)
                     hst.copy_(h_new)
-                    x = _mlp_block(cfg, unit_params, f"{pref}/mlp", x)
-                elif kind == "ssm":
-                    conv, hst = cache[f"{pref}/conv"][u], cache[f"{pref}/h"][u]
-                    x, (conv_new, h_new) = _ssm_block(
-                        cfg, unit_params, f"{pref}/ssm", x, conv_state=conv,
-                        h_state=hst)
-                    conv.copy_(conv_new)
-                    hst.copy_(h_new)
+                    if kind == "rglru":
+                        x = _mlp_block(cfg, unit_params, f"{pref}/mlp", x)
 
     logits = unembed(cfg, params, x[:, -1:]).float()[:, 0]
     return logits, cache, S_total
@@ -421,6 +445,69 @@ def _prefill_row_chunked(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 
 # ===========================================================================
+# Decode
+# ===========================================================================
+
+@torch.inference_mode()
+def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
+                cache_len, tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+    """One decode step.  tokens: (B, 1); cache_len: int or 0-d tensor, the
+    number of tokens already in the cache.  Returns (logits (B, 1, V) f32,
+    cache).  The cache's tensors are updated IN PLACE and the same dict is
+    returned: copy a leaf first where its old value is still needed.
+
+    Attention caches are ring buffers of size min(cache, window): the new
+    token's K/V go to slot ``cache_len % size`` with RoPE at the absolute
+    position ``cache_len``, and the attention sees the
+    ``min(cache_len + 1, size)`` live slots with no window mask (the ring
+    is the window).  The RG-LRU and SSM blocks take their single-step
+    updates; no kernel is launched."""
+    check_ported(cfg)
+    x = embed_tokens(cfg, params, tokens)
+    clen = torch.as_tensor(cache_len, dtype=torch.int64, device=x.device).reshape(())
+    positions = clen.reshape(1)
+    if cfg.abs_positions:
+        x = x + sinusoidal_at(positions, cfg.d_model, x.dtype)
+    spec = AttnSpec(causal=True, window=0, logit_cap=cfg.logit_cap)
+
+    for si, seg in enumerate(cfg.segments):
+        pref_seg = f"seg{si}/"
+        sp = {k: v for k, v in params.items() if k.startswith(pref_seg)}
+        for u in range(seg.num_units):
+            unit_params = {k: v[u] for k, v in sp.items()}
+            for li, kind in enumerate(seg.pattern):
+                pref = f"seg{si}/l{li}"
+                if kind in ("attn", "moe"):
+                    hh = _norm(cfg, x, unit_params, f"{pref}/attn")
+                    q, k, v = _qkv(cfg, unit_params, f"{pref}/attn", hh, positions)
+                    kc, vc = cache[f"{pref}/k"][u], cache[f"{pref}/v"][u]
+                    size = kc.shape[1]
+                    slot = (clen % size).reshape(1)
+                    kc.index_copy_(1, slot, k.to(kc.dtype))
+                    vc.index_copy_(1, slot, v.to(vc.dtype))
+                    valid = torch.clamp(clen + 1, max=size)
+                    o = decode_attention(q, kc, vc, valid, spec)
+                    x = x + _attn_out(cfg, unit_params, f"{pref}/attn", o)
+                    if kind == "moe":
+                        x, _ = _moe_block(cfg, unit_params, f"{pref}/moe", x)
+                    else:
+                        x = _mlp_block(cfg, unit_params, f"{pref}/mlp", x)
+                elif kind in ("rglru", "ssm"):
+                    block = _rglru_block if kind == "rglru" else _ssm_block
+                    conv, hst = cache[f"{pref}/conv"][u], cache[f"{pref}/h"][u]
+                    x, (conv_new, h_new) = block(
+                        cfg, unit_params, f"{pref}/{kind}", x, conv_state=conv,
+                        h_state=hst, step=True)
+                    conv.copy_(conv_new)
+                    hst.copy_(h_new)
+                    if kind == "rglru":
+                        x = _mlp_block(cfg, unit_params, f"{pref}/mlp", x)
+
+    logits = unembed(cfg, params, x).float()
+    return logits, cache
+
+
+# ===========================================================================
 # Module
 # ===========================================================================
 
@@ -433,7 +520,7 @@ def _param_name(key: str) -> str:
 class CausalLM(nn.Module):
     """The LM's parameters as an ``nn.Module``: every JAX key
     ``seg{i}/l{j}/<block>/<leaf>`` is the parameter ``seg{i}__l{j}__...``.
-    ``prefill`` is the entry point."""
+    ``prefill`` and ``decode_step`` are the entry points."""
 
     def __init__(self, cfg: ModelConfig, params: Optional[Params] = None, *,
                  seed: int = 0, device: DeviceLike = None):
@@ -464,5 +551,14 @@ class CausalLM(nn.Module):
         tokens = tokens.to(device)
         return prefill(self.cfg, self.params(), tokens,
                        tokens.shape[1] if cache_size is None else cache_size)
+
+    def decode_step(self, tokens: torch.Tensor, cache: Cache, cache_len):
+        """``decode_step`` on this model's parameters: tokens (B, 1) after
+        ``cache_len`` tokens; updates ``cache`` in place and returns
+        (logits (B, 1, V) f32, cache)."""
+        if not torch.is_tensor(tokens):
+            tokens = torch.as_tensor(tokens)
+        device = next(self.parameters()).device
+        return decode_step(self.cfg, self.params(), cache, cache_len, tokens.to(device))
 
     forward = prefill

@@ -241,13 +241,20 @@ from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     flash_attention_cuda,
     flash_attention_sync_cuda,
 )
-from repro_torch.kernels.flash_attention.ref import chunked_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    chunked_attention_ref,
+    rows_with_keys,
+)
 from repro_torch.kernels.rglru import ops as rglru_ops  # noqa: E402
 from repro_torch.kernels.rglru.ref import rglru_chunked_ref, rglru_ref  # noqa: E402
 from repro_torch.kernels.rglru.rglru import rglru_cuda, rglru_serial_cuda  # noqa: E402
 
 # bf16 kernel output against the plain version taken in f32: bf16 rounds
-# q, k, v and p (2^-9 relative) and the output.
+# q, k, v and p (2^-9 relative) and the output.  The flash kernel scales q
+# and rounds it to bf16 before Q K^T, as the JAX layer does, so it is held
+# against the plain version on its own bf16 inputs (f32 arithmetic inside,
+# q pre-scaled in bf16, p rounded to bf16); the earlier kernel, which scales
+# the product, against the plain version on inputs widened to f32.
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 
 
@@ -271,8 +278,7 @@ class TestFlashAttentionOnCard:
                                           window, cap):
         q, k, v = _qkv(cuda, B, S, S, H, Hkv, D, seed=S + D, scale=2.0 if cap else 1.0)
         got = flash_attention_cuda(q, k, v, causal, window, cap)
-        want = chunked_attention_ref(q.float(), k.float(), v.float(), causal,
-                                     window, cap)
+        want = chunked_attention_ref(q, k, v, causal, window, cap).float()
         assert got.dtype == torch.bfloat16 and got.shape == q.shape
         torch.testing.assert_close(got.float(), want, **BF16_TOL)
 
@@ -291,7 +297,7 @@ class TestFlashAttentionOnCard:
     ])
     def test_tile_edges(self, cuda, B, Sq, Sk, H, Hkv, D, causal, window):
         q, k, v = _qkv(cuda, B, Sq, Sk, H, Hkv, D, seed=Sq + Sk + window)
-        want = chunked_attention_ref(q.float(), k.float(), v.float(), causal, window)
+        want = chunked_attention_ref(q, k, v, causal, window).float()
         got = flash_attention_cuda(q, k, v, causal, window)
         torch.testing.assert_close(got.float(), want, **BF16_TOL)
 
@@ -310,7 +316,7 @@ class TestFlashAttentionOnCard:
         qkv = torch.randn(B, S, 3 * H, D, device=cuda).bfloat16()
         q, k, v = qkv[:, :, :H], qkv[:, :, H:2 * H], qkv[:, :, 2 * H:]
         got = flash_attention_cuda(q, k, v, True, 0, 0.0)
-        want = chunked_attention_ref(q.float(), k.float(), v.float(), True)
+        want = chunked_attention_ref(q, k, v, True).float()
         torch.testing.assert_close(got.float(), want, **BF16_TOL)
 
     def test_refusals(self, cuda):
@@ -324,13 +330,50 @@ class TestFlashAttentionOnCard:
             flash_attention_cuda(q.transpose(1, 3).contiguous().transpose(1, 3), k, v)
         with pytest.raises(ValueError, match="head dim"):
             flash_attention_cuda(*_qkv(cuda, 1, 8, 8, 2, 2, 264, seed=1))
-        with pytest.raises(NotImplementedError, match="q_offset"):
-            flash_ops.flash_attention(q, k, v, q_offset=3)
-        with pytest.raises(NotImplementedError, match="kv_valid_len"):
-            flash_ops.flash_attention(q, k, v, kv_valid_len=torch.ones(1, device=cuda))
+        with pytest.raises(ValueError, match="q_offset"):
+            flash_ops.flash_attention(q, k, v, q_offset=-1)
+        with pytest.raises(ValueError, match="kv_valid_len"):
+            flash_ops.flash_attention(q, k, v, kv_valid_len=torch.ones(2, device=cuda))
         assert flash_attention_cuda.launches == before
         flash_ops.flash_attention(q, k, v, True, 16)
         assert flash_attention_cuda.launches == before + 1
+
+    # Prefill continuation (query row i at position q_offset + i) and ragged
+    # valid lengths (keys at or past kv_valid_len[b] masked): the rows that
+    # see a key against the plain version, the rows that see none zero (the
+    # plain version gives them a softmax over masked keys).
+    @pytest.mark.parametrize("B, Sq, Sk, H, Hkv, D, causal, window", [
+        (2, 100, 300, 8, 2, 128, True, 0),       # GQA, continuation
+        (3, 64, 700, 16, 1, 256, True, 257),     # MQA at D 256, window
+        (2, 1, 513, 4, 4, 64, True, 0),          # one decode token
+        (2, 130, 130, 4, 2, 128, False, 0),      # not causal: valid lengths only
+        (1, 200, 1000, 16, 1, 256, True, 128),   # window ends inside the new rows
+        (2, 77, 141, 6, 3, 32, True, 40)])       # ragged everywhere
+    @pytest.mark.parametrize("ragged", [False, True])
+    def test_offset_and_valid_length(self, cuda, B, Sq, Sk, H, Hkv, D, causal, window,
+                                     ragged):
+        q, k, v = _qkv(cuda, B, Sq, Sk, H, Hkv, D, seed=Sq + Sk + window)
+        rng = np.random.default_rng(Sk)
+        valid = (torch.from_numpy(rng.integers(1, Sk + 1, B).astype(np.int32)).to(cuda)
+                 if ragged else None)
+        off = Sk - Sq
+        before = flash_attention_cuda.launches
+        got = flash_ops.flash_attention(q, k, v, causal, window, q_offset=off,
+                                        kv_valid_len=valid)
+        assert flash_attention_cuda.launches == before + 1
+        want = chunked_attention_ref(q, k, v, causal, window, q_offset=off,
+                                     kv_valid_len=valid).float()
+        live = rows_with_keys(B, Sq, Sk, causal, window, off, valid, device=cuda)
+        assert not got[~live].any()
+        torch.testing.assert_close(got[live].float(), want[live], **BF16_TOL)
+
+    def test_valid_length_zero_gives_zeros(self, cuda):
+        q, k, v = _qkv(cuda, 2, 40, 90, 4, 2, 64, seed=3)
+        valid = torch.tensor([0, 90], dtype=torch.int32, device=cuda)
+        got = flash_attention_cuda(q, k, v, True, 0, 0.0, 50, valid)
+        assert not got[0].any()
+        want = chunked_attention_ref(q[1:], k[1:], v[1:], True, q_offset=50).float()
+        torch.testing.assert_close(got[1:].float(), want, **BF16_TOL)
 
 
 @pytest.mark.cuda
@@ -504,3 +547,47 @@ class TestSSDOnCard:
         with pytest.raises(ValueError, match="state size"):
             ssd_cuda(x, dt, A, *(torch.zeros(2, 40, 4, 129, device=cuda),) * 2, D)
         assert ssd_cuda.launches == before
+
+
+# -- decode --------------------------------------------------------------------
+
+from repro_torch.models import lm as torch_lm  # noqa: E402
+from repro_torch.models.base import get_config  # noqa: E402
+from repro_torch.models.params import init_params  # noqa: E402
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return ((got - want).norm() / want.norm()).item()
+
+
+@pytest.mark.cuda
+class TestDecodeOnCard:
+    # Reduced configs, the same seeded bf16 weights on the card and on the
+    # CPU: the prefill (the kernels on the card, their plain versions on the
+    # CPU) and six decode steps (plain ops on both) within a relative L2
+    # error of 5e-2, the smoke's bar (bf16 rounds at other places in the
+    # kernels than in the plain versions).  recurrentgemma's ring of 16
+    # wraps; the steps launch no kernel.
+    @pytest.mark.parametrize("arch", ["recurrentgemma_9b", "mamba2_370m", "olmoe_1b_7b",
+                                      "yi_6b"])
+    def test_decode_step_matches_cpu(self, cuda, arch):
+        cfg = get_config(arch).reduced()
+        params = init_params(torch_lm.build_specs(cfg), seed=1, device="cpu")
+        on_card = {k: v.to(cuda) for k, v in params.items()}
+        S, n = 24, 6
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, S + n)).astype(np.int32))
+        want, cache_cpu, clen = torch_lm.prefill(cfg, params, toks[:, :S], S + n)
+        got, cache_card, _ = torch_lm.prefill(cfg, on_card, toks[:, :S].to(cuda), S + n)
+        assert _rel_l2(got, want) < 5e-2
+        kernels = (flash_attention_cuda, rglru_cuda, ssd_cuda)
+        before = [k.launches for k in kernels]
+        for t in range(n):
+            step = toks[:, S + t:S + t + 1]
+            want, cache_cpu = torch_lm.decode_step(cfg, params, cache_cpu, clen + t, step)
+            got, cache_card = torch_lm.decode_step(cfg, on_card, cache_card, clen + t,
+                                                   step.to(cuda))
+            assert got.is_cuda and got.shape == (2, 1, cfg.vocab_size)
+            assert _rel_l2(got, want) < 5e-2, t
+        assert [k.launches for k in kernels] == before

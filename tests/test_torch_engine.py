@@ -58,7 +58,8 @@ def _same_report(got, want):
             assert got[key] == val, key
 
 
-@pytest.mark.parametrize("arch", ["yi_6b", "recurrentgemma_9b", "mamba2_370m"])
+@pytest.mark.parametrize("arch", ["yi_6b", "recurrentgemma_9b", "mamba2_370m", "olmoe_1b_7b",
+                                  "mixtral_8x22b"])
 def test_single_job_matches_reference(arch):
     jex, tex = _executors(arch)
     # a tight deadline: the plan must start batches inside the window

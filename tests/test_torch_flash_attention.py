@@ -15,7 +15,11 @@ from repro.layers.attention import AttnSpec as JSpec
 from repro.layers.attention import chunked_attention as jax_chunked
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.flash_attention import flops_bytes
-from repro_torch.kernels.flash_attention.ref import attention_ref, chunked_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_ref,
+    chunked_attention_ref,
+    rows_with_keys,
+)
 from repro_torch.layers.attention import AttnSpec, chunked_attention
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -143,3 +147,36 @@ def test_flops_bytes_count_live_pairs(causal, window, want_pairs):
     assert brute == want_pairs
     assert ops_ == 4.0 * 2 * 8 * brute
     assert nbytes == 2 * (2 * 10 * 2 * 8 + 2 * 10 * 1 * 8)
+
+
+@pytest.mark.parametrize("causal, window", [(True, 0), (True, 5), (False, 0), (False, 4)])
+def test_flops_bytes_with_offset_and_valid_length(causal, window):
+    """Query row i at position q_offset + i, keys of row b live below
+    kv_valid_len[b]: operations count each row's live pairs, bytes each
+    row's live keys and values."""
+    valid = [12, 3]
+    ops_, nbytes = flops_bytes(2, 4, 12, 2, 1, 8, causal, window, q_offset=8,
+                               kv_valid_len=valid)
+    brute = sum(1 for n in valid for qp in range(8, 12) for kp in range(n)
+                if (not causal or kp <= qp) and (window <= 0 or kp > qp - window))
+    assert ops_ == 4.0 * 2 * 8 * brute
+    assert nbytes == 2 * (2 * 2 * 4 * 2 * 8 + 2 * sum(valid) * 1 * 8)
+
+
+@pytest.mark.parametrize("causal, window, q_offset, valid", [
+    (True, 0, 0, None), (True, 4, 6, [10, 2]), (False, 0, 3, [0, 7]),
+    (True, 3, 20, [5, 10]), (False, 6, 2, None)])
+def test_rows_with_keys_matches_the_masks(causal, window, q_offset, valid):
+    """The rows the plain version's masks leave a key for; a row with none
+    gets a softmax over masked keys (finite NEG_INF), which the kernel
+    replaces by zeros."""
+    B, Sq, Sk = 2, 5, 10
+    kv = None if valid is None else torch.tensor(valid)
+    got = rows_with_keys(B, Sq, Sk, causal, window, q_offset, kv)
+    for b in range(B):
+        n = Sk if valid is None else valid[b]
+        for i in range(Sq):
+            qp = q_offset + i
+            want = any((not causal or kp <= qp) and (window <= 0 or kp > qp - window)
+                       for kp in range(n))
+            assert bool(got[b, i]) == want, (b, i)

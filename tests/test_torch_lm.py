@@ -293,9 +293,7 @@ def test_prefill_row_chunks_and_vision_prefix():
         np.testing.assert_allclose(_np(t_cache[k]), np.asarray(v), err_msg=k, **TOL)
 
 
-@pytest.mark.parametrize("arch, kind", [("olmoe_1b_7b", "moe"),
-                                        ("mixtral_8x22b", "moe"),
-                                        ("whisper_medium", "xattn")])
+@pytest.mark.parametrize("arch, kind", [("whisper_medium", "xattn")])
 def test_unported_kinds_raise(arch, kind):
     cfg = TB.get_config(arch).reduced()
     specs = TL.build_specs(cfg)          # specs are data: built for every kind
