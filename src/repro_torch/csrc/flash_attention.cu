@@ -6,6 +6,12 @@
 //
 // Replaces _flash_fwd_kernel of the JAX package
 // (src/repro/kernels/flash_attention/flash_attention.py:29, launched at :121).
+// Its rounding follows the JAX layer that the JAX package's models run
+// (_flash_fwd, src/repro/layers/attention.py:120; no model calls the Pallas
+// kernel) and the port's plain version (chunked_attention_ref), not the
+// Pallas kernel: q is scaled by 1/sqrt(D) in f32 and rounded to bf16 before
+// Q K^T (the Pallas kernel scales the f32 product), and p is rounded to bf16
+// before P V (the Pallas kernel keeps it in f32).
 // That kernel runs a (B, H, q-block, k-block) grid whose last axis is
 // sequential on the TPU, carrying (m, l, acc) in VMEM scratch across k-blocks,
 // and reads a (B, H, S, D) layout padded to block multiples.  Here one block
@@ -36,8 +42,9 @@
 // barrier a tile frees the stage.  Q comes once through cp.async, and each
 // thread scales the chunks it loaded by 1/sqrt(D) in f32 and rounds them
 // back to bf16 (the JAX layer's q pre-scaling: at D = 128, where the scale
-// is no power of two, the seeded models' scores of some thousands part by
-// several units from a product scaled after the fact).  Each
+// is no power of two, a product scaled after the fact parts the seeded
+// models' scores of some thousands by several units from the layer's, and
+// decode, which pre-scales q, from prefill).  Each
 // warpgroup (64 query rows) runs its products on the tensor cores with
 // wgmma: S = Q K^T (m64n64k16, Q and K from shared memory), then the row
 // max / sum of the online softmax on the accumulator fragments (quad

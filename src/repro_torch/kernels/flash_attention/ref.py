@@ -7,6 +7,10 @@
   (``repro/layers/attention.py`` ``_fwd_scan``), with q scaled in f32 and
   cast back to q's dtype first and p cast to v's dtype before ``p @ v``.
   It never materialises Sq x Sk, only (Sq x chunk) per step.
+* ``chunked_attention_f32_ref``: the standard the kernel is held to: the
+  plain version in f32 but for the one rounding that the kernel shares
+  with the JAX layer, q/sqrt(D) rounded to q's dtype; k, v and p stay f32,
+  so the kernel's own bf16 roundings count against the tolerance.
 """
 from __future__ import annotations
 
@@ -46,14 +50,16 @@ def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, window: int = 0,
                           logit_cap: float = 0.0, chunk: int = 256,
                           q_offset: int = 0,
-                          kv_valid_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          kv_valid_len: Optional[torch.Tensor] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """q (B,Sq,H,D), k/v (B,Sk,Hkv,D) -> (B,Sq,H,D) in q's dtype.
     ``q_offset`` is the absolute position of q[0]; ``kv_valid_len`` (B,)
-    masks keys at or past each row's valid length."""
+    masks keys at or past each row's valid length; ``scale`` multiplies q
+    (1/sqrt(D) when None)."""
     B, Sq, H, D = q.shape
     Hkv, Sk = k.shape[2], k.shape[1]
     g = H // Hkv
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     qg = (q.float() * scale).to(q.dtype).reshape(B, Sq, Hkv, g, D)
     C = min(chunk, Sk)
     q_pos = q_offset + torch.arange(Sq, device=q.device)
@@ -86,6 +92,15 @@ def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     out = acc / torch.clamp(l, min=1e-20)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def chunked_attention_f32_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              *args, **kwargs) -> torch.Tensor:
+    """``chunked_attention_ref`` in f32 on q scaled by 1/sqrt(D) in f32 and
+    rounded to q's dtype (as the JAX layer and the kernel round it), with k
+    and v widened to f32 and p kept in f32.  Returns f32."""
+    qs = (q.float() * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype).float()
+    return chunked_attention_ref(qs, k.float(), v.float(), *args, scale=1.0, **kwargs)
 
 
 def rows_with_keys(B: int, Sq: int, Sk: int, causal: bool = True, window: int = 0,

@@ -84,7 +84,10 @@ def moe_ffn(
     w_down: torch.Tensor,     # (E, F, D)
     spec: MoESpec,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (B, S, D) in x's dtype, aux_loss)."""
+    """Returns (y (B, S, D) in x's dtype, aux_loss).  ``moe_ffn.dropped``
+    adds up the token-choices dropped by capacity over calls (a tensor on
+    x's device, read without a sync until the caller reads it; the caller
+    resets it to 0)."""
     B, S, D = x.shape
     Tg = min(spec.group_size, S)
     if S % Tg:
@@ -95,6 +98,7 @@ def moe_ffn(
     cap = capacity(spec, Tg)
     xt = x.reshape(G * Tg, D)
     r = route_group((xt @ gate_w).reshape(G, Tg, E), spec, cap)
+    moe_ffn.dropped = moe_ffn.dropped + (~r.keep).sum()
     # Row of each kept choice in the flat (E, G, cap) buffer; dropped
     # choices go to one spare row past the end, which is never read.
     group = torch.arange(G, device=x.device)[:, None, None]
@@ -111,3 +115,6 @@ def moe_ffn(
     rows = ye[torch.where(r.keep.reshape(G * Tg, k), dest, 0)]        # (G*Tg,k,D)
     y = torch.bmm(w, rows)                                         # (G*Tg,1,D)
     return y.reshape(B, S, D), r.aux
+
+
+moe_ffn.dropped = 0

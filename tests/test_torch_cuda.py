@@ -242,6 +242,7 @@ from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     flash_attention_sync_cuda,
 )
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    chunked_attention_f32_ref,
     chunked_attention_ref,
     rows_with_keys,
 )
@@ -250,11 +251,11 @@ from repro_torch.kernels.rglru.ref import rglru_chunked_ref, rglru_ref  # noqa: 
 from repro_torch.kernels.rglru.rglru import rglru_cuda, rglru_serial_cuda  # noqa: E402
 
 # bf16 kernel output against the plain version taken in f32: bf16 rounds
-# q, k, v and p (2^-9 relative) and the output.  The flash kernel scales q
-# and rounds it to bf16 before Q K^T, as the JAX layer does, so it is held
-# against the plain version on its own bf16 inputs (f32 arithmetic inside,
-# q pre-scaled in bf16, p rounded to bf16); the earlier kernel, which scales
-# the product, against the plain version on inputs widened to f32.
+# q, k, v and p (2^-9 relative) and the output.  The flash kernel rounds
+# q/sqrt(D) to bf16 as the JAX layer does, so its reference
+# (chunked_attention_f32_ref) rounds q the same way and keeps k, v and p in
+# f32; the earlier kernel, which scales the product, is held against the
+# plain version on inputs widened to f32.
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 
 
@@ -278,7 +279,7 @@ class TestFlashAttentionOnCard:
                                           window, cap):
         q, k, v = _qkv(cuda, B, S, S, H, Hkv, D, seed=S + D, scale=2.0 if cap else 1.0)
         got = flash_attention_cuda(q, k, v, causal, window, cap)
-        want = chunked_attention_ref(q, k, v, causal, window, cap).float()
+        want = chunked_attention_f32_ref(q, k, v, causal, window, cap)
         assert got.dtype == torch.bfloat16 and got.shape == q.shape
         torch.testing.assert_close(got.float(), want, **BF16_TOL)
 
@@ -297,7 +298,7 @@ class TestFlashAttentionOnCard:
     ])
     def test_tile_edges(self, cuda, B, Sq, Sk, H, Hkv, D, causal, window):
         q, k, v = _qkv(cuda, B, Sq, Sk, H, Hkv, D, seed=Sq + Sk + window)
-        want = chunked_attention_ref(q, k, v, causal, window).float()
+        want = chunked_attention_f32_ref(q, k, v, causal, window)
         got = flash_attention_cuda(q, k, v, causal, window)
         torch.testing.assert_close(got.float(), want, **BF16_TOL)
 
@@ -316,7 +317,7 @@ class TestFlashAttentionOnCard:
         qkv = torch.randn(B, S, 3 * H, D, device=cuda).bfloat16()
         q, k, v = qkv[:, :, :H], qkv[:, :, H:2 * H], qkv[:, :, 2 * H:]
         got = flash_attention_cuda(q, k, v, True, 0, 0.0)
-        want = chunked_attention_ref(q, k, v, True).float()
+        want = chunked_attention_f32_ref(q, k, v, True)
         torch.testing.assert_close(got.float(), want, **BF16_TOL)
 
     def test_refusals(self, cuda):
@@ -361,8 +362,8 @@ class TestFlashAttentionOnCard:
         got = flash_ops.flash_attention(q, k, v, causal, window, q_offset=off,
                                         kv_valid_len=valid)
         assert flash_attention_cuda.launches == before + 1
-        want = chunked_attention_ref(q, k, v, causal, window, q_offset=off,
-                                     kv_valid_len=valid).float()
+        want = chunked_attention_f32_ref(q, k, v, causal, window, q_offset=off,
+                                         kv_valid_len=valid)
         live = rows_with_keys(B, Sq, Sk, causal, window, off, valid, device=cuda)
         assert not got[~live].any()
         torch.testing.assert_close(got[live].float(), want[live], **BF16_TOL)
@@ -372,7 +373,7 @@ class TestFlashAttentionOnCard:
         valid = torch.tensor([0, 90], dtype=torch.int32, device=cuda)
         got = flash_attention_cuda(q, k, v, True, 0, 0.0, 50, valid)
         assert not got[0].any()
-        want = chunked_attention_ref(q[1:], k[1:], v[1:], True, q_offset=50).float()
+        want = chunked_attention_f32_ref(q[1:], k[1:], v[1:], True, q_offset=50)
         torch.testing.assert_close(got[1:].float(), want, **BF16_TOL)
 
 

@@ -17,6 +17,7 @@ from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.flash_attention import flops_bytes
 from repro_torch.kernels.flash_attention.ref import (
     attention_ref,
+    chunked_attention_f32_ref,
     chunked_attention_ref,
     rows_with_keys,
 )
@@ -180,3 +181,37 @@ def test_rows_with_keys_matches_the_masks(causal, window, q_offset, valid):
             want = any((not causal or kp <= qp) and (window <= 0 or kp > qp - window)
                        for kp in range(n))
             assert bool(got[b, i]) == want, (b, i)
+
+
+@pytest.mark.parametrize("causal, window, cap, q_offset, valid", [
+    (True, 0, 0.0, 0, None), (True, 5, 0.0, 7, [9, 16]), (False, 0, 20.0, 0, [3, 16]),
+    (True, 0, 20.0, 12, None)])
+def test_f32_reference_rounds_only_q(causal, window, cap, q_offset, valid):
+    """``chunked_attention_f32_ref`` on bf16 inputs: q/sqrt(D) rounded to
+    bf16, the rest a float64 materialised softmax would give (the standard
+    the card tests hold the kernel to)."""
+    B, Sq, Sk, H, Hkv, D = 2, 4, 16, 4, 2, 48
+    q, k, v = (_torch(a, torch.bfloat16) for a in _inputs(B, Sq, Sk, H, Hkv, D, seed=5,
+                                                            scale=3.0))
+    kv = None if valid is None else torch.tensor(valid, dtype=torch.int32)
+    got = chunked_attention_f32_ref(q, k, v, causal, window, cap, 8, q_offset, kv)
+    assert got.dtype == torch.float32
+    qs = (q.float() * (1.0 / np.sqrt(D))).bfloat16().double()
+    kd = k.double().repeat_interleave(H // Hkv, dim=2)
+    vd = v.double().repeat_interleave(H // Hkv, dim=2)
+    sc = torch.einsum("bqhd,bkhd->bhqk", qs, kd)
+    if cap:
+        sc = cap * torch.tanh(sc / cap)
+    qp = q_offset + torch.arange(Sq)[:, None]
+    kp = torch.arange(Sk)[None, :]
+    ok = torch.ones(Sq, Sk, dtype=torch.bool)
+    if causal:
+        ok &= kp <= qp
+    if window:
+        ok &= kp > qp - window
+    ok = ok[None].expand(B, Sq, Sk).clone()
+    if kv is not None:
+        ok &= kp[None] < kv[:, None, None]
+    p = torch.softmax(sc.masked_fill(~ok[:, None], float("-inf")), dim=-1)
+    want = torch.einsum("bhqk,bkhd->bqhd", p, vd)
+    torch.testing.assert_close(got, want.float(), **F32_TOL)

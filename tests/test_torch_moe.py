@@ -148,6 +148,34 @@ def test_moe_ffn_matches_jax(dtype, B, S, D, E, F, k, cf, group):
     np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("B, S, D, E, F, k, cf, group", [
+    (1, 64, 32, 16, 8, 4, 0.5, 64),     # over capacity: drops
+    (2, 32, 16, 8, 24, 2, 1.25, 16),
+    (2, 48, 16, 4, 16, 1, 4.0, 2048),   # nothing dropped
+])
+def test_moe_ffn_counts_dropped_choices(B, S, D, E, F, k, cf, group):
+    """``moe_ffn.dropped`` adds up, over calls, the token-choices whose
+    reference slot is at or past ``cap``."""
+    args = [torch.from_numpy(a) for a in _ffn_inputs(B, S, D, E, F, seed=S + E)]
+    jspec, tspec = _specs(E, k, cf, group)
+    Tg = min(group, S)
+    logits = (args[0].reshape(-1, D) @ args[1]).reshape(-1, Tg, E).numpy()
+    _, slot = _jax_slots(logits, jspec)
+    want = int((slot >= TM.capacity(tspec, Tg)).sum())
+    if cf < 1.0:
+        assert want > 0
+    if cf == E:
+        assert want == 0
+    TM.moe_ffn.dropped = 0
+    try:
+        TM.moe_ffn(*args, tspec)
+        assert int(TM.moe_ffn.dropped) == want
+        TM.moe_ffn(*args, tspec)
+        assert int(TM.moe_ffn.dropped) == 2 * want
+    finally:
+        TM.moe_ffn.dropped = 0
+
+
 @pytest.mark.parametrize("S, group", [(30, 16), (100, 64)])
 def test_moe_ffn_rejects_a_ragged_group(S, group):
     args = _ffn_inputs(1, S, 16, 4, 8, seed=0)
