@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py            # the paper's scale: 4,500 files, StreamScale(1.0)
 
-Phases (any failure exits non-zero and prints no result line):
+Phases (any failure exits non-zero and prints no result line; run where
+``src/repro_torch`` is not beside the script, or without a CUDA card, it
+exits 2 with one line on stderr that says which):
 
 1. environment: torch, the card, its power limit; TF32 off; the probe
    (``repro_torch.dist.measure_machine_spec``): copy bandwidth and f32 and
@@ -45,8 +47,10 @@ Phases (any failure exits non-zero and prints no result line):
    soft-cap, GQA and MQA, ragged S, D in {64, 128, 256}; then prefill
    continuations, Sq < Sk with ``q_offset = Sk - Sq``, causal with and
    without a window, ragged per-row ``kv_valid_len`` of at least 1, D in
-   {128, 256}, GQA and MQA: the rows that see a key against the plain
-   version, the rows that see none exactly zero), the RG-LRU
+   {128, 256}, GQA and MQA, and whisper-medium's shapes at B 8, 16 heads of
+   64, not causal: 1,500 frames attending to themselves, and 224 and 4
+   queries to them: the rows that see a key against the plain version, the
+   rows that see none exactly zero), the RG-LRU
    kernel (ragged S and N, B in {1, 8}) and the SSD kernel (B in {1, 2, 8},
    ragged S, with and without h0, B and C head-shared by stride 0 or per
    head, mamba2's H 32, P 64, N 128 and a smaller set, bf16 and f32)
@@ -79,8 +83,9 @@ Phases (any failure exits non-zero and prints no result line):
    arithmetic (``ssd_chunked_bf16ops_ref``), and its time beside that of
    the earlier f32 CUDA-core kernel at the same shape; the flash kernel
    also at a continuation shape (olmoe-1b-7b's heads, 512 new queries
-   after 4,096 keys, full and ragged valid lengths) beside its plain
-   version and bound;
+   after 4,096 keys, full and ragged valid lengths) and at whisper-medium's
+   encoder (1,500 x 1,500) and cross-attention (224 x 1,500) shapes at B 8,
+   each beside its plain version, SDPA and its bound;
 11. the serving path (the main path, part 4) at mamba2-370m's full width
    and depth (368,178,688 bf16 parameters from ``--seed``, 48 SSM layers):
    the same entry points over prompts of 32,768 tokens (``prefill_32k``'s
@@ -162,9 +167,33 @@ Phases (any failure exits non-zero and prints no result line):
    bf16 path with the plain flash on inputs widened to f32 (the Pallas
    kernel's arithmetic) is a reading.
 
+18. whisper-medium served (after phase 17, the main path, part 6) at full
+   width and depth (24 encoder and 24 decoder layers, 758,550,528 bf16
+   parameters from ``--seed``): 8 seeded segments of 1,500 frame
+   embeddings (the frontend is a stub, as in the JAX package), prompts of
+   224 tokens, a cache of 448. Encode, the decoder's prefill and
+   ``encdec_prefill`` timed at b = 1, 2, 4, 8; then ``EncDecLM.prefill``
+   and 32 greedy ``decode_step`` calls: logits finite, (8, 51872) and (8,
+   1, 51872); 72 flash launches in the prefill (24 encoder, 24 decoder
+   self- and 24 cross-attention), none and no plain version on a CUDA
+   tensor in the steps; ms a step, tokens/s and peak memory are readings.
+   The plain flash (f32 but q/sqrt(D)) swapped in at 2 encoder and 2
+   decoder layers: the encoder's output, the decoder's logits on the same
+   encoder output and the logits end to end each within a relative L2
+   error of 5e-2 of the kernels', or of twice the distance of the plain
+   flash on bf16 inputs where that is larger (the seeded cross-attention
+   is nearly one-hot, so two plain paths part end to end; full depth a
+   reading), and the kernel on the model's own inputs of the first encoder,
+   decoder and cross-attention call within 2e-2 of the plain version in
+   f32, both divided by v's rms; phase 17's teacher-forced gates on 2 of
+   the segments at 1 encoder and 1 decoder layer (the seeded model parts
+   fast with depth: the JAX package's own f32 decode is 4.3e-4 from its
+   prefill at 2 + 2 layers).
+
 Phases 12-15 count their launches apart from phases 4-5 (phase 6's counts)
 and the serving paths; the result line carries them under
-``launches_by_phase`` (flash's ``launches`` is phases 9 and 16 together).
+``launches_by_phase`` (flash's ``launches`` is phases 9, 16 and 18
+together).
 
 Each parity line prints the largest absolute error and its worst ratio to
 the ``torch.allclose`` limit ``atol + rtol |want|`` (the check passes up to
@@ -178,9 +207,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import time
@@ -248,7 +279,26 @@ CONTINUATIONS = ((2, 333, 1000, 16, 2, 128, True, 0, False),
                  (2, 128, 4224, 16, 16, 128, True, 0, True),
                  (4, 1, 777, 8, 2, 128, True, 0, True),
                  (2, 500, 2500, 16, 1, 256, True, 2048, False),
-                 (2, 300, 900, 8, 8, 128, False, 0, True))
+                 (2, 300, 900, 8, 8, 128, False, 0, True),
+                 # whisper-medium at B 8: the encoder's self-attention over
+                 # 1,500 frames (23 full 64-key tiles and one of 28), the
+                 # cross-attention of a 224-token prompt, and of the 4-token
+                 # start sequence alone
+                 (8, 1500, 1500, 16, 16, 64, False, 0, False),
+                 (8, 224, 1500, 16, 16, 64, False, 0, False),
+                 (8, 4, 1500, 16, 16, 64, False, 0, False))
+# Phase 18, whisper-medium: 8 segments of 1,500 frames; a prompt of 224
+# tokens (the start sequence and previous-text conditioning); a cache of 448,
+# the decoder's text context.
+WHISPER_ARCH = "whisper_medium"
+WHISPER_PROMPT = 224
+WHISPER_CACHE = 448
+WHISPER_GATE_UNITS = 2      # the plain-flash swap: 2 encoder and 2 decoder layers
+# The teacher-forced gates: 1 encoder and 1 decoder layer.  The seeded model
+# parts fast with depth: in f32 the JAX package's own decode is 1.6e-5 from
+# its prefill at 1 + 1 layers and 4.3e-4 at 2 + 2, near DECODE_F32_REL_L2
+# (scripts/reference_decode_check.py, PERF.md).
+WHISPER_TF_UNITS = 1
 # examples/multi_query_serving.py's jobs: (prompts, window s, slack)
 MULTI_JOBS = ((24, 30.0, 3.0), (16, 20.0, 2.0), (32, 40.0, 2.5))
 # Phase 12: benchmarks/bench_shared_panes.py's sliding regime at the paper's
@@ -421,10 +471,10 @@ def kernel_times(name: str, fn, keys, vals, g: int, exact: bool, segagg_ref,
 
 # -- phase 8 -----------------------------------------------------------------
 
-def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
-    """Largest |got - want| / (1 + |want|)."""
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Relative L2 error |got - want| / |want|."""
     got, want = got.float(), want.float()
-    return ((got - want).abs() / (1.0 + want.abs())).max().item()
+    return ((got - want).norm() / want.norm()).item()
 
 
 def worst_ratio(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> float:
@@ -979,7 +1029,7 @@ def moe_path(args, cfg, lm, engine, core, counters, fa_ops, flash_f32, moe_layer
             raise AssertionError(f"kernel path and plain path disagree at {layers} layers: "
                                  f"rel L2 {rel:.3e} (limit {LOGITS_REL_L2})")
     try:
-        profile_batch(ex, batch8)
+        profile_batch(lambda: ex.run_batch(batch8), "one batch of 8")
     except Exception as exc:  # the profiler is a reading, not a gate
         log(f"    profiler failed: {exc!r}")
     return ex, batch8, moe_launches
@@ -1000,45 +1050,75 @@ def swapped(mod, attr, fn):
         setattr(mod, attr, kept)
 
 
-def teacher_forced(lm, cfg, params, P, seed) -> list:
+def teacher_forced(prefill, decode_step, cfg, params, P, seed) -> list:
     """Relative L2 distance of each of ``TF_STEPS`` decode steps' logits
     (``TF_BATCH`` rows, after a prefill of ``P`` tokens) to the last logits
-    of a prefill of the same ``P + t + 1`` tokens."""
+    of a prefill of the same ``P + t + 1`` tokens.  ``prefill(cfg, params,
+    tokens, cache_size)`` returns (logits, cache, cache_len)."""
     rng = np.random.default_rng(seed + 17)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TF_BATCH, P + TF_STEPS))
                             .astype(np.int32)).to("cuda")
-    _, cache, clen = lm.prefill(cfg, params, toks[:, :P], P + TF_STEPS)
+    _, cache, clen = prefill(cfg, params, toks[:, :P], P + TF_STEPS)
     rels = []
     for t in range(TF_STEPS):
-        step, cache = lm.decode_step(cfg, params, cache, clen + t, toks[:, P + t:P + t + 1])
-        want, _, _ = lm.prefill(cfg, params, toks[:, :P + t + 1], P + t + 1)
-        rels.append(((step[:, 0] - want).norm() / want.norm()).item())
+        step, cache = decode_step(cfg, params, cache, clen + t, toks[:, P + t:P + t + 1])
+        want, _, _ = prefill(cfg, params, toks[:, :P + t + 1], P + t + 1)
+        rels.append(rel_l2(step[:, 0], want))
     return rels
 
 
-def decode_path(lm, cfg, params, batch, seq, units, counters, seed, flash_swap,
-                tf_seq=None, **tf_over) -> dict:
-    """Decode on one LM: ``batch`` (8 prompts of ``seq`` tokens) prefilled
-    at full depth into a cache of ``seq + DECODE_STEPS``, then
-    ``DECODE_STEPS`` greedy ``CausalLM.decode_step`` calls, which launch no
-    kernel and call no plain version on a CUDA tensor.  Then teacher-forced
-    at ``units`` units (``tf_seq`` tokens, ``tf_over`` config fields): the
-    bf16 kernel path; where the model has attention, the same with the
-    plain flash swapped in by ``flash_swap`` = (ops module, attribute,
-    plain version), on the model's bf16 inputs (decode's arithmetic) and on
-    them widened to f32 (the Pallas kernel's, a reading); and f32 weights
-    (the RG-LRU and SSD kernels in f32, the plain flash, since the kernel
-    takes bf16 only).  The bf16 kernel path is
-    gated at ``LOGITS_REL_L2`` a step, or ``NOISE_RATIO`` times the plain
-    flash's distance where that is larger; f32 at ``DECODE_F32_REL_L2``.
-    Returns the readings."""
-    model = lm.CausalLM(cfg, params)
-    V = cfg.vocab_size
-    tokens = torch.from_numpy(batch).to("cuda")
-    B = tokens.shape[0]
+def teacher_forced_gates(cfg, params, P, seed, flash_swap, prefill, decode_step,
+                         note="") -> dict:
+    """The teacher-forced check on ``cfg`` (already cut to its gate depth):
+    the bf16 kernel path; where the model has attention, the same with the
+    plain flash swapped in by ``flash_swap`` = (ops module, attribute, plain
+    version), on the model's bf16 inputs (decode's arithmetic) and on them
+    widened to f32 (the Pallas kernel's, a reading); and f32 weights (the
+    RG-LRU and SSD kernels in f32, the plain flash, since the kernel takes
+    bf16 only).  The bf16 kernel path is gated at ``LOGITS_REL_L2`` a step,
+    or ``NOISE_RATIO`` times the plain flash's distance where that is
+    larger; f32 at ``DECODE_F32_REL_L2``.  Returns the distances by run."""
+    what = (f"decode {cfg.name} teacher-forced at {cfg.num_layers} layers, B={TF_BATCH}, "
+            f"P={P}{note}: each step's logits against the prefill of the same P + t + 1 "
+            f"tokens, rel L2")
+    mod, attr, plain = flash_swap
+    f32_params = {k: v.float() for k, v in params.items()}
+    runs = [("bf16", None, params)]
+    if any(kind in ("attn", "moe", "xattn") for seg in cfg.segments for kind in seg.pattern):
+        runs += [("bf16, plain flash", plain, params),
+                 ("bf16, plain flash on inputs widened to f32", widened(plain), params)]
+    runs.append(("f32, plain flash", plain, f32_params))
+    tf = {}
+    for label, flash, p in runs:
+        with swapped(mod, attr, flash):
+            tf[label] = teacher_forced(prefill, decode_step, cfg, p, P, seed)
+        log(f"  {what}, {label}: {[float(f'{x:.3e}') for x in tf[label]]}")
+    plain_bf16 = tf.get("bf16, plain flash", [0.0] * TF_STEPS)
+    limits = {"bf16": [max(LOGITS_REL_L2, NOISE_RATIO * x) for x in plain_bf16],
+              "f32, plain flash": [DECODE_F32_REL_L2] * TF_STEPS}
+    for label, limit in limits.items():
+        bad = [(t, x, lim) for t, (x, lim) in enumerate(zip(tf[label], limit)) if not x <= lim]
+        if bad:
+            raise AssertionError(f"{cfg.name}: decode and the teacher-forced prefill disagree "
+                                 f"at {cfg.num_layers} layers ({label}): (step, rel L2, "
+                                 f"limit) {bad}")
+    log(f"  gates: bf16 kernel path {[float(f'{x:.3e}') for x in limits['bf16']]} by step, "
+        f"f32 {DECODE_F32_REL_L2}")
+    return tf
+
+
+def greedy_decode(model, prefill_args, cache_size, counters, V) -> dict:
+    """``model.prefill(*prefill_args, cache_size)`` at full depth, then
+    ``DECODE_STEPS`` greedy ``model.decode_step`` calls, which launch no
+    kernel and call no plain version on a CUDA tensor; logits finite and
+    (B, 1, V).  Returns the readings and the prefill's launch counts."""
     counters.reset()
-    logits, cache, clen = model.prefill(tokens, seq + DECODE_STEPS)
+    logits, cache, clen = model.prefill(*prefill_args, cache_size)[:3]
     before = counters.read()
+    B = logits.shape[0]
+    if tuple(logits.shape) != (B, V) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{model.cfg.name} prefill: logits {tuple(logits.shape)} "
+                             f"or non-finite")
     tok = logits.argmax(-1, keepdim=True)
     finite, walls = [], []
     torch.cuda.synchronize()
@@ -1049,58 +1129,226 @@ def decode_path(lm, cfg, params, batch, seq, units, counters, seed, flash_swap,
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         if tuple(step.shape) != (B, 1, V):
-            raise AssertionError(f"{cfg.name} decode step {t}: logits {tuple(step.shape)}")
+            raise AssertionError(f"{model.cfg.name} decode step {t}: logits "
+                                 f"{tuple(step.shape)}")
         finite.append(torch.isfinite(step).all())
     after = counters.read()
     launched = {k: after[k] - before[k] for k in counters.kernels}
     if not torch.stack(finite).all():
-        raise AssertionError(f"{cfg.name} decode: non-finite logits")
+        raise AssertionError(f"{model.cfg.name} decode: non-finite logits")
     if any(launched.values()) or after["plain_on_cuda"]:
-        raise AssertionError(f"{cfg.name} decode steps launched {launched}, plain versions "
-                             f"on CUDA tensors {after['plain_on_cuda']}: decode runs "
+        raise AssertionError(f"{model.cfg.name} decode steps launched {launched}, plain "
+                             f"versions on CUDA tensors {after['plain_on_cuda']}: decode runs "
                              f"plain PyTorch ops only")
     steady = walls[1:]
-    r = {"batch": B, "prompt": seq, "steps": DECODE_STEPS, "first_ms": walls[0] * 1e3,
+    r = {"batch": B, "steps": DECODE_STEPS, "first_ms": walls[0] * 1e3,
          "ms_per_step": 1e3 * sum(steady) / len(steady),
          "median_ms": 1e3 * sorted(steady)[len(steady) // 2]}
     r["tokens_per_s"] = B / (r["ms_per_step"] / 1e3)
-    log(f"  decode {cfg.name} at full depth ({cfg.num_layers} layers), B={B}, prompts of "
-        f"{seq} tokens, cache {seq + DECODE_STEPS}: first step {r['first_ms']:.2f} ms, then "
-        f"{r['ms_per_step']:.2f} ms a step (median {r['median_ms']:.2f}), "
-        f"{r['tokens_per_s']:.1f} tokens/s; logits finite (B, 1, {V}); no kernel launched "
-        f"by the steps")
-    del model, cache, logits, step
+    return r, before
+
+
+def decode_path(lm, cfg, params, batch, seq, units, counters, seed, flash_swap,
+                tf_seq=None, **tf_over) -> dict:
+    """Decode on one LM: ``batch`` (8 prompts of ``seq`` tokens) prefilled
+    at full depth into a cache of ``seq + DECODE_STEPS``, then
+    ``greedy_decode``; then ``teacher_forced_gates`` at ``units`` units
+    (``tf_seq`` tokens, ``tf_over`` config fields).  Returns the readings."""
+    model = lm.CausalLM(cfg, params)
+    V = cfg.vocab_size
+    r, _ = greedy_decode(model, (torch.from_numpy(batch).to("cuda"),),
+                         seq + DECODE_STEPS, counters, V)
+    r["prompt"] = seq
+    log(f"  decode {cfg.name} at full depth ({cfg.num_layers} layers), B={r['batch']}, "
+        f"prompts of {seq} tokens, cache {seq + DECODE_STEPS}: first step "
+        f"{r['first_ms']:.2f} ms, then {r['ms_per_step']:.2f} ms a step (median "
+        f"{r['median_ms']:.2f}), {r['tokens_per_s']:.1f} tokens/s; logits finite (B, 1, {V}); "
+        f"no kernel launched by the steps")
+    del model
 
     cut_cfg, cut_params = cut_model(cfg, params, units)
     cut_cfg = dataclasses.replace(cut_cfg, **tf_over)
-    P = seq if tf_seq is None else tf_seq
-    what = (f"decode {cfg.name} teacher-forced at {cut_cfg.num_layers} layers, B={TF_BATCH}, "
-            f"P={P}{' ' + str(tf_over) if tf_over else ''}: each step's logits against the "
-            f"prefill of the same P + t + 1 tokens, rel L2")
-    mod, attr, plain = flash_swap
-    f32_params = {k: v.float() for k, v in cut_params.items()}
-    runs = [("bf16", None, cut_params)]
-    if any(kind in ("attn", "moe") for seg in cfg.segments for kind in seg.pattern):
-        runs += [("bf16, plain flash", plain, cut_params),
-                 ("bf16, plain flash on inputs widened to f32", widened(plain), cut_params)]
-    runs.append(("f32, plain flash", plain, f32_params))
-    tf = r["teacher_forced"] = {}
-    for label, flash, p in runs:
-        with swapped(mod, attr, flash):
-            tf[label] = teacher_forced(lm, cut_cfg, p, P, seed)
-        log(f"  {what}, {label}: {[float(f'{x:.3e}') for x in tf[label]]}")
-    plain_bf16 = tf.get("bf16, plain flash", [0.0] * TF_STEPS)
-    limits = {"bf16": [max(LOGITS_REL_L2, NOISE_RATIO * x) for x in plain_bf16],
-              "f32, plain flash": [DECODE_F32_REL_L2] * TF_STEPS}
-    for label, limit in limits.items():
-        bad = [(t, x, lim) for t, (x, lim) in enumerate(zip(tf[label], limit)) if not x <= lim]
-        if bad:
-            raise AssertionError(f"{cfg.name}: decode and the teacher-forced prefill disagree "
-                                 f"at {cut_cfg.num_layers} layers ({label}): (step, rel L2, "
-                                 f"limit) {bad}")
-    log(f"  gates: bf16 kernel path {[float(f'{x:.3e}') for x in limits['bf16']]} by step, "
-        f"f32 {DECODE_F32_REL_L2}")
+    r["teacher_forced"] = teacher_forced_gates(
+        cut_cfg, cut_params, seq if tf_seq is None else tf_seq, seed, flash_swap,
+        lm.prefill, lm.decode_step, f" {tf_over}" if tf_over else "")
     return r
+
+
+# -- phase 18 ----------------------------------------------------------------
+
+FLASH_PER_LAYER = {"attn": 1, "moe": 1, "xattn": 2}   # xattn: self- and cross-attention
+
+
+def flash_per_prefill(cfg) -> int:
+    """Flash launches of one ``encdec_prefill``: one a layer of the encoder,
+    one or two (``xattn``) a layer of the decoder."""
+    return sum(s.num_units * FLASH_PER_LAYER.get(kind, 0)
+               for s in (*cfg.encoder_segments, *cfg.segments) for kind in s.pattern)
+
+
+def whisper_path(args, cfg, lm, encdec, counters, fa_ops, flash_f32, flash_swap) -> tuple:
+    """whisper-medium served at full width and depth from seeded bf16
+    weights: 8 seeded segments of 1,500 frames and prompts of
+    ``WHISPER_PROMPT`` tokens.  Encode, the decoder's prefill and both
+    (``EncDecLM.prefill``) timed at b = 1, 2, 4, 8; then the main path,
+    ``greedy_decode`` on ``EncDecLM`` into a cache of ``WHISPER_CACHE``: its
+    prefill launches the flash kernel once an encoder layer and twice a
+    decoder layer, its steps none; the plain flash (f32 but q/sqrt(D))
+    swapped in at ``WHISPER_GATE_UNITS`` encoder and decoder layers, the
+    encoder's output, the decoder on the same encoder output and the logits
+    each within ``LOGITS_REL_L2`` or ``NOISE_RATIO`` times the distance of
+    the plain flash on bf16 inputs (full depth a reading); the kernel also
+    on the model's own inputs of the first encoder, decoder and
+    cross-attention call there, within ``BF16_TOL`` of the plain version in
+    f32 (both over v's rms); ``teacher_forced_gates`` at
+    ``WHISPER_TF_UNITS`` encoder and decoder layers on 2 of the segments.
+    Returns (readings, flash launches of the main path)."""
+    from repro_torch.models.params import init_params, num_params
+
+    specs = encdec.build_encdec_specs(cfg)
+    before_gib = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    params = init_params(specs, seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    B, V, n_enc = SERVE_BUCKETS[-1], cfg.vocab_size, flash_per_prefill(
+        dataclasses.replace(cfg, segments=()))
+    log(f"    {cfg.name}: {num_params(specs):,} parameters, bf16, seeded init on the card in "
+        f"{time.perf_counter() - t0:.1f} s; {n_enc} encoder and {cfg.num_layers} decoder "
+        f"layers, {cfg.num_heads} heads of {cfg.head_dim}; B={B} segments of "
+        f"{cfg.encoder_seq} frames, prompts of {WHISPER_PROMPT} tokens, cache {WHISPER_CACHE}")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 18)
+    frames = torch.randn((B, cfg.encoder_seq, cfg.d_model), device="cuda",
+                         generator=gen).bfloat16()
+    rng = np.random.default_rng(args.seed + 18)
+    tokens = torch.from_numpy(rng.integers(0, V, (B, WHISPER_PROMPT)).astype(np.int32)
+                              ).to("cuda")
+    model = encdec.EncDecLM(cfg, params)
+    by_batch = {}
+    for b in SERVE_BUCKETS:
+        enc_out = model.encode(frames[:b])
+        by_batch[b] = {
+            "encode_ms": cuda_ms(lambda: model.encode(frames[:b]), reps=3),
+            "decoder_prefill_ms": cuda_ms(lambda: lm.prefill(
+                cfg, params, tokens[:b], WHISPER_CACHE, enc_out=enc_out), reps=3),
+            "prefill_ms": cuda_ms(lambda: model.prefill(frames[:b], tokens[:b], WHISPER_CACHE),
+                                  reps=3)}
+        log(f"  b={b}: encode {by_batch[b]['encode_ms']:.2f} ms, decoder prefill "
+            f"{by_batch[b]['decoder_prefill_ms']:.2f}, encdec_prefill "
+            f"{by_batch[b]['prefill_ms']:.2f} (CUDA events, mean of 3)")
+    del enc_out
+
+    # The main path: counts set to 0 just before it (in greedy_decode) and
+    # read just after.
+    torch.cuda.reset_peak_memory_stats()
+    r, at_prefill = greedy_decode(model, (frames, tokens), WHISPER_CACHE, counters, V)
+    launched = at_prefill["flash_attention"]
+    r.update(prompt=WHISPER_PROMPT, frames=cfg.encoder_seq, by_batch=by_batch,
+             flash_per_prefill=launched,
+             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30 - before_gib)
+    want = flash_per_prefill(cfg)
+    log(f"  main path: encdec_prefill B={B}, then {DECODE_STEPS} greedy steps: flash "
+        f"launches {launched} in the prefill (expected {want}), none in the steps; "
+        f"{r['first_ms']:.2f} ms the first step, then {r['ms_per_step']:.2f} ms a step "
+        f"(median {r['median_ms']:.2f}), {r['tokens_per_s']:.1f} tokens/s; logits finite, "
+        f"({B}, {V}) and ({B}, 1, {V}); peak memory {r['peak_gib']:.2f} GiB above the "
+        f"{before_gib:.2f} GiB allocated before the weights")
+    others = [at_prefill[k] for k in counters.kernels if k != "flash_attention"]
+    if launched != want or any(others):
+        raise AssertionError(f"{cfg.name} prefill launched {at_prefill}, expected "
+                             f"{want} flash launches only")
+    try:
+        profile_batch(lambda: model.prefill(frames, tokens, WHISPER_CACHE)[0].cpu(),
+                      f"one encdec_prefill of {B}")
+    except Exception as exc:  # the profiler is a reading, not a gate
+        log(f"    profiler failed: {exc!r}")
+    del model
+
+    # The plain flash swapped in: in f32 but for q/sqrt(D)'s rounding (the
+    # standard), and on the model's bf16 inputs (decode's arithmetic), a
+    # second plain path that differs from the first in rounding only.  The
+    # seeded cross-attention is nearly one-hot (scores of rms ~64), so a
+    # 1.7e-2 difference of enc_out reorders near-tied frames and two plain
+    # paths part end to end as far as the kernel path does (PERF.md).  So
+    # each stage is also held on the same input: the encoder on the frames,
+    # the decoder on the kernel path's enc_out.  Each distance of the kernel
+    # path is gated at LOGITS_REL_L2, or at NOISE_RATIO x the two plain
+    # paths' distance there where that is larger (phase 17's rule), at
+    # WHISPER_GATE_UNITS layers; full depth is a reading.
+    log(f"  kernel path against the plain flash (f32 but q/sqrt(D)) on the batch of {B}, by "
+        f"depth and stage: relative L2 error of the kernel path, then of the plain flash on "
+        f"bf16 inputs, and the gate; logits argmax agreement; wall ms (kernel / f32 / bf16)")
+    plain_f32 = lambda q, k, v, *a, **kw: flash_f32(q, k, v, *a, **kw).to(q.dtype)  # noqa: E731
+    stages = ("enc_out", "decoder on the kernel path's enc_out", "logits")
+    kernel, first = fa_ops.flash_attention_cuda, {}
+
+    def recorded(q, k, v, causal, *a, **kw):
+        kind = "decoder self" if causal else "encoder self" if q.shape[1] == k.shape[1] \
+            else "cross"
+        first.setdefault(kind, (q.clone(), k.clone(), v.clone(), causal))
+        return kernel(q, k, v, causal, *a, **kw)
+
+    for units in (WHISPER_GATE_UNITS, None):
+        c_cfg, c_params = cut_model(cfg, params, units)
+        out, walls, enc_k = {}, [], None
+        for label, flash in (("kernel", recorded if units else None), ("f32", plain_f32),
+                             ("bf16", flash_swap[2])):
+            with swapped(fa_ops, "flash_attention_cuda", flash):
+                t0 = time.perf_counter()
+                logits, _, _, enc = encdec.encdec_prefill(c_cfg, c_params, frames, tokens,
+                                                          WHISPER_CACHE)
+                enc_k = enc if enc_k is None else enc_k
+                dec = lm.prefill(c_cfg, c_params, tokens, WHISPER_CACHE, enc_out=enc_k)[0]
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            out[label] = dict(zip(stages, (enc, dec, logits)))
+        if not torch.isfinite(out["kernel"]["logits"]).all():
+            raise AssertionError(f"{cfg.name} at {c_cfg.num_layers} + {c_cfg.num_layers} "
+                                 f"layers: non-finite logits")
+        agree = (out["kernel"]["logits"].argmax(-1) == out["f32"]["logits"].argmax(-1))
+        log(f"    {c_cfg.num_layers} + {c_cfg.num_layers} layers: argmax agreement "
+            f"{agree.float().mean().item():.3f}; " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+            + " ms")
+        for stage in stages:
+            got = rel_l2(out["kernel"][stage], out["f32"][stage])
+            floor = rel_l2(out["bf16"][stage], out["f32"][stage])
+            limit = max(LOGITS_REL_L2, NOISE_RATIO * floor)
+            log(f"      {stage}: {got:.3e}, plain on bf16 inputs {floor:.3e}, gate {limit:.3e}")
+            if units is not None and not got <= limit:
+                raise AssertionError(f"{cfg.name}: kernel path and plain path disagree at "
+                                     f"{c_cfg.num_layers} + {c_cfg.num_layers} layers "
+                                     f"({stage}): rel L2 {got:.3e} (limit {limit:.3e})")
+        del out, enc_k, enc, dec, logits
+    # BF16_TOL is stated for values of unit scale (phase 8's inputs); the
+    # model's v has rms ~8 and the kernel rounds p to bf16 (as the JAX layer
+    # does), an error that grows with |v|: so both outputs are divided by
+    # v's rms before the check.
+    for kind, (q, k, v, causal) in first.items():
+        got, want = kernel(q, k, v, causal).float(), flash_f32(q, k, v, causal)
+        v_rms = v.float().pow(2).mean().sqrt()
+        err = check_close(f"flash on the model's first {kind} attention inputs (over v's rms)",
+                          got / v_rms, want / v_rms, BF16_TOL)
+        plain = flash_swap[2](q, k, v, causal).float()
+        s = (q[0, :, 0].float() @ k[0, :, 0].float().T) / q.shape[-1] ** 0.5
+        top2 = s.topk(2, dim=-1).values
+        log(f"    flash on the model's first {kind} attention inputs, q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, v rms {v_rms.item():.2f}: over v's rms, max abs err "
+            f"{shown(err)}; rel L2 {rel_l2(got, want):.3e} (the plain flash on bf16 inputs "
+            f"{rel_l2(plain, want):.3e}); row 0, head 0: score rms "
+            f"{s.pow(2).mean().sqrt().item():.1f}, top-2 gap median "
+            f"{(top2[:, 0] - top2[:, 1]).median().item():.2f}")
+    del first
+
+    c_cfg, c_params = cut_model(cfg, params, WHISPER_TF_UNITS)
+    tf_frames = frames[:TF_BATCH]
+
+    def prefill(cfg_, params_, toks, cache_size):
+        return encdec.encdec_prefill(cfg_, params_, tf_frames.to(params_["embed/tokens"].dtype),
+                                     toks, cache_size)[:3]
+
+    r["teacher_forced"] = teacher_forced_gates(
+        c_cfg, c_params, WHISPER_PROMPT, args.seed, flash_swap, prefill,
+        encdec.encdec_decode_step, f" and {c_cfg.num_layers} encoder layers")
+    return r, launched
 
 
 # -- phase 14 ----------------------------------------------------------------
@@ -1286,6 +1534,44 @@ def flash_continuation_times(flash_cuda, flash_plain, flash_f32, flash_fb) -> di
     return out
 
 
+def flash_whisper_times(flash_cuda, flash_plain, flash_f32, flash_fb) -> dict:
+    """The flash kernel at whisper-medium's two prefill shapes at B 8 (16
+    heads of 64, not causal): the encoder's self-attention over its 1,500
+    frames and the cross-attention of a ``WHISPER_PROMPT``-token prompt over
+    them; each against the plain version in f32, its time beside the plain
+    version's on the model's bf16 inputs, ``scaled_dot_product_attention``'s
+    and the bound."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    B, Sk, H, D = 8, 1500, 16, 64
+    k = torch.randn((B, Sk, H, D), device="cuda", generator=gen).bfloat16()
+    v = torch.randn((B, Sk, H, D), device="cuda", generator=gen).bfloat16()
+    out = {}
+    for label, Sq in (("encoder", Sk), ("cross", WHISPER_PROMPT)):
+        q = torch.randn((B, Sq, H, D), device="cuda", generator=gen).bfloat16()
+        err = check_close(f"flash {label} at B={B} Sq={Sq} Sk={Sk}",
+                          flash_cuda(q, k, v, False), flash_f32(q, k, v, False), BF16_TOL)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
+        b_ms, b_by = bound(*flash_fb(B, Sq, Sk, H, H, D, False, 0), "bfloat16")
+        r = {"shape": f"B={B} Sq={Sq} Sk={Sk} H={H} Hkv={H} D={D} not causal",
+             "max_abs_err": err[0],
+             "ms": cuda_ms(lambda: flash_cuda(q, k, v, False), reps=KERNEL_REPS),
+             "plain_ms": cuda_ms(lambda: flash_plain(q, k, v, False), reps=2),
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(sdpa, reps=KERNEL_REPS)}
+        log(f"  flash_attention whisper {label} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f} "
+            f"({r['library_ms'] / r['ms']:.2f}x), "
+            f"bound {b_ms:.4f} by {b_by} ({b_ms / r['ms']:.1%} of it reached); max abs err "
+            f"{shown(err)}")
+        out[label] = r
+    return out
+
+
 def ssd_kernel_times(ssd_cuda, ssd_plain, ssd_bf16ops, ssd_fb) -> dict:
     """The SSD at mamba2-370m's prefill shape (B 8, S 32,768, H 32, P 64,
     N 128, bf16, B and C head-shared, a zero h0 as prefill passes it):
@@ -1309,16 +1595,27 @@ def ssd_kernel_times(ssd_cuda, ssd_plain, ssd_bf16ops, ssd_fb) -> dict:
 
 
 def cut_model(cfg, params, units):
-    """The first ``units`` units of segment 0 and their weights (views of
-    ``params``); the whole model when ``units`` is None."""
+    """The first ``units`` units of segment 0 (and of encoder segment 0)
+    and their weights (views of ``params``); the whole model when ``units``
+    is None."""
     from repro_torch.models.config import Segment
 
     if units is None:
         return cfg, params
-    cfg = dataclasses.replace(cfg, segments=(Segment(cfg.segments[0].pattern, units),))
-    return cfg, {k: (v[:units] if k.startswith("seg0/") else v)
-                 for k, v in params.items()
-                 if not k.startswith("seg") or k.startswith("seg0/")}
+
+    def cut(segs):
+        return (Segment(segs[0].pattern, units),) if segs else ()
+
+    cfg = dataclasses.replace(cfg, segments=cut(cfg.segments),
+                              encoder_segments=cut(cfg.encoder_segments))
+    out = {}
+    for k, v in params.items():
+        head = k.split("/")[0]
+        if head in ("seg0", "enc0"):
+            out[k] = v[:units]
+        elif not re.fullmatch(r"(seg|enc)\d+", head):
+            out[k] = v
+    return cfg, out
 
 
 def plain_swap(ex, batch, units, swaps, first_impls=None):
@@ -1359,18 +1656,19 @@ def plain_swap(ex, batch, units, swaps, first_impls=None):
     return rel, agree, t_k, t_p, first
 
 
-def profile_batch(ex, batch) -> None:
-    """Where one prefill batch's device time goes, by kernel class, and the
-    device's idle share of the batch's wall time (``torch.profiler``; the
-    kernels run on one stream, so busy time is the sum of kernel times).
-    Logged only: a profiler that records no device time is reported."""
+def profile_batch(run, what: str) -> None:
+    """Where the device time of ``run()`` (one prefill batch, which ends on
+    the host) goes, by kernel class, and the device's idle share of its
+    wall time (``torch.profiler``; the kernels run on one stream, so busy
+    time is the sum of kernel times).  Logged only: a profiler that records
+    no device time is reported."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    ex.run_batch(batch)
+    run()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ex.run_batch(batch)
+        run()
         wall_us = (time.perf_counter() - t0) * 1e6
     ours = {"flash_fwd_kernel": "flash_attention", "rglru_kernel": "rglru",
             "ssd_kernel": "ssd", "ssd_mma_kernel": "ssd"}
@@ -1392,7 +1690,7 @@ def profile_batch(ex, batch) -> None:
     if not count or busy <= 0:
         log("    profiler: no device time recorded")
         return
-    log(f"    profile of one batch of {batch.shape[0]}: wall {wall_us / 1e3:.1f} ms, "
+    log(f"    profile of {what}: wall {wall_us / 1e3:.1f} ms, "
         f"{count} kernels, device busy {busy / 1e3:.1f} ms, idle share "
         f"{max(0.0, 1 - busy / wall_us):.1%}; by class (ms, share of busy): " + ", ".join(
             f"{k} {v / 1e3:.1f} ({v / busy:.1%})" for k, v in classes.items() if v))
@@ -1476,7 +1774,12 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print(f"chip_smoke: no {os.path.join(src, 'repro_torch')}: run the script from a "
+              f"checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, src)
     from repro_torch.core import Planner, Query, TraceArrival, plan_cost
     from repro_torch.data.tpch import (
         NUM_FILES, PAPER_QUERIES, StreamScale, paper_cost_model, stream_files)
@@ -1506,7 +1809,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_chunked_bf16ops_ref, ssd_chunked_ref
     from repro_torch.kernels.ssd.ssd import flops_bytes as ssd_flops_bytes, ssd_cuda
-    from repro_torch.models import lm
+    from repro_torch.models import encdec, lm
     from repro_torch.models.base import SHAPES, get_config
     from repro_torch.serve import engine
     from repro_torch.dist import PUBLISHED_H100_SXM, measure_machine_spec
@@ -1894,7 +2197,7 @@ def main(argv=None) -> int:
                 f"nearly one-hot) relative L2 {rel_o:.3e}, {share:.2e} of rows beyond "
                 f"{BF16_TOL}")
     try:
-        profile_batch(ex, batch8)
+        profile_batch(lambda: ex.run_batch(batch8), "one batch of 8")
     except Exception as exc:  # the profiler is a reading, not a gate
         log(f"    profiler failed: {exc!r}")
     del first
@@ -1911,7 +2214,8 @@ def main(argv=None) -> int:
     # 10. LM kernel times at the paths' shapes
     log(f"[10] LM kernels at the paths' shapes: flash (B in {LM_BATCHES}, S=4096, H=16, "
         f"Hkv=1, D=256, window 2048), rglru (B in {LM_BATCHES}, S=4096, N=4096), ssd (B=8, "
-        f"S=32768, H=32, P=64, N=128); ms, CUDA events")
+        f"S=32768, H=32, P=64, N=128), flash at an olmoe continuation and whisper's encoder "
+        f"and cross-attention; ms, CUDA events")
     lm_times = lm_kernel_times(flash_attention_cuda, flash_attention_sync_cuda,
                                chunked_attention_ref, flash_flops_bytes, rglru_cuda,
                                rglru_serial_cuda, rglru_ref, rglru_flops_bytes)
@@ -1919,6 +2223,9 @@ def main(argv=None) -> int:
                                        ssd_flops_bytes)
     lm_times["flash_attention"]["continuation"] = flash_continuation_times(
         flash_attention_cuda, chunked_attention_ref, chunked_attention_f32_ref, flash_flops_bytes)
+    lm_times["flash_attention"]["whisper"] = flash_whisper_times(
+        flash_attention_cuda, chunked_attention_ref, chunked_attention_f32_ref,
+        flash_flops_bytes)
     for kname, r in lm_times.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {kname:15s} kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}, library {lib}, "
@@ -1976,7 +2283,7 @@ def main(argv=None) -> int:
         f"{shown(err_h)}")
     del first
     try:
-        profile_batch(ex, batch8)
+        profile_batch(lambda: ex.run_batch(batch8), "one batch of 8")
     except Exception as exc:  # the profiler is a reading, not a gate
         log(f"    profiler failed: {exc!r}")
     log(f"[17] decode: {SSM_ARCH}, {DECODE_STEPS} greedy steps at full depth, "
@@ -2001,6 +2308,22 @@ def main(argv=None) -> int:
                                    counters, args.seed, flash_swap, tf_seq=MOE_TF_SEQ,
                                    capacity_factor=float(cfg.num_experts))
     del ex
+    torch.cuda.empty_cache()
+
+    # 18. whisper-medium served: encode, prefill and greedy decode (the
+    # executors above hold themselves in cycles through their wrapped
+    # run_batch: collect them first)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(WHISPER_ARCH)
+    log(f"[18] serving {WHISPER_ARCH} at full width and depth: encode, encdec_prefill and "
+        f"{DECODE_STEPS} greedy decode steps; the plain flash at {WHISPER_GATE_UNITS} + "
+        f"{WHISPER_GATE_UNITS} layers; teacher-forced at {WHISPER_TF_UNITS} + "
+        f"{WHISPER_TF_UNITS}")
+    decode[WHISPER_ARCH], whisper_launches = whisper_path(
+        args, cfg, lm, encdec, counters, fa_ops, chunked_attention_f32_ref, flash_swap)
+    launches["flash_attention"] += whisper_launches
+    by_phase["flash_attention"]["18"] = whisper_launches
     torch.cuda.empty_cache()
     log(json.dumps({"decode": decode}))
 

@@ -9,11 +9,15 @@ the reference, so that its parameters carry across as a copy:
 * cache:  flat dict ``"seg{i}/l{j}/<leaf>"`` -> (U, B, ...) stacked.
 
 The reference's ``lax.scan`` over units is a Python loop over the unit
-index; its sharding constraints have no counterpart here.  Ported kinds:
-``attn`` (attention + MLP), ``moe`` (attention + MoE FFN), ``rglru``
-(RG-LRU + MLP) and ``ssm`` (the Mamba-2 block).  ``xattn`` blocks raise
-``NotImplementedError``: their specs are data and are built, but the
-cross-attention decoder comes with a later slice of the port.
+index; its sharding constraints and remat have no counterpart here.
+Every block kind of the reference runs: ``attn`` (attention + MLP), ``moe``
+(attention + MoE FFN), ``rglru`` (RG-LRU + MLP), ``ssm`` (the Mamba-2 block)
+and ``xattn`` (whisper's decoder layer: self-attention, cross-attention over
+the encoder's output, MLP), in ``prefill``, ``decode_step`` and the
+forward-only ``backbone`` (which ``models/encdec.py`` runs as the encoder).
+Cross-attention K/V are computed once from the encoder's output in
+``prefill`` and kept in the cache as ``xk``/``xv``; a decode step reads
+them there.  ``check_ported`` raises on a kind the reference does not know.
 """
 from __future__ import annotations
 
@@ -31,15 +35,12 @@ from ..layers.common import apply_rope, gated_mlp, layer_norm, mlp, rms_norm, si
 from ..layers.moe import MoESpec, moe_ffn
 from ..layers.rglru import rglru_scan, rglru_step, short_conv1d
 from ..layers.ssd import ssd_chunked, ssd_step
-from .config import ModelConfig
+from .config import ModelConfig, Segment
 from .params import ParamSpec, Params, Specs, init_params, params_from_numpy
 
 Cache = Dict[str, torch.Tensor]
 
-PORTED_KINDS = ("attn", "moe", "rglru", "ssm")
-_NOT_PORTED = {
-    "xattn": "the cross-attention decoder (whisper) is not ported yet",
-}
+PORTED_KINDS = ("attn", "moe", "rglru", "ssm", "xattn")
 
 
 # ===========================================================================
@@ -163,14 +164,13 @@ def build_specs(cfg: ModelConfig) -> Specs:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` if ``cfg`` has a block kind the port
-    cannot run yet."""
-    for seg in cfg.segments:
+    """Raise ``NotImplementedError`` if ``cfg`` (decoder or encoder) has a
+    block kind the port does not know."""
+    for seg in (*cfg.segments, *cfg.encoder_segments):
         for kind in seg.pattern:
             if kind not in PORTED_KINDS:
                 raise NotImplementedError(
-                    f"{cfg.name}: layer kind {kind!r} is not ported: "
-                    f"{_NOT_PORTED.get(kind, 'unknown kind')}")
+                    f"{cfg.name}: layer kind {kind!r} is not ported: unknown kind")
 
 
 # ===========================================================================
@@ -216,6 +216,40 @@ def _attn_out(cfg, p, prefix, o):
     if cfg.bias:
         y = y + p[f"{prefix}/bo"]
     return y
+
+
+def _self_attn_block(cfg, p, prefix, x, positions, causal=True):
+    """Norm, self-attention, residual.  Returns (y, (k, v))."""
+    h = _norm(cfg, x, p, prefix)
+    q, k, v = _qkv(cfg, p, prefix, h, positions)
+    o = chunked_attention(q, k, v, _attn_spec(cfg, causal))
+    return x + _attn_out(cfg, p, prefix, o), (k, v)
+
+
+def _cross_kv(cfg, p, prefix, enc_out):
+    """The cross-attention's K and V from the encoder's output."""
+    xk = _proj_heads(enc_out, p[f"{prefix}/wk"])
+    xv = _proj_heads(enc_out, p[f"{prefix}/wv"])
+    if cfg.bias:
+        xk = xk + p[f"{prefix}/bk"]
+        xv = xv + p[f"{prefix}/bv"]
+    return xk, xv
+
+
+def _cross_attn_block(cfg, p, prefix, x, xk, xv, step=False):
+    """Norm, cross-attention over the encoder's K/V (no mask, no soft-cap),
+    residual.  ``step``: x is one decode token and the attention is
+    ``decode_attention`` over all ``xk.shape[1]`` frames instead of the
+    flash attention."""
+    h = _norm(cfg, x, p, prefix)
+    q = _proj_heads(h, p[f"{prefix}/wq"])
+    if cfg.bias:
+        q = q + p[f"{prefix}/bq"]
+    if step:
+        o = decode_attention(q, xk, xv, xk.shape[1], AttnSpec(causal=False))
+    else:
+        o = chunked_attention(q, xk, xv, AttnSpec(causal=False, chunk=cfg.attn_chunk))
+    return x + _attn_out(cfg, p, prefix, o)
 
 
 def _mlp_block(cfg, p, prefix, x):
@@ -292,6 +326,65 @@ def _ssm_block(cfg, p, prefix, x, conv_state=None, h_state=None, step=False):
 
 
 # ===========================================================================
+# Full forward (scoring; the encoder): a loop over units per segment
+# ===========================================================================
+
+def _unit_forward(cfg: ModelConfig, seg: Segment, si: int, x, positions,
+                  unit_params, enc_out=None, key_prefix: str = "seg",
+                  causal: bool = True):
+    """One pattern unit.  Returns (x, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for li, kind in enumerate(seg.pattern):
+        pref = f"{key_prefix}{si}/l{li}"
+        if kind in ("attn", "moe", "xattn"):
+            x, _ = _self_attn_block(cfg, unit_params, f"{pref}/attn", x, positions,
+                                    causal=causal)
+            if kind == "xattn":
+                xk, xv = _cross_kv(cfg, unit_params, f"{pref}/xattn", enc_out)
+                x = _cross_attn_block(cfg, unit_params, f"{pref}/xattn", x, xk, xv)
+            if kind == "moe":
+                x, a = _moe_block(cfg, unit_params, f"{pref}/moe", x)
+                aux = aux + a
+            else:
+                x = _mlp_block(cfg, unit_params, f"{pref}/mlp", x)
+        elif kind == "rglru":
+            x, _ = _rglru_block(cfg, unit_params, f"{pref}/rglru", x)
+            x = _mlp_block(cfg, unit_params, f"{pref}/mlp", x)
+        elif kind == "ssm":
+            x, _ = _ssm_block(cfg, unit_params, f"{pref}/ssm", x)
+        else:
+            raise ValueError(kind)
+    return x, aux
+
+
+def _segment_params(params: Params, si: int, key_prefix: str = "seg") -> Params:
+    pref = f"{key_prefix}{si}/"
+    return {k: v for k, v in params.items() if k.startswith(pref)}
+
+
+def backbone(cfg: ModelConfig, params: Params, x: torch.Tensor,
+             positions: torch.Tensor, enc_out: Optional[torch.Tensor] = None,
+             segments: Optional[Tuple[Segment, ...]] = None,
+             key_prefix: str = "seg", causal: bool = True
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Apply all segments (``cfg.segments`` unless ``segments`` is given,
+    their weights under ``{key_prefix}{i}/``) to the embedded sequence x.
+    Returns (hidden, total aux loss).  ``enc_out`` feeds the ``xattn``
+    layers' cross-attention."""
+    check_ported(cfg)
+    segs = cfg.segments if segments is None else segments
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for si, seg in enumerate(segs):
+        sp = _segment_params(params, si, key_prefix)
+        for u in range(seg.num_units):
+            unit_params = {k: v[u] for k, v in sp.items()}
+            x, a = _unit_forward(cfg, seg, si, x, positions, unit_params, enc_out=enc_out,
+                                 key_prefix=key_prefix, causal=causal)
+            total_aux = total_aux + a
+    return x, total_aux
+
+
+# ===========================================================================
 # Embedding, unembedding, cache
 # ===========================================================================
 
@@ -357,18 +450,23 @@ def init_cache(cfg: ModelConfig, batch: int, cache_size: int,
 
 @torch.inference_mode()
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            cache_size: int, patches: Optional[torch.Tensor] = None
+            cache_size: int, patches: Optional[torch.Tensor] = None,
+            enc_out: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Cache, int]:
     """Run the full prompt, build the decode cache.  Returns (last-position
     logits (B, V) f32, cache, cache_len).  Runs on the device of
-    ``tokens`` (the parameters must be there too).
+    ``tokens`` (the parameters must be there too).  ``enc_out`` (B,
+    encoder_seq, D), the encoder's output, is needed by ``xattn`` layers.
 
     With cfg.prefill_row_chunks > 1 the batch rows are processed in
     sequential chunks, bounding activation memory."""
     check_ported(cfg)
+    if enc_out is None and any("xattn" in seg.pattern for seg in cfg.segments):
+        raise ValueError(f"{cfg.name}: xattn layers need the encoder's output (enc_out=)")
     nchunks = max(cfg.prefill_row_chunks, 1)
     if nchunks > 1 and tokens.shape[0] % nchunks == 0:
-        return _prefill_row_chunked(cfg, params, tokens, cache_size, patches, nchunks)
+        return _prefill_row_chunked(cfg, params, tokens, cache_size, patches, enc_out,
+                                    nchunks)
     B = tokens.shape[0]
     x = embed_tokens(cfg, params, tokens)
     if cfg.frontend == "vision" and patches is not None:
@@ -384,17 +482,14 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                        device=x.device)
 
     for si, seg in enumerate(cfg.segments):
-        pref_seg = f"seg{si}/"
-        sp = {k: v for k, v in params.items() if k.startswith(pref_seg)}
+        sp = _segment_params(params, si)
         for u in range(seg.num_units):
             unit_params = {k: v[u] for k, v in sp.items()}
             for li, kind in enumerate(seg.pattern):
                 pref = f"seg{si}/l{li}"
-                if kind in ("attn", "moe"):
-                    hh = _norm(cfg, x, unit_params, f"{pref}/attn")
-                    q, k, v = _qkv(cfg, unit_params, f"{pref}/attn", hh, positions)
-                    o = chunked_attention(q, k, v, _attn_spec(cfg, True))
-                    x = x + _attn_out(cfg, unit_params, f"{pref}/attn", o)
+                if kind in ("attn", "moe", "xattn"):
+                    x, (k, v) = _self_attn_block(cfg, unit_params, f"{pref}/attn", x,
+                                                 positions)
                     kc, vc = cache[f"{pref}/k"][u], cache[f"{pref}/v"][u]
                     size = kc.shape[1]
                     ins = min(size, S_total)
@@ -403,6 +498,11 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                     slots = torch.arange(S_total - ins, S_total, device=x.device) % size
                     kc[:, slots] = k[:, -ins:].to(kc.dtype)
                     vc[:, slots] = v[:, -ins:].to(vc.dtype)
+                    if kind == "xattn":
+                        xk, xv = _cross_kv(cfg, unit_params, f"{pref}/xattn", enc_out)
+                        x = _cross_attn_block(cfg, unit_params, f"{pref}/xattn", x, xk, xv)
+                        cache[f"{pref}/xk"][u].copy_(xk)
+                        cache[f"{pref}/xv"][u].copy_(xv)
                     if kind == "moe":
                         x, _ = _moe_block(cfg, unit_params, f"{pref}/moe", x)
                     else:
@@ -423,7 +523,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 
 def _prefill_row_chunked(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                         cache_size: int, patches, nchunks: int):
+                         cache_size: int, patches, enc_out, nchunks: int):
     """Sequential batch-row chunks; each writes its rows (dim 1) of every
     cache leaf."""
     B = tokens.shape[0]
@@ -436,8 +536,9 @@ def _prefill_row_chunked(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     for idx in range(nchunks):
         rows = slice(idx * Bc, (idx + 1) * Bc)
         pat = patches[rows] if patches is not None else None
+        enc = enc_out[rows] if enc_out is not None else None
         logits_c, cache_c, S_total = prefill(inner_cfg, params, tokens[rows],
-                                             cache_size, pat)
+                                             cache_size, pat, enc)
         for k in cache:
             cache[k][:, rows] = cache_c[k].to(cache[k].dtype)
         logits.append(logits_c)
@@ -450,7 +551,8 @@ def _prefill_row_chunked(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 @torch.inference_mode()
 def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
-                cache_len, tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+                cache_len, tokens: torch.Tensor,
+                enc_out: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cache]:
     """One decode step.  tokens: (B, 1); cache_len: int or 0-d tensor, the
     number of tokens already in the cache.  Returns (logits (B, 1, V) f32,
     cache).  The cache's tensors are updated IN PLACE and the same dict is
@@ -460,8 +562,10 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     token's K/V go to slot ``cache_len % size`` with RoPE at the absolute
     position ``cache_len``, and the attention sees the
     ``min(cache_len + 1, size)`` live slots with no window mask (the ring
-    is the window).  The RG-LRU and SSM blocks take their single-step
-    updates; no kernel is launched."""
+    is the window).  An ``xattn`` layer's cross-attention reads the cached
+    ``xk``/``xv`` over all their frames (``enc_out`` is not read, as in the
+    reference).  The RG-LRU and SSM blocks take their single-step updates;
+    no kernel is launched."""
     check_ported(cfg)
     x = embed_tokens(cfg, params, tokens)
     clen = torch.as_tensor(cache_len, dtype=torch.int64, device=x.device).reshape(())
@@ -471,13 +575,12 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     spec = AttnSpec(causal=True, window=0, logit_cap=cfg.logit_cap)
 
     for si, seg in enumerate(cfg.segments):
-        pref_seg = f"seg{si}/"
-        sp = {k: v for k, v in params.items() if k.startswith(pref_seg)}
+        sp = _segment_params(params, si)
         for u in range(seg.num_units):
             unit_params = {k: v[u] for k, v in sp.items()}
             for li, kind in enumerate(seg.pattern):
                 pref = f"seg{si}/l{li}"
-                if kind in ("attn", "moe"):
+                if kind in ("attn", "moe", "xattn"):
                     hh = _norm(cfg, x, unit_params, f"{pref}/attn")
                     q, k, v = _qkv(cfg, unit_params, f"{pref}/attn", hh, positions)
                     kc, vc = cache[f"{pref}/k"][u], cache[f"{pref}/v"][u]
@@ -488,6 +591,10 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
                     valid = torch.clamp(clen + 1, max=size)
                     o = decode_attention(q, kc, vc, valid, spec)
                     x = x + _attn_out(cfg, unit_params, f"{pref}/attn", o)
+                    if kind == "xattn":
+                        x = _cross_attn_block(cfg, unit_params, f"{pref}/xattn", x,
+                                              cache[f"{pref}/xk"][u],
+                                              cache[f"{pref}/xv"][u], step=True)
                     if kind == "moe":
                         x, _ = _moe_block(cfg, unit_params, f"{pref}/moe", x)
                     else:
@@ -522,13 +629,15 @@ class CausalLM(nn.Module):
     ``seg{i}/l{j}/<block>/<leaf>`` is the parameter ``seg{i}__l{j}__...``.
     ``prefill`` and ``decode_step`` are the entry points."""
 
+    _specs = staticmethod(build_specs)  # the parameter table of a seeded init
+
     def __init__(self, cfg: ModelConfig, params: Optional[Params] = None, *,
                  seed: int = 0, device: DeviceLike = None):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
         if params is None:
-            params = init_params(build_specs(cfg), seed, device)
+            params = init_params(self._specs(cfg), seed, device)
         for k, v in params.items():
             self.register_parameter(_param_name(k), nn.Parameter(v, requires_grad=False))
 
@@ -542,13 +651,15 @@ class CausalLM(nn.Module):
         """The parameters keyed by their JAX keys."""
         return {n.replace("__", "/"): p for n, p in self.named_parameters()}
 
+    def _here(self, x) -> torch.Tensor:
+        """``x`` as a tensor on this model's device."""
+        x = x if torch.is_tensor(x) else torch.as_tensor(x)
+        return x.to(next(self.parameters()).device)
+
     def prefill(self, tokens: torch.Tensor, cache_size: Optional[int] = None):
         """``prefill`` on this model's parameters; ``cache_size`` defaults to
         the prompt length."""
-        if not torch.is_tensor(tokens):
-            tokens = torch.as_tensor(tokens)
-        device = next(self.parameters()).device
-        tokens = tokens.to(device)
+        tokens = self._here(tokens)
         return prefill(self.cfg, self.params(), tokens,
                        tokens.shape[1] if cache_size is None else cache_size)
 
@@ -556,9 +667,6 @@ class CausalLM(nn.Module):
         """``decode_step`` on this model's parameters: tokens (B, 1) after
         ``cache_len`` tokens; updates ``cache`` in place and returns
         (logits (B, 1, V) f32, cache)."""
-        if not torch.is_tensor(tokens):
-            tokens = torch.as_tensor(tokens)
-        device = next(self.parameters()).device
-        return decode_step(self.cfg, self.params(), cache, cache_len, tokens.to(device))
+        return decode_step(self.cfg, self.params(), cache, cache_len, self._here(tokens))
 
     forward = prefill

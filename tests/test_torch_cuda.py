@@ -5,6 +5,8 @@ installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -368,6 +370,18 @@ class TestFlashAttentionOnCard:
         assert not got[~live].any()
         torch.testing.assert_close(got[live].float(), want[live], **BF16_TOL)
 
+    # whisper-medium's shapes (16 heads of 64, not causal): the encoder's
+    # 1,500 frames (23 full 64-key tiles and one of 28) and the decoder's
+    # cross-attention, 224 queries to them.
+    @pytest.mark.parametrize("B, Sq, Sk", [(2, 1500, 1500), (2, 224, 1500)])
+    def test_whisper_shapes(self, cuda, B, Sq, Sk):
+        q, k, v = _qkv(cuda, B, Sq, Sk, 16, 16, 64, seed=Sq)
+        before = flash_attention_cuda.launches
+        got = flash_ops.flash_attention(q, k, v, causal=False)
+        assert flash_attention_cuda.launches == before + 1
+        want = chunked_attention_f32_ref(q, k, v, False)
+        torch.testing.assert_close(got.float(), want, **BF16_TOL)
+
     def test_valid_length_zero_gives_zeros(self, cuda):
         q, k, v = _qkv(cuda, 2, 40, 90, 4, 2, 64, seed=3)
         valid = torch.tensor([0, 90], dtype=torch.int32, device=cuda)
@@ -592,3 +606,71 @@ class TestDecodeOnCard:
             assert got.is_cuda and got.shape == (2, 1, cfg.vocab_size)
             assert _rel_l2(got, want) < 5e-2, t
         assert [k.launches for k in kernels] == before
+
+
+from repro_torch.models import encdec as torch_encdec  # noqa: E402
+from repro_torch.models.config import uniform  # noqa: E402
+
+
+@pytest.mark.cuda
+class TestWhisperOnCard:
+    # whisper-medium at full width cut to 2 encoder and 2 decoder layers, the
+    # same seeded bf16 weights on the card and on the CPU: the encoder's
+    # output (the flash kernel on the card, two launches; its plain version
+    # on the CPU), then the decoder's prefill on the same encoder output (four
+    # launches: self- and cross-attention), each within a relative L2 error
+    # of 5e-2, the smoke's bar.  The seeded cross-attention is nearly one-hot
+    # (scores of rms ~64), so the encoder's bf16 differences reorder
+    # near-tied frames: end to end, two plain paths that differ in rounding
+    # only part as far (PERF.md).
+    def test_encdec_prefill_matches_cpu(self, cuda):
+        cfg = get_config("whisper_medium")
+        cfg = dataclasses.replace(cfg, segments=uniform("xattn", 2),
+                                  encoder_segments=uniform("attn", 2))
+        params = init_params(torch_encdec.build_encdec_specs(cfg), seed=1, device="cpu")
+        on_card = {k: v.to(cuda) for k, v in params.items()}
+        rng = np.random.default_rng(1)
+        frames = torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)).bfloat16()
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32))
+        before = flash_attention_cuda.launches
+        enc_cpu = torch_encdec.encode(cfg, params, frames)
+        enc_card = torch_encdec.encode(cfg, on_card, frames.to(cuda))
+        assert flash_attention_cuda.launches == before + 2
+        assert _rel_l2(enc_card, enc_cpu) < 5e-2
+        want, _, _ = torch_lm.prefill(cfg, params, toks, 36, enc_out=enc_cpu)
+        got, cache, _ = torch_lm.prefill(cfg, on_card, toks.to(cuda), 36,
+                                         enc_out=enc_cpu.to(cuda))
+        assert flash_attention_cuda.launches == before + 6
+        assert got.shape == (2, cfg.vocab_size) and torch.isfinite(got).all()
+        assert cache["seg0/l0/xk"].shape == (2, 2, cfg.encoder_seq, 16, 64)
+        assert _rel_l2(got, want) < 5e-2
+
+    # The reduced config (24 frames, 4 heads of 16) as TestDecodeOnCard
+    # runs the others: encdec_prefill and six decode steps that read the
+    # cached cross-attention K/V, card against CPU within 5e-2; the steps
+    # launch no kernel.
+    def test_decode_step_matches_cpu(self, cuda):
+        cfg = get_config("whisper_medium").reduced()
+        params = init_params(torch_encdec.build_encdec_specs(cfg), seed=1, device="cpu")
+        on_card = {k: v.to(cuda) for k, v in params.items()}
+        rng = np.random.default_rng(2)
+        frames = torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)).bfloat16()
+        S, n = 24, 6
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, S + n)).astype(np.int32))
+        want, cache_cpu, clen, _ = torch_encdec.encdec_prefill(cfg, params, frames,
+                                                               toks[:, :S], S + n)
+        got, cache_card, _, _ = torch_encdec.encdec_prefill(cfg, on_card, frames.to(cuda),
+                                                            toks[:, :S].to(cuda), S + n)
+        assert _rel_l2(got, want) < 5e-2
+        before = flash_attention_cuda.launches
+        for t in range(n):
+            step = toks[:, S + t:S + t + 1]
+            want, cache_cpu = torch_encdec.encdec_decode_step(cfg, params, cache_cpu,
+                                                              clen + t, step)
+            got, cache_card = torch_encdec.encdec_decode_step(cfg, on_card, cache_card,
+                                                              clen + t, step.to(cuda))
+            assert got.is_cuda and got.shape == (2, 1, cfg.vocab_size)
+            assert _rel_l2(got, want) < 5e-2, t
+        assert flash_attention_cuda.launches == before

@@ -1,8 +1,8 @@
 """The port's decode on the CPU against the JAX package's: ``decode_attention``
 (scalar and per-row cache lengths, window, soft-cap, GQA and MQA) and
-``prefill`` + ``decode_step`` for every reduced config the port runs (all
-but whisper), on the same seeded numpy inputs and parameters carried across
-with ``params_from_numpy``.
+``prefill`` + ``decode_step`` for every reduced config (whisper through
+``encdec_prefill`` on seeded frames), on the same seeded numpy inputs and
+parameters carried across with ``params_from_numpy``.
 
 Tolerances: ``decode_attention`` f32 1e-5 (summation order only), bf16 2e-2
 (bf16 rounds q, p and the output at other places in the two frameworks).
@@ -24,17 +24,19 @@ import torch
 from repro.layers.attention import AttnSpec as JSpec
 from repro.layers.attention import decode_attention as jax_decode_attention
 from repro.models import base as JB
+from repro.models import encdec as JE
 from repro.models import lm as JL
 from repro.models import params as JP
 from repro_torch.layers.attention import AttnSpec, decode_attention
 from repro_torch.models import base as TB
+from repro_torch.models import encdec as TE
 from repro_torch.models import lm as TL
 from repro_torch.models import params as TP
 
 CPU = "cpu"
 DECODE_TOL = dict(rtol=5e-4, atol=5e-4)
 CACHE_TOL = dict(rtol=1e-4, atol=1e-4)
-DECODE_ARCHS = [a for a in JB.ARCH_IDS if a != "whisper_medium"]
+DECODE_ARCHS = list(JB.ARCH_IDS)
 
 
 def _np(t):
@@ -78,18 +80,42 @@ def test_decode_attention_takes_a_python_int():
 def _both_params(arch, seed, **overrides):
     jcfg = dataclasses.replace(JB.get_config(arch).reduced(), **overrides)
     tcfg = dataclasses.replace(TB.get_config(arch).reduced(), **overrides)
-    jp = JP.init_params(JL.build_specs(jcfg), jax.random.PRNGKey(seed))
+    specs = (JE.build_encdec_specs if jcfg.encoder_segments else JL.build_specs)(jcfg)
+    jp = JP.init_params(specs, jax.random.PRNGKey(seed))
     jp = {k: v.astype(jnp.float32) for k, v in jp.items()}
     tp = TP.params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, device=CPU)
     return jcfg, tcfg, jp, tp
+
+
+def _frames(cfg, B, seed):
+    """Seeded frame embeddings for an encoder-decoder, else None."""
+    if not cfg.encoder_segments:
+        return None
+    return (np.random.default_rng(seed + 100)
+            .standard_normal((B, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+
+
+def _jax_prefill(cfg, params, toks, cache_size, frames):
+    if frames is None:
+        return JL.prefill(cfg, params, jnp.asarray(toks), cache_size)
+    return JE.encdec_prefill(cfg, params, jnp.asarray(frames), jnp.asarray(toks),
+                             cache_size)[:3]
+
+
+def _torch_prefill(cfg, params, toks, cache_size, frames):
+    toks = torch.as_tensor(toks)
+    if frames is None:
+        return TL.prefill(cfg, params, toks, cache_size)
+    return TE.encdec_prefill(cfg, params, torch.as_tensor(frames), toks, cache_size)[:3]
 
 
 def _run_both(arch, B, S, n_dec, seed, **overrides):
     jcfg, tcfg, jp, tp = _both_params(arch, seed, **overrides)
     toks = np.random.default_rng(seed).integers(
         0, jcfg.vocab_size, (B, S + n_dec)).astype(np.int32)
-    j_logits, j_cache, j_len = JL.prefill(jcfg, jp, jnp.asarray(toks[:, :S]), S + n_dec)
-    t_logits, t_cache, t_len = TL.prefill(tcfg, tp, torch.from_numpy(toks[:, :S]), S + n_dec)
+    frames = _frames(jcfg, B, seed)
+    j_logits, j_cache, j_len = _jax_prefill(jcfg, jp, toks[:, :S], S + n_dec, frames)
+    t_logits, t_cache, t_len = _torch_prefill(tcfg, tp, toks[:, :S], S + n_dec, frames)
     np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), **DECODE_TOL)
     assert t_len == int(j_len) == S
     for t in range(n_dec):
@@ -110,7 +136,8 @@ def _run_both(arch, B, S, n_dec, seed, **overrides):
 @pytest.mark.parametrize("arch", DECODE_ARCHS)
 def test_decode_step_matches_jax(arch):
     """Prefill 24 tokens into a cache of 30, then 6 steps: reduced
-    recurrentgemma and mixtral have window 16, so their rings wrap."""
+    recurrentgemma and mixtral have window 16, so their rings wrap; whisper's
+    steps read the cached cross-attention K/V of 24 frames."""
     _run_both(arch, B=2, S=24, n_dec=6, seed=DECODE_ARCHS.index(arch))
 
 
@@ -135,15 +162,16 @@ def test_decode_equals_teacher_forced_prefill(arch):
     cfg = TB.get_config(arch).reduced()
     if cfg.num_experts:
         cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
-    params = TP.init_params(TL.build_specs(cfg), seed=3, device=CPU)
-    params = {k: v.float() for k, v in params.items()}
+    specs = (TE.build_encdec_specs if cfg.encoder_segments else TL.build_specs)(cfg)
+    params = {k: v.float() for k, v in TP.init_params(specs, seed=3, device=CPU).items()}
     B, S, n = 2, 20, 5
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (B, S + n)).astype(np.int32))
-    _, cache, clen = TL.prefill(cfg, params, toks[:, :S], S + n)
+    frames = _frames(cfg, B, 3)
+    _, cache, clen = _torch_prefill(cfg, params, toks[:, :S], S + n, frames)
     for t in range(n):
         logits, cache = TL.decode_step(cfg, params, cache, clen + t, toks[:, S + t:S + t + 1])
-        want, _, _ = TL.prefill(cfg, params, toks[:, :S + t + 1], S + t + 1)
+        want, _, _ = _torch_prefill(cfg, params, toks[:, :S + t + 1], S + t + 1, frames)
         torch.testing.assert_close(logits[:, 0], want, **DECODE_TOL)
 
 
@@ -173,9 +201,3 @@ def test_causal_lm_decode_step_and_tensor_cache_len():
     torch.testing.assert_close(got, want)
     for k in cache_f:
         torch.testing.assert_close(cache_m[k], cache_f[k])
-
-
-def test_xattn_decode_still_raises():
-    cfg = TB.get_config("whisper_medium").reduced()
-    with pytest.raises(NotImplementedError, match="xattn"):
-        TL.decode_step(cfg, {}, {}, 0, torch.zeros((1, 1), dtype=torch.int32))

@@ -293,15 +293,20 @@ def test_prefill_row_chunks_and_vision_prefix():
         np.testing.assert_allclose(_np(t_cache[k]), np.asarray(v), err_msg=k, **TOL)
 
 
-@pytest.mark.parametrize("arch, kind", [("whisper_medium", "xattn")])
-def test_unported_kinds_raise(arch, kind):
-    cfg = TB.get_config(arch).reduced()
-    specs = TL.build_specs(cfg)          # specs are data: built for every kind
-    assert specs
-    with pytest.raises(NotImplementedError, match=kind):
-        TL.prefill(cfg, {}, torch.zeros((1, 4), dtype=torch.int32), 4)
-    with pytest.raises(NotImplementedError, match=kind):
-        TL.CausalLM(cfg, device=CPU)
+@pytest.mark.parametrize("entry", ["prefill", "decode_step", "CausalLM"])
+def test_unported_kinds_raise(entry):
+    """Every kind of the ten configs runs (``check_ported`` passes them all);
+    a kind the reference does not know raises in each entry point."""
+    for arch in TB.ARCH_IDS:
+        TL.check_ported(TB.get_config(arch))
+    cfg = TB.get_config("yi_6b").reduced()
+    cfg = dataclasses.replace(cfg, segments=(TSegment(("attn", "conv"), 1),))
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    call = {"prefill": lambda: TL.prefill(cfg, {}, toks, 4),
+            "decode_step": lambda: TL.decode_step(cfg, {}, {}, 0, toks[:, :1]),
+            "CausalLM": lambda: TL.CausalLM(cfg, device=CPU)}[entry]
+    with pytest.raises(NotImplementedError, match="'conv'"):
+        call()
 
 
 def test_causal_lm_module_maps_keys_one_to_one():
