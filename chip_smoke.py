@@ -190,10 +190,38 @@ exits 2 with one line on stderr that says which):
    fast with depth: the JAX package's own f32 decode is 4.3e-4 from its
    prefill at 2 + 2 layers).
 
+19. training (after phase 18, the main path, part 7): 19a, at yi-6b's
+   training shape (B 4, S 2,048, 32 heads of 128, 4 KV heads, causal) and
+   whisper-medium's encoder (B 8, 1,500 x 1,500, 16 heads of 64, not
+   causal) and cross-attention (224 x 1,500) shapes, the flash kernel's
+   log-sum-exp against the f32 reference's within 1e-3, its output the
+   same with and without the lse, and dq, dk, dv of ``chunked_attention``
+   (the kernel's forward, then ``flash_bwd`` in PyTorch ops) against
+   ``flash_bwd`` fed the f32 reference's output and lse within a relative
+   L2 error of 2e-2; the kernel's time with and without the lse beside its
+   bound, the plain version's and SDPA's, and the backward's beside SDPA's
+   backward.  19b, the loss and every gradient leaf (f32 masters cast to
+   bf16, seeded init) of yi-6b at full width and 2 layers (B 2 x S 2,048,
+   ``lm_loss``) and whisper-medium at 2 + 2 layers (B 2, 1,500 frames, 224
+   tokens, ``encdec_loss``), the kernel path against the plain flash
+   swapped in, each within 5e-2 or twice the distance of two plain
+   flashes that differ in rounding only.  19c, the trainer
+   (``repro_torch.launch.train.main``) at its defaults (yi-6b reduced and
+   widened, 4 layers) for 20 steps with a checkpoint every 10, then
+   ``--resume`` to 25: resumed at step 20, losses finite, the last below
+   the first, two flash launches a layer a step.  19d, yi-6b at full width
+   cut to 8 of its 32 layers (its AdamW state at 32 does not fit one card),
+   5 AdamW steps on ``synthetic_batches`` of 4 x 2,048: loss and gradient
+   norm finite, 16 flash launches a step and no RG-LRU, SSD or plain
+   flash; ms a step, tokens/s, peak memory, model FLOPs over the measured
+   bf16 peak and a profile of one more step by class are readings.  First,
+   the guard: ``rglru_scan``, ``ssd`` and a ``kv_valid_len`` flash call
+   raise on a CUDA input that needs a gradient.
+
 Phases 12-15 count their launches apart from phases 4-5 (phase 6's counts)
 and the serving paths; the result line carries them under
-``launches_by_phase`` (flash's ``launches`` is phases 9, 16 and 18
-together).
+``launches_by_phase`` (flash's ``launches`` is phases 9, 16, 18 and 19
+(19c and 19d) together).
 
 Each parity line prints the largest absolute error and its worst ratio to
 the ``torch.allclose`` limit ``atol + rtol |want|`` (the check passes up to
@@ -212,8 +240,10 @@ import json
 import os
 import random
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -299,6 +329,39 @@ WHISPER_GATE_UNITS = 2      # the plain-flash swap: 2 encoder and 2 decoder laye
 # its prefill at 1 + 1 layers and 4.3e-4 at 2 + 2, near DECODE_F32_REL_L2
 # (scripts/reference_decode_check.py, PERF.md).
 WHISPER_TF_UNITS = 1
+# Phase 19, training.  yi-6b at full width cut to 8 of its 32 layers: at 32
+# the f32 masters and AdamW moments alone (6.06B x 12 B = 73 GB) do not fit
+# one card beside the gradients; 8 layers hold 1.91B parameters.
+TRAIN_ARCH = "yi_6b"
+TRAIN_UNITS = 8
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048     # 8,192 tokens a step
+TRAIN_STEPS = 5
+# 19a: the kernel's lse against the f32 reference's (the same f32 logits
+# summed in another order) and dq, dk, dv against flash_bwd fed the f32
+# reference's output and lse (bf16 gradients, and delta = rowsum(dO O) from
+# the kernel's bf16 output).  (label, B, Sq, Sk, H, Hkv, D, causal)
+LSE_ATOL = 1e-3
+GRAD_REL_L2 = 2e-2
+TRAIN_FLASH_SHAPES = (("yi-6b training", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 4, 128, True),
+                      ("whisper encoder", 8, 1500, 1500, 16, 16, 64, False),
+                      ("whisper cross-attention", 8, WHISPER_PROMPT, 1500, 16, 16, 64, False))
+# 19b: the loss and each gradient leaf with the kernel against the plain
+# flash, at 2 layers (whisper 2 + 2), within TRAIN_REL_L2 or NOISE_RATIO x the
+# distance of two plain flashes (phase 17's rule); a leaf under ZERO_LEAF of
+# the whole gradient's norm is measured against that floor.
+TRAIN_GATE_UNITS = 2
+TRAIN_GATE_BATCH = 2
+TRAIN_REL_L2 = 5e-2
+ZERO_LEAF = 1e-3
+# ... and again with each wq and wk divided by TEMPER[arch], so that the
+# scores are not nearly one-hot: yi's seeded scores (q rms 11, k rms 32) have
+# rms ~360, 1.4 after 16 x 16; whisper's (q and k rms 8) ~64, 4 after 4 x 4
+# (at 16 x 16, 0.25, its 1,500-frame cross-attention is nearly uniform and
+# its wq and wk gradients as noisy as the seeded ones: 0.34 against a plain
+# pair's 0.38).  The same rule as above.
+TEMPER = {"yi_6b": 16.0, "whisper_medium": 4.0}
+# 19c: the trainer at its defaults, a checkpoint every 10 steps, then resumed.
+TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_RESUME_STEPS = 20, 10, 25
 # examples/multi_query_serving.py's jobs: (prompts, window s, slack)
 MULTI_JOBS = ((24, 30.0, 3.0), (16, 20.0, 2.0), (32, 40.0, 2.5))
 # Phase 12: benchmarks/bench_shared_panes.py's sliding regime at the paper's
@@ -1351,6 +1414,432 @@ def whisper_path(args, cfg, lm, encdec, counters, fa_ops, flash_f32, flash_swap)
     return r, launched
 
 
+# -- phase 19 ----------------------------------------------------------------
+
+def f32_standard(flash_f32):
+    """``chunked_attention_f32_ref`` with its output in q's dtype (its lse,
+    when asked for, in f32): a plain flash that the model can run in bf16."""
+    def call(q, k, v, *a, return_lse=False, **kw):
+        r = flash_f32(q, k, v, *a, return_lse=return_lse, **kw)
+        return (r[0].to(q.dtype), r[1]) if return_lse else r.to(q.dtype)
+    return call
+
+
+def train_flash_parity(flash_cuda, flash_f32, flash_plain, flash_fb, attention) -> dict:
+    """19a: at each of ``TRAIN_FLASH_SHAPES`` the kernel's lse against the
+    f32 reference's (within ``LSE_ATOL``), and dq, dk, dv of
+    ``chunked_attention`` (the kernel's forward, then ``flash_bwd``) against
+    ``flash_bwd`` fed the f32 reference's output and lse (relative L2
+    within ``GRAD_REL_L2``); the kernel's time with and without the lse
+    beside the bound, the plain version's and SDPA's, and the backward's
+    beside SDPA's backward.  Returns the readings by shape."""
+    import torch.nn.functional as F
+
+    out = {}
+    for label, B, Sq, Sk, H, Hkv, D, causal in TRAIN_FLASH_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(19 + Sq)
+        q = torch.randn((B, Sq, H, D), device="cuda", generator=gen).bfloat16()
+        k = torch.randn((B, Sk, Hkv, D), device="cuda", generator=gen).bfloat16()
+        v = torch.randn((B, Sk, Hkv, D), device="cuda", generator=gen).bfloat16()
+        do = torch.randn((B, Sq, H, D), device="cuda", generator=gen).bfloat16()
+        spec = attention.AttnSpec(causal=causal)
+        o, lse = flash_cuda(q, k, v, causal, 0, 0.0, return_lse=True)
+        want_o, want_lse = flash_f32(q, k, v, causal, 0, 0.0, return_lse=True)
+        lse_err = (lse - want_lse).abs().max().item()
+        same_o = torch.equal(o, flash_cuda(q, k, v, causal))
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        attention.chunked_attention(qg, kg, vg, spec).backward(do)
+        want = attention.flash_bwd(q, k, v, want_o, want_lse, do, spec)
+        rels = [rel_l2(t.grad, w) for t, w in zip((qg, kg, vg), want)]
+        shape = (f"B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} D={D} "
+                 f"{'causal' if causal else 'not causal'}")
+        log(f"  {label} {shape}: lse max abs err {lse_err:.3e} (limit {LSE_ATOL}), output "
+            f"with and without the lse {'equal' if same_o else 'DIFFERENT'}; dq, dk, dv rel "
+            f"L2 {rels[0]:.3e}, {rels[1]:.3e}, {rels[2]:.3e} (limit {GRAD_REL_L2})")
+        if not (lse_err <= LSE_ATOL and same_o and max(rels) <= GRAD_REL_L2):
+            raise AssertionError(f"flash training parity failed at {label} {shape}")
+        del qg, kg, vg, want
+        b_ms, b_by = bound(*flash_fb(B, Sq, Sk, H, Hkv, D, causal, 0), "bfloat16")
+        fwd_ops, fwd_bytes = flash_fb(B, Sq, Sk, H, Hkv, D, causal, 0)
+        # the backward's least work: 2.5x the forward's products (S, dP, dV,
+        # dQ, dK against Q K^T and P V) over the live pairs; q, k, v, o, dO
+        # read and dq, dk, dv written in bf16, the lse read in f32
+        bb_ms, bb_by = bound(2.5 * fwd_ops, 2.0 * fwd_bytes + 4.0 * B * H * Sq, "bfloat16")
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        o_s = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                             enable_gqa=Hkv != H)
+        dot = do.transpose(1, 2)
+        r = {"shape": shape, "max_abs_err": max(lse_err, *rels),
+             "ms": cuda_ms(lambda: flash_cuda(q, k, v, causal), reps=KERNEL_REPS),
+             "ms_lse": cuda_ms(lambda: flash_cuda(q, k, v, causal, return_lse=True),
+                               reps=KERNEL_REPS),
+             "plain_ms": cuda_ms(lambda: flash_plain(q, k, v, causal), reps=2),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=causal, enable_gqa=Hkv != H), reps=KERNEL_REPS),
+             "bwd_ms": cuda_ms(lambda: attention.flash_bwd(q, k, v, o, lse, do, spec),
+                               reps=3),
+             "bwd_bound_ms": bb_ms, "bwd_bound_by": bb_by,
+             "library_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+                 o_s, (qt, kt, vt), dot, retain_graph=True), reps=KERNEL_REPS)}
+        log(f"    forward: kernel {r['ms']:.4f} ms, with the lse {r['ms_lse']:.4f}, plain "
+            f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, bound {b_ms:.4f} by {b_by} "
+            f"({b_ms / r['ms']:.1%} of it reached); backward (flash_bwd, PyTorch ops) "
+            f"{r['bwd_ms']:.4f} ms, SDPA's backward {r['library_bwd_ms']:.4f}, bound "
+            f"{bb_ms:.4f} by {bb_by} ({bb_ms / r['bwd_ms']:.1%})")
+        out[label] = r
+        del q, k, v, do, o, lse, want_o, want_lse, qt, kt, vt, o_s
+        torch.cuda.empty_cache()
+    return out
+
+
+def grad_distance(got: dict, want: dict) -> dict:
+    """Relative L2 distance of each gradient leaf, over the larger of the
+    leaf's norm and ``ZERO_LEAF`` of the whole gradient's (a leaf that is
+    0 in exact arithmetic, such as whisper's ``bk``, holds only noise)."""
+    whole = torch.sqrt(sum(w.float().square().sum() for w in want.values())).item()
+    return {k: (got[k].float() - w.float()).norm().item()
+            / max(w.float().norm().item(), ZERO_LEAF * whole) for k, w in want.items()}
+
+
+def train_model_parity(cfg, loss_fn, batch, fa_ops, flash_plain, flash_f32, opt,
+                       temper: float) -> dict:
+    """19b: the loss and every gradient leaf of ``loss_fn`` (f32 masters
+    cast to bf16 in the graph, seeded init) with the kernel, against the
+    same with the plain flash swapped in; each distance within
+    ``TRAIN_REL_L2`` or ``NOISE_RATIO`` times the distance between two plain
+    flashes that differ in rounding only (on bf16 inputs, and in f32 but
+    for q/sqrt(D)) where that is larger (phase 17's rule: the seeded
+    attention is nearly one-hot, so the gradients of both plain paths are
+    dominated by near-ties).  Then the same on the weights with every
+    ``wq`` and ``wk`` divided by ``TEMPER[arch]`` (scores no longer nearly
+    one-hot, so the plain pair agrees closely and the limit is mostly
+    ``TRAIN_REL_L2``)."""
+    from repro_torch.launch.steps import model_specs
+    from repro_torch.models.params import init_params
+
+    state = opt.init_state(init_params(model_specs(cfg), seed=19, device="cuda"))
+    seeded = gradient_gate(cfg, loss_fn, batch, fa_ops, flash_plain, flash_f32, opt, state,
+                           "seeded")
+    for k, v in state.params.items():
+        if k.endswith("/wq") or k.endswith("/wk"):
+            v /= temper
+    tempered = gradient_gate(cfg, loss_fn, batch, fa_ops, flash_plain, flash_f32, opt,
+                             state, f"wq, wk / {temper}")
+    return {"seeded": seeded, "tempered": tempered}
+
+
+def gradient_gate(cfg, loss_fn, batch, fa_ops, flash_plain, flash_f32, opt, state,
+                  what) -> dict:
+    """One comparison of ``train_model_parity`` on ``state``'s masters."""
+
+    def run(flash):
+        with swapped(fa_ops, "flash_attention_cuda", flash):
+            masters = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+            loss, _ = loss_fn(cfg, opt.cast_params(masters), batch)
+            loss.backward()
+            torch.cuda.synchronize()
+        return loss.detach(), {k: v.grad for k, v in masters.items()}
+
+    k_loss, k_grads = run(None)
+    p_loss, p_grads = run(flash_plain)
+    f_loss, f_grads = run(f32_standard(flash_f32))
+    dist = grad_distance(k_grads, p_grads)
+    floor = grad_distance(f_grads, p_grads)
+    dist["loss"] = abs((k_loss - p_loss) / p_loss).item()
+    floor["loss"] = abs((f_loss - p_loss) / p_loss).item()
+    limit = {k: max(TRAIN_REL_L2, NOISE_RATIO * floor[k]) for k in dist}
+    finite = all(torch.isfinite(g).all() for g in k_grads.values()) and torch.isfinite(k_loss)
+    worst = sorted(dist, key=lambda k: dist[k] / limit[k], reverse=True)[:4]
+    log(f"  {cfg.name} at {cfg.num_layers} + {sum(s.num_units for s in cfg.encoder_segments)} "
+        f"layers, {what}, batch {tuple(batch['tokens'].shape)}: loss {k_loss.item():.6f} "
+        f"(plain flash {p_loss.item():.6f}, f32 standard {f_loss.item():.6f}); {len(k_grads)} gradient "
+        f"leaves, all finite: {finite}; kernel against plain (limit) for the worst of loss "
+        f"and leaves: " + "; ".join(f"{k} {dist[k]:.3e} ({limit[k]:.3e}, plain pair "
+                                     f"{floor[k]:.3e})" for k in worst))
+    bad = [k for k in dist if not dist[k] <= limit[k]]
+    if bad or not finite:
+        raise AssertionError(f"{cfg.name} ({what}): kernel path and plain path disagree "
+                             f"in {bad} (or non-finite)")
+    return {"loss": k_loss.item(), "worst": {k: (dist[k], limit[k]) for k in worst}}
+
+
+def trainer_path(train_mod, ckpt_dir, counters, layers: int) -> dict:
+    """19c: the trainer (``launch/train.py`` ``main``) at its defaults (yi-6b
+    ``--reduced``, widened) for ``TRAINER_STEPS`` steps with a checkpoint every
+    ``TRAINER_CKPT_EVERY``, then ``--resume`` to ``TRAINER_RESUME_STEPS``:
+    the resumed run starts at the first run's last checkpoint, every loss
+    is finite and the last below the first run's first; each step launches
+    the flash kernel twice a layer (``layers`` of them: the forward and the
+    remat recompute)."""
+    argv = ["--ckpt-dir", ckpt_dir, "--ckpt-every", str(TRAINER_CKPT_EVERY)]
+    counters.reset()
+    t0 = time.perf_counter()
+    first = train_mod.main(argv + ["--steps", str(TRAINER_STEPS)])
+    again = train_mod.main(argv + ["--steps", str(TRAINER_RESUME_STEPS), "--resume"])
+    wall = time.perf_counter() - t0
+    got = counters.read()
+    want = 2 * layers * TRAINER_RESUME_STEPS
+    losses = first["losses"] + again["losses"]
+    log(f"  trainer: {TRAINER_STEPS} steps then --resume to {TRAINER_RESUME_STEPS} in {wall:.1f} "
+        f"s; checkpoints {[p.name for p in first['checkpoints'] + again['checkpoints']]}; "
+        f"resumed at {again['start_step']}; loss {losses[0]:.4f} -> {first['losses'][-1]:.4f} "
+        f"-> {losses[-1]:.4f}; flash launches {got['flash_attention']} (expected {want}), "
+        f"rglru {got['rglru']}, ssd {got['ssd']}, plain on CUDA {got['plain_on_cuda']}")
+    ok = (again["start_step"] == TRAINER_STEPS and len(losses) == TRAINER_RESUME_STEPS
+          and all(np.isfinite(losses)) and first["losses"][-1] < losses[0]
+          and losses[-1] < losses[0]
+          and [p.name for p in first["checkpoints"]] == [
+              f"step_{s:08d}" for s in range(TRAINER_CKPT_EVERY, TRAINER_STEPS + 1,
+                                             TRAINER_CKPT_EVERY)]
+          and got["flash_attention"] == want and not got["rglru"] and not got["ssd"]
+          and not got["plain_on_cuda"])
+    if not ok:
+        raise AssertionError("the trainer did not lower its loss, checkpoint, "
+                             "resume at its last checkpoint and launch the flash kernel "
+                             "as expected")
+    return {"steps": TRAINER_RESUME_STEPS, "first_loss": losses[0], "last_loss": losses[-1],
+            "wall_s": wall, "flash_launches": got["flash_attention"]}
+
+
+def profile_train_step(run, attention) -> dict:
+    """Device time of one ``run()`` (a train step, which ends on the host)
+    by class: the flash kernel's forward, the attention backward
+    (``flash_bwd``'s kernels, found under a profiler range that wraps it for
+    this run), the other matrix products and the rest; and the idle share.
+    Returns ms by class (empty when the profiler records no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    bwd = attention.flash_bwd
+
+    def marked(*a, **kw):
+        with record_function("flash_bwd"):
+            return bwd(*a, **kw)
+
+    def under(evt):
+        got = list(evt.kernels)
+        for child in evt.cpu_children:
+            got += under(child)
+        return got
+
+    with swapped(attention, "flash_bwd", marked):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    in_bwd = [k for evt in prof.events()
+              if evt.name == "flash_bwd" and evt.device_type == DeviceType.CPU
+              for k in under(evt)]
+    bwd_us = sum(k.duration for k in in_bwd)
+    bwd_mm = sum(k.duration for k in in_bwd if is_matmul(k.name))
+    classes = {"flash forward": 0.0, "attention backward": bwd_us, "matmul": -bwd_mm,
+               "other": -(bwd_us - bwd_mm)}
+    others = {}   # "other" by kernel name, the backward's included
+    for evt in prof.events():
+        # the range's own span on the device timeline is no kernel
+        if evt.device_type != DeviceType.CUDA or evt.name == "flash_bwd":
+            continue
+        dt = evt.time_range.elapsed_us()
+        if "flash_fwd_kernel" in evt.name:
+            classes["flash forward"] += dt
+        elif is_matmul(evt.name):
+            classes["matmul"] += dt
+        else:
+            classes["other"] += dt
+            others[evt.name] = others.get(evt.name, 0.0) + dt
+    busy = sum(classes.values())
+    if busy <= 0:
+        log("    profiler: no device time recorded")
+        return {}
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
+    log(f"    profile of one train step: wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{busy / 1e3:.1f} ms, idle share {max(0.0, 1 - busy / wall_us):.1%}; by class (ms, "
+        f"share of busy): " + ", ".join(f"{k} {v / 1e3:.1f} ({v / busy:.1%})"
+                                         for k, v in classes.items())
+        + ("" if in_bwd else " (no kernel found under the flash_bwd range: the backward "
+                             "is counted in matmul and other)"))
+    log("    largest kernels outside matmul and flash (ms, the backward's included): "
+        + "; ".join(f"{name.replace('void at::native::', '')[:80]} {us / 1e3:.1f}"
+                    for name, us in top))
+    return {k: v / 1e3 for k, v in classes.items()} | {"wall_ms": wall_us / 1e3}
+
+
+def is_matmul(name: str) -> bool:
+    return any(tag in name.lower() for tag in ("gemm", "xmma", "cutlass", "nvjet", "wgmma"))
+
+
+def timed_train_path(cfg, opt, steps_mod, train_mod, attention, counters, flash_fb,
+                     bf16_peak) -> dict:
+    """19d: yi-6b at full width cut to ``TRAIN_UNITS`` layers, ``TRAIN_STEPS``
+    AdamW steps (the reference's defaults) on ``synthetic_batches`` of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ``: loss and gradient norm finite at every
+    step, the flash kernel launched twice a layer a step and nothing else;
+    ms a step, tokens/s, peak memory, model FLOPs a step over the measured
+    bf16 peak, and a profile of one more step (readings)."""
+    from repro_torch.models.params import init_params, num_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2 ** 30
+    specs = steps_mod.model_specs(cfg)
+    state = opt.init_state(init_params(specs, seed=19, device="cuda"))
+    adamw = opt.AdamWConfig()
+    data = train_mod.synthetic_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=19)
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in next(data).items()}
+               for _ in range(TRAIN_STEPS + 1)]
+    counters.reset()
+    walls, losses, gnorms = [], [], []
+    torch.cuda.synchronize()
+    for batch in batches[:TRAIN_STEPS]:
+        t0 = time.perf_counter()
+        state, metrics = steps_mod.train_step(cfg, state, batch, adamw)
+        losses.append(metrics["loss"].item())
+        gnorms.append(metrics["grad_norm"].item())
+        walls.append(time.perf_counter() - t0)
+    got = counters.read()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 - before
+    want = 2 * cfg.num_layers * TRAIN_STEPS
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n = num_params(specs) - int(np.prod(specs["embed/tokens"].shape))
+    attn = 3 * cfg.num_layers * flash_fb(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, cfg.num_heads,
+                                         cfg.num_kv_heads, cfg.head_dim, True, 0)[0]
+    flops = 6.0 * n * tokens + attn
+    steady = walls[1:]
+    ms = 1e3 * sum(steady) / len(steady)
+    r = {"layers": cfg.num_layers, "params": num_params(specs), "batch": TRAIN_BATCH,
+         "seq": TRAIN_SEQ, "losses": losses, "grad_norms": gnorms,
+         "first_ms": walls[0] * 1e3, "ms_per_step": ms, "tokens_per_s": tokens / (ms / 1e3),
+         "peak_gib": peak, "flash_launches": got["flash_attention"],
+         "model_flops": flops, "mfu": flops / (ms / 1e3) / bf16_peak}
+    log(f"  {cfg.name} at {cfg.num_layers} layers ({r['params']:,} parameters), B={TRAIN_BATCH}"
+        f" x S={TRAIN_SEQ}: losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 3) for x in gnorms]}; first step {r['first_ms']:.1f} ms, then "
+        f"{ms:.1f} ms a step, {r['tokens_per_s']:.0f} tokens/s; peak memory {peak:.2f} GiB "
+        f"above the {before:.2f} allocated before; "
+        f"flash launches {got['flash_attention']} (expected {want}), rglru {got['rglru']}, "
+        f"ssd {got['ssd']}, plain on CUDA {got['plain_on_cuda']}; model FLOPs a step "
+        f"{flops:.4g} (6 N T, N = {n:,} without the embedding table, plus attention), "
+        f"{r['mfu']:.1%} of the measured bf16 peak {bf16_peak / 1e12:.1f} TFLOP/s")
+    ok = (all(np.isfinite(losses)) and all(np.isfinite(gnorms))
+          and got["flash_attention"] == want and not got["rglru"] and not got["ssd"]
+          and not got["plain_on_cuda"])
+    if not ok:
+        raise AssertionError(f"{cfg.name} training: non-finite loss or grad norm, or the "
+                             f"flash kernel not launched as expected")
+    try:
+        holder = [state]
+
+        def step():
+            holder[0], m = steps_mod.train_step(cfg, holder[0], batches[-1], adamw)
+            m["loss"].item()
+
+        r["profile"] = profile_train_step(step, attention)
+    except Exception as exc:  # the profiler is a reading, not a gate
+        log(f"    profiler failed: {exc!r}")
+    return r
+
+
+def guard_check() -> None:
+    """The kernels without a backward refuse a CUDA input that needs a
+    gradient (and run under ``torch.no_grad()``); so does a
+    ``kv_valid_len`` flash call."""
+    from repro_torch.layers import attention
+    from repro_torch.layers.rglru import rglru_scan
+    from repro_torch.layers.ssd import ssd_chunked
+
+    x = torch.randn((1, 64, 32), device="cuda").bfloat16().requires_grad_(True)
+    gate = torch.sigmoid(torch.randn((1, 64, 32), device="cuda")).bfloat16()
+    xs = torch.randn((1, 64, 2, 16), device="cuda").requires_grad_(True)
+    bc = torch.randn((1, 64, 2, 8), device="cuda")
+    ssd_args = (torch.rand((1, 64, 2), device="cuda") * 0.1, -torch.ones(2, device="cuda"),
+                bc, bc, torch.ones(2, device="cuda"))
+    q = torch.randn((1, 64, 4, 64), device="cuda").bfloat16().requires_grad_(True)
+    calls = {"rglru_scan": lambda: rglru_scan(x, gate, gate, torch.randn(32, device="cuda")),
+             "ssd": lambda: ssd_chunked(xs, *ssd_args),
+             "chunked_attention with kv_valid_len": lambda: attention.chunked_attention(
+                 q, q.detach(), q.detach(), attention.AttnSpec(),
+                 kv_valid_len=torch.tensor([40], device="cuda"))}
+    for name, call in calls.items():
+        try:
+            call()
+        except NotImplementedError:
+            pass
+        else:
+            raise AssertionError(f"{name} on a CUDA input that needs a gradient did not raise")
+        with torch.no_grad():
+            call()
+    log(f"  guard: {', '.join(calls)} raise NotImplementedError on a CUDA input that needs a "
+        f"gradient and run under torch.no_grad()")
+
+
+def training_path(args, counters, bf16_peak: float) -> tuple:
+    """Phase 19: 19a ``train_flash_parity``, 19b ``train_model_parity`` on
+    yi-6b and whisper-medium at ``TRAIN_GATE_UNITS`` layers, 19c
+    ``trainer_path``, 19d ``timed_train_path``.  Returns (19a's readings, the
+    flash launches of 19c and 19d)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda, flops_bytes as flash_flops_bytes)
+    from repro_torch.kernels.flash_attention.ref import (
+        chunked_attention_f32_ref, chunked_attention_ref)
+    from repro_torch.launch import steps as train_steps
+    from repro_torch.launch import train as trainer
+    from repro_torch.layers import attention as attention_mod
+    from repro_torch.models.base import get_config
+    from repro_torch.models.config import Segment
+    from repro_torch.train import optimizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[19] training: the flash kernel's lse and gradients at {len(TRAIN_FLASH_SHAPES)} "
+        f"shapes; the loss and every gradient leaf of {TRAIN_ARCH} and {WHISPER_ARCH} at "
+        f"{TRAIN_GATE_UNITS} layers against the plain flash; the trainer; {TRAIN_ARCH} at full "
+        f"width, {TRAIN_UNITS} of 32 layers (CUT: the AdamW state of 32 does not fit one "
+        f"card), {TRAIN_STEPS} steps of B={TRAIN_BATCH} x S={TRAIN_SEQ}")
+    guard_check()
+    log("[19a] flash: the kernel's lse against the f32 reference's, dq, dk, dv of the "
+        "kernel path against flash_bwd fed the f32 reference's output and lse")
+    train_times = train_flash_parity(flash_attention_cuda, chunked_attention_f32_ref,
+                                     chunked_attention_ref, flash_flops_bytes, attention_mod)
+    log(f"[19b] the loss and every gradient leaf, kernel against plain flash, at "
+        f"{TRAIN_GATE_UNITS} layers (limit {TRAIN_REL_L2} or {NOISE_RATIO} x two plain "
+        f"flashes' distance)")
+    train_gate = {}
+    for arch, units in ((TRAIN_ARCH, (TRAIN_GATE_UNITS, 0)),
+                        (WHISPER_ARCH, (TRAIN_GATE_UNITS, TRAIN_GATE_UNITS))):
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(
+            cfg, segments=(Segment(cfg.segments[0].pattern, units[0]),),
+            encoder_segments=tuple(Segment(e.pattern, units[1]) for e in cfg.encoder_segments))
+        seq = WHISPER_PROMPT if cfg.encoder_segments else TRAIN_SEQ
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in next(
+            trainer.synthetic_batches(cfg, TRAIN_GATE_BATCH, seq, seed=args.seed)).items()}
+        train_gate[arch] = train_model_parity(cfg, train_steps.loss_fn_for(cfg), batch, fa_ops,
+                                              chunked_attention_ref, chunked_attention_f32_ref,
+                                              optimizer, TEMPER[arch])
+        del batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[19c] the trainer: python -m repro_torch.launch.train at its defaults, "
+        f"{TRAINER_STEPS} steps, then --resume")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        trained_run = trainer_path(trainer, ckpt_dir, counters,
+                                   trainer.widened(get_config(TRAIN_ARCH)).num_layers)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(cfg, segments=(Segment(cfg.segments[0].pattern, TRAIN_UNITS),))
+    log(f"[19d] {cfg.name} at full width, {TRAIN_UNITS} layers, {TRAIN_STEPS} AdamW steps on "
+        f"synthetic_batches; counts from the first step to the last")
+    timed = timed_train_path(cfg, optimizer, train_steps, trainer, attention_mod, counters,
+                             flash_flops_bytes, bf16_peak)
+    log(json.dumps({"training": {"gates": train_gate, "trainer": trained_run, "timed": timed}}))
+    return train_times, trained_run["flash_launches"] + timed["flash_launches"]
+
+
 # -- phase 14 ----------------------------------------------------------------
 
 def admission_path(args, cfg, ex, cm, engine, core, counters) -> dict:
@@ -1682,7 +2171,7 @@ def profile_batch(run, what: str) -> None:
         mine = [c for tag, c in ours.items() if tag in name]
         if mine:
             classes[mine[0]] += dt
-        elif any(tag in name.lower() for tag in ("gemm", "xmma", "cutlass", "nvjet", "wgmma")):
+        elif is_matmul(name):
             classes["matmul"] += dt
         else:
             classes["other"] += dt
@@ -2326,6 +2815,13 @@ def main(argv=None) -> int:
     by_phase["flash_attention"]["18"] = whisper_launches
     torch.cuda.empty_cache()
     log(json.dumps({"decode": decode}))
+
+    # 19. training: the kernel's lse and the backward, the loss and its
+    # gradients at 2 layers, the trainer, then yi-6b's timed steps
+    lm_times["flash_attention"]["training"], trained = training_path(
+        args, counters, measured["bfloat16"].peak_flops)
+    launches["flash_attention"] += trained
+    by_phase["flash_attention"]["19"] = trained
 
     replaces = {"segagg_narrow": "src/repro/kernels/segagg/segagg.py:48",
                 "segagg_scatter": "src/repro/kernels/segagg/segagg.py:75",

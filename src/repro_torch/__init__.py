@@ -15,7 +15,10 @@ so that each counterpart is easy to find:
                            card and spill partials to the host (one query,
                            pane-shared windows, recurring sessions);
 * ``serve.engine``         deadline-scheduled LM prefill serving, with
-                           online admission (``serve_session``).
+                           online admission (``serve_session``);
+* ``train``, ``launch``    mixed-precision AdamW, checkpoints, the train
+                           step and the trainer
+                           (``python -m repro_torch.launch.train``).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; see ``repro_torch.device.resolve_device``.

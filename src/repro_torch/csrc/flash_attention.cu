@@ -70,6 +70,15 @@
 // wgmma.wait_group 1) made ptxas serialise every wgmma; ping-pong between
 // the warpgroups with a producer warp is left for later work.
 //
+// Training asks for one more output, each row's log-sum-exp (m + log l, f32,
+// in the units of the pre-scaled, soft-capped logits), which the JAX layer's
+// _flash_fwd keeps as the residual of its custom VJP
+// (src/repro/layers/attention.py:124): the backward (layers/attention.py,
+// PyTorch ops) recomputes p from it chunk by chunk without another pass over
+// K.  It is taken from the running max and sums before the epilogue inverts
+// l, and one thread of each row's quad writes it; a null pointer writes
+// nothing, so serving launches are unchanged.
+//
 // C interface, loaded with ctypes.  The launcher returns cudaGetLastError()
 // right after the launch; it never synchronises and allocates nothing.
 
@@ -352,7 +361,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap
                  const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, Strides sq_,
                  Strides so_, int sq, int sk, int heads, int kv_heads, int d, float scale,
                  int causal, int window, float cap, int q_off,
-                 const int* __restrict__ kv_len) {
+                 const int* __restrict__ kv_len, float* __restrict__ lse) {
   using T = Tiles<kD>;
   constexpr int kThreads = T::kThreads;
   extern __shared__ unsigned char smem_raw[];
@@ -536,11 +545,17 @@ flash_fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap
       asm volatile("" : "+r"(p[kk][0]), "+r"(p[kk][1]), "+r"(p[kk][2]), "+r"(p[kk][3])::"memory");
   }
 
-  // Row sums across the quad, normalise, store bf16 pairs.
+  // Row sums across the quad; the row's log-sum-exp when asked for (the
+  // sums were rescaled to the last tile's m_use, which is m_run or 0 for a
+  // row that saw no key), then normalise and store bf16 pairs.
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    if (lse != nullptr && t == 0 && rows[r] < sq) {
+      const float m_fin = m_run[r] == -INFINITY ? 0.f : m_run[r];
+      lse[((int64_t)b * heads + h) * sq + rows[r]] = m_fin + logf(fmaxf(l_run[r], 1e-20f));
+    }
     l_run[r] = 1.f / fmaxf(l_run[r], 1e-20f);
   }
   bf16* ob = o + b * so_.b + h * so_.h;
@@ -599,7 +614,7 @@ bool tensor_map(CUtensorMap* map, const void* base, int batch, int seq, int kv_h
 template <int kD>
 int launch(const void* q, const void* k, const void* v, void* o, const int64_t* st,
            int batch, int sq, int sk, int heads, int kv_heads, int d, float scale,
-           int causal, int window, float cap, int q_off, const int* kv_len,
+           int causal, int window, float cap, int q_off, const int* kv_len, float* lse,
            cudaStream_t stream) {
   using T = Tiles<kD>;
   auto kernel = flash_fwd_kernel<kD>;
@@ -618,7 +633,8 @@ int launch(const void* q, const void* k, const void* v, void* o, const int64_t* 
   const dim3 grid(heads, batch, (sq + T::kBlockQ - 1) / T::kBlockQ);
   kernel<<<grid, T::kThreads, T::kBytes, stream>>>((const bf16*)q, tk, tv, (bf16*)o, sq_,
                                                     so_, sq, sk, heads, kv_heads, d, scale,
-                                                    causal, window, cap, q_off, kv_len);
+                                                    causal, window, cap, q_off, kv_len,
+                                                    lse);
   return (int)cudaGetLastError();
 }
 
@@ -627,25 +643,28 @@ int launch(const void* q, const void* k, const void* v, void* o, const int64_t* 
 // q (B, Sq, H, D), k and v (B, Sk, Hkv, D), o (B, Sq, H, D), all bf16 with a
 // contiguous last dim; strides[12] = (b, s, h) element strides of q, k, v, o.
 // q_offset >= 0 is the absolute position of query row 0; kv_len is a (B,)
-// int32 array on the device, or null for Sk keys in every row.  The caller
-// checks D <= 256, D % 8 == 0, 16-byte alignment, H % Hkv == 0 and B below
-// 65,536.
+// int32 array on the device, or null for Sk keys in every row.  lse, when not
+// null, is a (B, H, Sq) f32 array that receives each row's log-sum-exp of the
+// scaled (and soft-capped) logits, m + log(l) in natural log; serving passes
+// null and nothing is written.  The caller checks D <= 256, D % 8 == 0,
+// 16-byte alignment, H % Hkv == 0 and B below 65,536.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    const int64_t* strides, int batch, int sq, int sk,
                                    int heads, int kv_heads, int d, float scale, int causal,
                                    int window, float cap, int q_offset, const void* kv_len,
-                                   void* stream) {
+                                   void* lse, void* stream) {
   if (batch <= 0 || sq <= 0 || heads <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int* kl = (const int*)kv_len;
+  float* ls = (float*)lse;
   if (d <= 64)
     return launch<64>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale, causal,
-                      window, cap, q_offset, kl, s);
+                      window, cap, q_offset, kl, ls, s);
   if (d <= 128)
     return launch<128>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale, causal,
-                       window, cap, q_offset, kl, s);
+                       window, cap, q_offset, kl, ls, s);
   return launch<256>(q, k, v, o, strides, batch, sq, sk, heads, kv_heads, d, scale, causal,
-                     window, cap, q_offset, kl, s);
+                     window, cap, q_offset, kl, ls, s);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

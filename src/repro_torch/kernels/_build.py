@@ -49,10 +49,10 @@ LIBRARIES: Dict[str, tuple] = {
     }),
     "flash_attention": ("flash_attention.cu", {
         # q, k, v, o, strides[12], batch, sq, sk, heads, kv_heads, d, scale,
-        # causal, window, cap, q_offset, kv_len (or null), stream
+        # causal, window, cap, q_offset, kv_len (or null), lse (or null), stream
         "flash_attention_fwd": (_PTR, _PTR, _PTR, _PTR, _I64P, _I32, _I32, _I32,
                                 _I32, _I32, _I32, _F32, _I32, _I32, _F32, _I32, _PTR,
-                                _PTR),
+                                _PTR, _PTR),
     }),
     "rglru": ("rglru.cu", {
         # x, r, i, a_param, h0, y, h_last, batch, seq, width, is_bf16, stream

@@ -6,8 +6,10 @@
 model's (B, S, H, D) layout through strides: only the head dim must be
 contiguous.  It takes the JAX layer's ``q_offset`` (the absolute position of
 query row 0, for a prefill continuation) and ``kv_valid_len`` (a (B,) count
-of live keys a batch row).  It checks device, dtype, shape and layout,
-allocates the output, launches on the current stream, raises on a launch
+of live keys a batch row), and with ``return_lse`` also writes each row's
+log-sum-exp, the residual that the training backward
+(``layers/attention.py``) reads.  It checks device, dtype, shape and layout,
+allocates the outputs, launches on the current stream, raises on a launch
 error and counts its launches in ``.launches`` (a plain int, reset by the
 caller).  ``flash_attention_sync_cuda`` launches the earlier design
 (synchronous K/V loads, no ldmatrix, neither ``q_offset`` nor
@@ -80,13 +82,18 @@ def _launch(library: str, fn: str, q, k, v, causal, window, logit_cap, *extra):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: int = 0,
                          logit_cap: float = 0.0, q_offset: int = 0,
-                         kv_valid_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         kv_valid_len: Optional[torch.Tensor] = None,
+                         return_lse: bool = False):
     """q (B, Sq, H, D), k/v (B, Sk, Hkv, D) bf16 on the card -> (B, Sq, H, D)
     bf16: softmax(q k^T / sqrt(D)) v with optional tanh soft-cap
     ``cap * tanh(s / cap)``, causal mask ``k <= q`` and window mask
     ``k > q - window`` at query position ``q = q_offset + row``, and keys at
     or past ``kv_valid_len[b]`` masked; query head h reads KV head
-    ``h // (H / Hkv)``.  A row that sees no key gets zeros."""
+    ``h // (H / Hkv)``.  A row that sees no key gets zeros.  With
+    ``return_lse`` returns (out, lse): lse (B, H, Sq) f32, each row's
+    ``m + log(l)`` of the logits as the kernel forms them (q/sqrt(D)
+    rounded to bf16, soft-capped, masked); a row that sees no key gets
+    ``log(1e-20)``."""
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset {q_offset} must be >= 0")
     kv_len = None
@@ -95,11 +102,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention: kv_valid_len must be ({q.shape[0]},), "
                              f"got {tuple(kv_valid_len.shape)}")
         kv_len = kv_valid_len.to(device=q.device, dtype=torch.int32).contiguous()
+    lse = (torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32,
+                       device=q.device) if return_lse else None)
     out, launched = _launch("flash_attention", "flash_attention_fwd", q, k, v,
                             causal, window, logit_cap, int(q_offset),
-                            None if kv_len is None else kv_len.data_ptr())
+                            None if kv_len is None else kv_len.data_ptr(),
+                            None if lse is None else lse.data_ptr())
     flash_attention_cuda.launches += launched
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0

@@ -6,7 +6,9 @@
   (B, S, H, D) layout: the online softmax over KV chunks of the JAX layer
   (``repro/layers/attention.py`` ``_fwd_scan``), with q scaled in f32 and
   cast back to q's dtype first and p cast to v's dtype before ``p @ v``.
-  It never materialises Sq x Sk, only (Sq x chunk) per step.
+  It never materialises Sq x Sk, only (Sq x chunk) per step.  With
+  ``return_lse`` it also returns each row's log-sum-exp, the residual of
+  the JAX layer's ``_flash_fwd``.
 * ``chunked_attention_f32_ref``: the standard the kernel is held to: the
   plain version in f32 but for the one rounding that the kernel shares
   with the JAX layer, q/sqrt(D) rounded to q's dtype; k, v and p stay f32,
@@ -51,11 +53,13 @@ def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           logit_cap: float = 0.0, chunk: int = 256,
                           q_offset: int = 0,
                           kv_valid_len: Optional[torch.Tensor] = None,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None, return_lse: bool = False):
     """q (B,Sq,H,D), k/v (B,Sk,Hkv,D) -> (B,Sq,H,D) in q's dtype.
     ``q_offset`` is the absolute position of q[0]; ``kv_valid_len`` (B,)
     masks keys at or past each row's valid length; ``scale`` multiplies q
-    (1/sqrt(D) when None)."""
+    (1/sqrt(D) when None).  With ``return_lse`` returns (out, lse): lse
+    (B, H, Sq) f32, ``m + log(max(l, 1e-20))`` as ``_flash_fwd`` keeps it,
+    H in the order (Hkv, g)."""
     B, Sq, H, D = q.shape
     Hkv, Sk = k.shape[2], k.shape[1]
     g = H // Hkv
@@ -91,14 +95,18 @@ def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / torch.clamp(l, min=1e-20)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(torch.clamp(l, min=1e-20))).reshape(B, H, Sq)
+    return out
 
 
 def chunked_attention_f32_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               *args, **kwargs) -> torch.Tensor:
     """``chunked_attention_ref`` in f32 on q scaled by 1/sqrt(D) in f32 and
     rounded to q's dtype (as the JAX layer and the kernel round it), with k
-    and v widened to f32 and p kept in f32.  Returns f32."""
+    and v widened to f32 and p kept in f32.  Returns f32 (and the lse with
+    ``return_lse``)."""
     qs = (q.float() * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype).float()
     return chunked_attention_ref(qs, k.float(), v.float(), *args, scale=1.0, **kwargs)
 

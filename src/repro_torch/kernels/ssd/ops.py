@@ -6,7 +6,10 @@ Dispatch follows the tensors: a CUDA tensor launches the Hopper kernel
 (``ref.ssd_chunked_ref``).  No path runs the plain version on a CUDA tensor.
 Unlike the JAX package's Pallas op, nothing is rounded to x's dtype before
 the chunk math or before the D skip (the model's layer keeps xw, la, B, C
-and h in f32 and rounds only y).
+and h in f32 and rounds only y).  The kernel has no backward yet: on the
+card a call that autograd would have to differentiate raises
+``NotImplementedError`` rather than return an output with no history (on
+the CPU autograd runs through the plain version).
 """
 from __future__ import annotations
 
@@ -27,6 +30,11 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     version's chunk; the kernel's is 128 (the result does not depend on it
     beyond rounding)."""
     if x.device.type == "cuda":
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, D, h0)):
+            raise NotImplementedError(
+                "ssd on the card has no backward yet (ROADMAP queue 1, item 5: the "
+                "backward of rglru and ssm); call it under torch.no_grad()")
         # A, D and h0 widen to f32 (bf16 to f32 is exact); x, dt, B and C go
         # as they are, B and C through their strides.
         return ssd_cuda(x.contiguous(), dt.contiguous(), A.float().contiguous(), Bm, Cm,

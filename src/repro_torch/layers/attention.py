@@ -1,21 +1,29 @@
-"""Attention for prefill and decode: the chunked online softmax and the
-single-step decode attention of the JAX package's ``layers/attention.py``,
-forward only.
+"""Attention for training, prefill and decode: the chunked online softmax
+with its custom backward, and the single-step decode attention of the JAX
+package's ``layers/attention.py``.
 
 ``chunked_attention`` goes through ``kernels.flash_attention.ops``: on a
 CUDA tensor it launches the Hopper flash kernel (``q_offset`` and
 ``kv_valid_len`` included); on a CPU tensor it runs the plain chunked scan
 with ``chunk = spec.chunk``, q scaled in f32 and cast back to q's dtype
-first.  ``decode_attention`` is one query token over a KV cache, in plain
-PyTorch on both devices, as the reference computes it outside any Pallas
-kernel.  GQA reads KV head ``h // (H / Hkv)``; KV heads are never repeated
-in memory.  The backward (training) comes with a later slice.
+first.  When a gradient is wanted (grad mode on, q, k or v requiring it,
+no ``kv_valid_len``, as the reference differentiates only that call) it
+runs as ``_Flash``, the counterpart of the reference's ``_flash`` custom
+VJP: the forward is the same op asked for each row's log-sum-exp as well,
+and the backward is ``flash_bwd``, the reference's ``_flash_bwd`` in
+PyTorch ops on both devices (the JAX package has no Pallas backward
+kernel).  Under ``torch.inference_mode()`` or ``torch.no_grad()`` (prefill,
+decode) nothing of that runs: the forward-only call, no lse.
+``decode_attention`` is one query token over a KV cache, in plain PyTorch
+on both devices, as the reference computes it outside any Pallas kernel.
+GQA reads KV head ``h // (H / Hkv)``; KV heads are never repeated in
+memory.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -31,6 +39,120 @@ class AttnSpec:
     chunk: int = 512         # KV chunk length of the plain online-softmax scan
 
 
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
+    """(Sq, C) additive f32 bias: 0 where the causal and window masks let a
+    key through, ``NEG_INF`` elsewhere (the reference's ``_mask_bias``; a
+    chunk here holds only keys that exist, so there is no padding term)."""
+    ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool, device=q_pos.device)
+    if spec.causal:
+        ok &= k_pos[None, :] <= q_pos[:, None]
+    if spec.window > 0:
+        ok &= k_pos[None, :] > q_pos[:, None] - spec.window
+    return torch.where(ok, 0.0, NEG_INF)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` over a leading batch dim with an f32 result, the products
+    and their sums taken in f32, as the reference's einsums with
+    ``preferred_element_type=float32`` form them: bf16 operands on the card
+    go to the tensor cores with f32 accumulation (``out_dtype``); elsewhere
+    the operands are widened to f32 first (exact for bf16)."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+              lse: torch.Tensor, do: torch.Tensor, spec: AttnSpec, q_offset: int = 0
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of ``chunked_attention`` from its inputs,
+    its output ``o``, each row's log-sum-exp ``lse`` (B, H, Sq) and the
+    output's gradient ``do``: the reference's ``_flash_bwd``
+    (``src/repro/layers/attention.py:137``) with its roundings, over key
+    chunks of ``spec.chunk``.  Every product has an f32 result
+    (``_bmm_f32``): s from the unscaled q times 1/sqrt(D), p cast to do's
+    dtype before dV, ds to k's and q's dtypes before dQ and dK,
+    ``delta = rowsum(dO O)`` in f32, dQ summed in f32 over the chunks; dK
+    and dV are summed over a KV head's g query heads by the contraction.
+    A chunk takes only the query rows that the causal and window masks let
+    see one of its keys: the others have p = 0 exactly.  Each gradient is
+    returned in its input's dtype."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    C = min(spec.chunk, Sk)
+
+    # (B, S, Hkv, ...) -> (B * Hkv, S * ..., ...): one batch entry a KV head,
+    # its g query heads beside each query row.
+    def rows(t):
+        return t.reshape(B, Sq, Hkv, g, D).transpose(1, 2).reshape(B * Hkv, Sq * g, D)
+
+    def keys(t):
+        return t.transpose(1, 2).reshape(B * Hkv, Sk, D)
+
+    qr, dor, kr, vr = rows(q), rows(do), keys(k), keys(v)
+    delta = (dor.float() * rows(o).float()).sum(-1)                      # (BK, Sq*g)
+    lse = lse.reshape(B, Hkv, g, Sq).transpose(2, 3).reshape(B * Hkv, Sq * g)
+    pos = q_offset + torch.arange(Sq, device=q.device)
+    dq = torch.zeros((B * Hkv, Sq * g, D), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B * Hkv, Sk, D), dtype=k.dtype, device=q.device)
+    dv = torch.zeros((B * Hkv, Sk, D), dtype=v.dtype, device=q.device)
+    for c0 in range(0, Sk, C):
+        c1 = min(c0 + C, Sk)
+        r0 = max(0, c0 - q_offset) if spec.causal else 0
+        r1 = min(Sq, c1 - 1 + spec.window - q_offset) if spec.window > 0 else Sq
+        if r1 <= r0:
+            continue
+        a, b = r0 * g, r1 * g
+        kch, vch = kr[:, c0:c1], vr[:, c0:c1]
+        s = _bmm_f32(qr[:, a:b], kch.transpose(1, 2)) * scale           # (BK, n*g, c)
+        dcap = None
+        if spec.logit_cap > 0:
+            t = torch.tanh(s / spec.logit_cap)
+            s = spec.logit_cap * t
+            dcap = 1.0 - t.square()         # d(cap)/d(s)
+        bias = _mask_bias(pos[r0:r1].repeat_interleave(g),
+                          torch.arange(c0, c1, device=q.device), spec)
+        p = torch.exp(s + bias - lse[:, a:b, None])
+        del s
+        dp = _bmm_f32(dor[:, a:b], vch.transpose(1, 2))
+        dv[:, c0:c1] = _bmm_f32(p.to(do.dtype).transpose(1, 2), dor[:, a:b]).to(v.dtype)
+        ds = p * (dp - delta[:, a:b, None])
+        del p, dp
+        if dcap is not None:
+            ds = ds * dcap
+        ds = ds * scale
+        dq[:, a:b] += _bmm_f32(ds.to(k.dtype), kch)
+        dk[:, c0:c1] = _bmm_f32(ds.to(q.dtype).transpose(1, 2), qr[:, a:b]).to(k.dtype)
+    dq = dq.reshape(B, Hkv, Sq, g, D).transpose(1, 2).reshape(B, Sq, H, D)
+    return (dq.to(q.dtype), dk.reshape(B, Hkv, Sk, D).transpose(1, 2),
+            dv.reshape(B, Hkv, Sk, D).transpose(1, 2))
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with the reference's recompute-in-backward VJP
+    (``_flash``/``_flash_fwd``/``_flash_bwd``): the forward (the kernel on
+    the card, the plain scan on the CPU) also returns each row's
+    log-sum-exp; q, k, v, the output and the lse are saved, never a
+    (Sq, Sk) tensor, and ``flash_bwd`` recomputes p chunk by chunk."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, spec: AttnSpec, q_offset: int):
+        out, lse = flash_ops.flash_attention(
+            q, k, v, spec.causal, spec.window, spec.logit_cap, chunk=spec.chunk,
+            q_offset=q_offset, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.spec, ctx.q_offset = spec, q_offset
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, do, ctx.spec, ctx.q_offset)
+        return dq, dk, dv, None, None
+
+
 def chunked_attention(
     q: torch.Tensor,                 # (B, Sq, H, D)
     k: torch.Tensor,                 # (B, Sk, Hkv, D)
@@ -39,7 +161,17 @@ def chunked_attention(
     q_offset: int = 0,               # absolute position of q[0]
     kv_valid_len: Optional[torch.Tensor] = None,  # (B,) valid prefix of k/v
 ) -> torch.Tensor:
-    """Flash attention forward.  Returns (B, Sq, H, D) in q's dtype."""
+    """Flash attention.  Returns (B, Sq, H, D) in q's dtype.  Differentiable
+    (through ``_Flash``) when ``kv_valid_len`` is None, as in the reference,
+    which masks valid lengths only on paths it does not differentiate
+    (on the CPU autograd runs through the plain scan; on the card that
+    raises, since the kernel's output would carry no history)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if kv_valid_len is None:
+            return _Flash.apply(q, k, v, spec, q_offset)
+        if q.device.type == "cuda":
+            raise NotImplementedError("chunked_attention: kv_valid_len has no backward "
+                                      "on the card")
     return flash_ops.flash_attention(
         q, k, v, spec.causal, spec.window, spec.logit_cap, chunk=spec.chunk,
         q_offset=q_offset, kv_valid_len=kv_valid_len)

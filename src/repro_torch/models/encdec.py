@@ -1,5 +1,5 @@
-"""Encoder-decoder backbone (whisper-medium), for serving: the JAX package's
-``models/encdec.py`` in PyTorch, without the training loss.
+"""Encoder-decoder backbone (whisper-medium): the JAX package's
+``models/encdec.py`` in PyTorch.
 
 The conv/mel frontend is a stub, as in the reference: the caller passes
 precomputed frame embeddings (B, encoder_seq, d_model).  Positions are
@@ -7,14 +7,17 @@ sinusoidal on both sides.  ``encode`` runs the encoder segments through
 ``lm.backbone`` (non-causal self-attention, the flash kernel on the card);
 ``encdec_prefill`` encodes and prefills the decoder, whose ``xattn`` layers
 compute the cross-attention K/V once and cache them; ``encdec_decode_step``
-is ``lm.decode_step``, which reads them from the cache.
+is ``lm.decode_step``, which reads them from the cache.  ``encdec_loss`` is
+the training loss: the encoder, then the decoder over the tokens with
+cross-attention (Sq != Sk, not causal) through ``lm.backbone``, then
+``lm.xent_loss``.
 
 Params: ``"enc{si}/..."`` encoder segments, ``"seg{si}/..."`` decoder
 segments, keyed as the reference keys them.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -25,7 +28,9 @@ from .lm import (
     _KIND_SPECS,
     backbone,
     decode_step,
+    embed_tokens,
     prefill,
+    xent_loss,
 )
 from .params import ParamSpec, Params, Specs
 from ..layers.common import layer_norm, rms_norm, sinusoidal_at
@@ -60,27 +65,48 @@ def build_encdec_specs(cfg: ModelConfig) -> Specs:
     return specs
 
 
-@torch.inference_mode()
-def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
+def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor,
+           remat: bool = True) -> torch.Tensor:
     """frames: (B, S_enc, D) precomputed frontend embeddings (the stub).
-    Returns the encoder's output (B, S_enc, D) in the frames' dtype."""
+    Returns the encoder's output (B, S_enc, D) in the frames' dtype.
+    ``remat``: each encoder unit in a checkpoint under grad mode
+    (``lm.backbone``)."""
     S = frames.shape[1]
     x = frames + sinusoidal_positions(S, cfg.d_model, frames.dtype, frames.device)
     positions = torch.arange(S, device=frames.device)
-    x, _ = backbone(cfg, params, x, positions, segments=cfg.encoder_segments,
-                    key_prefix="enc", causal=False)
+    x, _ = backbone(cfg, params, x, positions, remat=remat,
+                    segments=cfg.encoder_segments, key_prefix="enc", causal=False)
     if cfg.norm == "ln":
         return layer_norm(x, params["enc_final_norm"], params["enc_final_norm_bias"])
     return rms_norm(x, params["enc_final_norm"])
 
 
+def encdec_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+                remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: frames (B, S_enc, D), tokens (B, S), labels (B, S) (-1 =
+    masked).  The decoder's tokens get sinusoidal positions, as the
+    encoder's frames do.  The frames are cast to the weights' dtype, as
+    ``lm_loss`` casts vision patches (the reference lets f32 frames promote
+    the encoder to f32; the flash kernel takes bf16).  Returns (loss,
+    {"xent", "tokens"})."""
+    frames = batch["frames"].to(params["embed/tokens"].dtype)
+    enc_out = encode(cfg, params, frames, remat=remat)
+    x = embed_tokens(cfg, params, batch["tokens"])
+    S = x.shape[1]
+    x = x + sinusoidal_positions(S, cfg.d_model, x.dtype, x.device)
+    positions = torch.arange(S, device=x.device)
+    x, _ = backbone(cfg, params, x, positions, enc_out=enc_out, remat=remat)
+    return xent_loss(cfg, params, x, batch["labels"])
+
+
+@torch.inference_mode()
 def encdec_prefill(cfg: ModelConfig, params: Params, frames: torch.Tensor,
                    tokens: torch.Tensor, cache_size: int
                    ) -> Tuple[torch.Tensor, Cache, int, torch.Tensor]:
     """Encode, then prefill the decoder on the prompt (its cross-attention
     K/V computed and cached).  Returns (last-position logits (B, V) f32,
     cache, cache_len, enc_out)."""
-    enc_out = encode(cfg, params, frames)
+    enc_out = encode(cfg, params, frames, remat=False)
     logits, cache, clen = prefill(cfg, params, tokens, cache_size, enc_out=enc_out)
     return logits, cache, clen, enc_out
 
@@ -109,9 +135,10 @@ class EncDecLM(CausalLM):
         """``frames`` on this model's device, in its parameters' dtype."""
         return self._here(frames).to(self.embed__tokens.dtype)
 
+    @torch.inference_mode()
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
-        """``encode`` on this model's parameters."""
-        return encode(self.cfg, self.params(), self._frames(frames))
+        """``encode`` on this model's parameters (serving: inference mode)."""
+        return encode(self.cfg, self.params(), self._frames(frames), remat=False)
 
     def prefill(self, frames: torch.Tensor, tokens: torch.Tensor,
                 cache_size: Optional[int] = None):

@@ -1,5 +1,5 @@
-"""Decoder-only LM, prefill and single-token decode (the JAX package's
-``models/lm.py`` in PyTorch).
+"""Decoder-only LM: the training loss, prefill and single-token decode (the
+JAX package's ``models/lm.py`` in PyTorch).
 
 One code path, driven by ``ModelConfig.segments``.  Conventions kept from
 the reference, so that its parameters carry across as a copy:
@@ -9,12 +9,20 @@ the reference, so that its parameters carry across as a copy:
 * cache:  flat dict ``"seg{i}/l{j}/<leaf>"`` -> (U, B, ...) stacked.
 
 The reference's ``lax.scan`` over units is a Python loop over the unit
-index; its sharding constraints and remat have no counterpart here.
+index; its sharding constraints have no counterpart here.  Its remat
+(``jax.checkpoint`` with ``nothing_saveable`` around each unit) is
+``torch.utils.checkpoint`` around each unit in ``backbone(remat=True)``,
+and around each block of ``xent_loss``.
 Every block kind of the reference runs: ``attn`` (attention + MLP), ``moe``
 (attention + MoE FFN), ``rglru`` (RG-LRU + MLP), ``ssm`` (the Mamba-2 block)
 and ``xattn`` (whisper's decoder layer: self-attention, cross-attention over
-the encoder's output, MLP), in ``prefill``, ``decode_step`` and the
-forward-only ``backbone`` (which ``models/encdec.py`` runs as the encoder).
+the encoder's output, MLP), in ``prefill``, ``decode_step`` and ``backbone``
+(which ``lm_loss`` and ``models/encdec.py`` run).  Training differentiates
+``lm_loss`` with autograd; on the card the ``attn``, ``moe`` and ``xattn``
+kinds train (the flash kernel's forward with ``layers/attention.py``'s
+backward), while the RG-LRU and SSD kernels raise under grad (no backward
+yet).  Nothing on the training path writes in place into a tensor that
+autograd saved.
 Cross-attention K/V are computed once from the encoder's output in
 ``prefill`` and kept in the cache as ``xk``/``xv``; a decode step reads
 them there.  ``check_ported`` raises on a kind the reference does not know.
@@ -27,6 +35,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..device import DeviceLike
@@ -326,7 +335,7 @@ def _ssm_block(cfg, p, prefix, x, conv_state=None, h_state=None, step=False):
 
 
 # ===========================================================================
-# Full forward (scoring; the encoder): a loop over units per segment
+# Full forward (training, the encoder): a loop over units per segment
 # ===========================================================================
 
 def _unit_forward(cfg: ModelConfig, seg: Segment, si: int, x, positions,
@@ -364,28 +373,39 @@ def _segment_params(params: Params, si: int, key_prefix: str = "seg") -> Params:
 
 def backbone(cfg: ModelConfig, params: Params, x: torch.Tensor,
              positions: torch.Tensor, enc_out: Optional[torch.Tensor] = None,
-             segments: Optional[Tuple[Segment, ...]] = None,
+             remat: bool = True, segments: Optional[Tuple[Segment, ...]] = None,
              key_prefix: str = "seg", causal: bool = True
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply all segments (``cfg.segments`` unless ``segments`` is given,
     their weights under ``{key_prefix}{i}/``) to the embedded sequence x.
     Returns (hidden, total aux loss).  ``enc_out`` feeds the ``xattn``
-    layers' cross-attention."""
+    layers' cross-attention.  ``remat``: under grad mode each unit runs in
+    ``torch.utils.checkpoint`` (non-reentrant), which keeps only its input
+    and recomputes it in the backward, as the reference's ``jax.checkpoint``
+    with ``nothing_saveable`` does; it changes no value."""
     check_ported(cfg)
     segs = cfg.segments if segments is None else segments
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = remat and torch.is_grad_enabled()
     for si, seg in enumerate(segs):
         sp = _segment_params(params, si, key_prefix)
         for u in range(seg.num_units):
             unit_params = {k: v[u] for k, v in sp.items()}
-            x, a = _unit_forward(cfg, seg, si, x, positions, unit_params, enc_out=enc_out,
-                                 key_prefix=key_prefix, causal=causal)
+
+            def unit(h, unit_params=unit_params, seg=seg, si=si):
+                return _unit_forward(cfg, seg, si, h, positions, unit_params,
+                                     enc_out=enc_out, key_prefix=key_prefix, causal=causal)
+
+            if remat:
+                x, a = torch.utils.checkpoint.checkpoint(unit, x, use_reentrant=False)
+            else:
+                x, a = unit(x)
             total_aux = total_aux + a
     return x, total_aux
 
 
 # ===========================================================================
-# Embedding, unembedding, cache
+# Embedding, unembedding, the loss, cache
 # ===========================================================================
 
 def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -402,6 +422,69 @@ def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ params["embed/tokens"].T
     return x @ params["unembed"]
+
+
+def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token loss.  batch: tokens (B, S) int, labels (B, S) int (-1 =
+    masked), and for a vision config patches (B, P, D), precomputed stub
+    embeddings prepended to the tokens' and stripped before the loss.  With
+    experts, ``0.01 * aux`` (the load-balance loss) is added.  Returns
+    (loss, {"xent", "tokens", "aux"})."""
+    tokens = batch["tokens"]
+    x = embed_tokens(cfg, params, tokens)
+    if cfg.frontend == "vision":
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux = backbone(cfg, params, x, positions, remat=remat)
+    if cfg.frontend == "vision":
+        x = x[:, batch["patches"].shape[1]:]
+    loss, metrics = xent_loss(cfg, params, x, batch["labels"])
+    if cfg.num_experts:
+        loss = loss + 0.01 * aux
+    metrics["aux"] = aux
+    return loss, metrics
+
+
+def xent_loss(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
+              labels: torch.Tensor, block: int = 1024
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Blockwise next-token cross-entropy: the sequence in ``nb`` blocks
+    (the reference's search: ``S // block``, lowered until it divides S),
+    each block's f32 logits, log-sum-exp and label logit computed inside
+    ``torch.utils.checkpoint`` under grad mode, so that the backward
+    recomputes them block by block and never holds the whole (B, S, V)
+    logits.  The row max is detached (``stop_gradient``); the label logit is
+    a gather (the same value and gradient as the reference's one-hot
+    contraction); labels of -1 are masked.  Returns (mean loss over the
+    unmasked labels, {"xent", "tokens"})."""
+    B, S, D = hidden.shape
+    nb = max(S // block, 1)
+    while S % nb:
+        nb -= 1
+    blk = S // nb
+
+    def block_loss(h, lab):
+        logits = unembed(cfg, params, h).float()
+        mask = (lab >= 0).float()
+        shifted = logits - logits.amax(dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.exp(shifted).sum(dim=-1))
+        label_logit = shifted.gather(-1, lab.clamp(min=0).long()[..., None])[..., 0]
+        return -((label_logit - lse) * mask).sum(), mask.sum()
+
+    remat = torch.is_grad_enabled()
+    nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(nb):
+        h, lab = hidden[:, i * blk:(i + 1) * blk], labels[:, i * blk:(i + 1) * blk]
+        if remat:
+            b_nll, b_cnt = torch.utils.checkpoint.checkpoint(block_loss, h, lab,
+                                                             use_reentrant=False)
+        else:
+            b_nll, b_cnt = block_loss(h, lab)
+        nll, cnt = nll + b_nll, cnt + b_cnt
+    loss = nll / torch.clamp(cnt, min=1.0)
+    return loss, {"xent": loss, "tokens": cnt}
 
 
 def cache_shape_specs(cfg: ModelConfig, batch: int, cache_size: int,

@@ -674,3 +674,85 @@ class TestWhisperOnCard:
             assert got.is_cuda and got.shape == (2, 1, cfg.vocab_size)
             assert _rel_l2(got, want) < 5e-2, t
         assert flash_attention_cuda.launches == before
+
+
+from repro_torch.layers import attention as torch_attention  # noqa: E402
+from repro_torch.layers.rglru import rglru_scan  # noqa: E402
+from repro_torch.layers.ssd import ssd_chunked  # noqa: E402
+from repro_torch.train.optimizer import cast_params, init_state  # noqa: E402
+
+
+@pytest.mark.cuda
+class TestTrainOnCard:
+    # The flash kernel's log-sum-exp against the plain version's in f32 (the
+    # same f32 logits summed in another order), and the gradients of
+    # ``chunked_attention`` on the card (the kernel's forward, then
+    # ``flash_bwd``) against ``flash_bwd`` fed the f32 reference's output
+    # and lse, within a relative L2 error of 2e-2 (the kernel's output is
+    # bf16, which enters delta = rowsum(dO O)).
+    @pytest.mark.parametrize("B, Sq, Sk, H, Hkv, D, causal, window", [
+        (2, 300, 300, 8, 2, 128, True, 0), (1, 257, 257, 4, 1, 256, True, 100),
+        (2, 64, 200, 4, 4, 64, False, 0), (2, 150, 150, 4, 2, 64, False, 0)])
+    def test_lse_and_grads_match_f32_reference(self, cuda, B, Sq, Sk, H, Hkv, D, causal,
+                                               window):
+        q, k, v = _qkv(cuda, B, Sq, Sk, H, Hkv, D, seed=Sq + D)
+        do = _qkv(cuda, B, Sq, Sq, H, H, D, seed=Sk)[0]
+        out, lse = flash_attention_cuda(q, k, v, causal, window, 0.0, return_lse=True)
+        want_o, want_lse = chunked_attention_f32_ref(q, k, v, causal, window, 0.0,
+                                                     return_lse=True)
+        assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+        torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+        assert torch.equal(out, flash_attention_cuda(q, k, v, causal, window, 0.0))
+        spec = torch_attention.AttnSpec(causal=causal, window=window)
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        before = flash_attention_cuda.launches
+        torch_attention.chunked_attention(qg, kg, vg, spec).backward(do)
+        assert flash_attention_cuda.launches == before + 1
+        want = torch_attention.flash_bwd(q, k, v, want_o, want_lse, do, spec)
+        for t, w in zip((qg, kg, vg), want):
+            assert t.grad.dtype == torch.bfloat16 and t.grad.shape == t.shape
+            assert _rel_l2(t.grad, w) < 2e-2
+
+    def test_backward_reaches_every_leaf(self, cuda):
+        """yi-6b at full width, one layer: f32 masters cast to bf16 in the
+        graph; ``loss.backward()`` gives every master a finite f32 gradient,
+        q, k and v's weights a nonzero one, with two flash launches (the
+        forward and the remat recompute)."""
+        cfg = dataclasses.replace(get_config("yi_6b"), segments=uniform("attn", 1))
+        state = init_state(init_params(torch_lm.build_specs(cfg), seed=1, device=cuda))
+        masters = {k: v.requires_grad_(True) for k, v in state.params.items()}
+        toks = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (1, 257)).astype(np.int32)).to(cuda)
+        before = flash_attention_cuda.launches
+        loss, _ = torch_lm.lm_loss(cfg, cast_params(masters),
+                                   {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        loss.backward()
+        assert flash_attention_cuda.launches == before + 2
+        assert torch.isfinite(loss)
+        for k, p in masters.items():
+            assert p.grad is not None and p.grad.dtype == torch.float32, k
+            assert torch.isfinite(p.grad).all(), k
+        for leaf in ("wq", "wk", "wv", "wo"):
+            assert masters[f"seg0/l0/attn/{leaf}"].grad.norm() > 0, leaf
+
+    def test_kernels_without_a_backward_raise_under_grad(self, cuda):
+        x = torch.randn((1, 64, 32), device=cuda).bfloat16().requires_grad_(True)
+        gate = torch.sigmoid(torch.randn((1, 64, 32), device=cuda)).bfloat16()
+        a = torch.randn(32, device=cuda)
+        with pytest.raises(NotImplementedError, match="no backward"):
+            rglru_scan(x, gate, gate, a)
+        with torch.no_grad():
+            assert rglru_scan(x, gate, gate, a)[0].shape == x.shape
+        xs = torch.randn((1, 64, 2, 16), device=cuda).requires_grad_(True)
+        dt = torch.rand((1, 64, 2), device=cuda) * 0.1
+        bc = torch.randn((1, 64, 2, 8), device=cuda)
+        args = (dt, -torch.ones(2, device=cuda), bc, bc, torch.ones(2, device=cuda))
+        with pytest.raises(NotImplementedError, match="no backward"):
+            ssd_chunked(xs, *args)
+        with torch.no_grad():
+            assert ssd_chunked(xs, *args)[0].shape == xs.shape
+        q, k, v = _qkv(cuda, 1, 64, 64, 4, 4, 64, seed=0)
+        with pytest.raises(NotImplementedError, match="kv_valid_len"):
+            torch_attention.chunked_attention(
+                q.requires_grad_(True), k, v, torch_attention.AttnSpec(),
+                kv_valid_len=torch.tensor([40], device=cuda))

@@ -56,7 +56,8 @@ def test_scan_covers_the_port():
                    "core/_deprecation.py", "core/constraints.py",
                    "core/single_query.py", "core/multi_query.py",
                    "dist/mesh.py", "dist/roofline.py", "dist/machine.py",
-                   "dist/sharding.py"):
+                   "dist/sharding.py", "train/optimizer.py", "train/checkpoint.py",
+                   "launch/steps.py", "launch/train.py"):
         assert f"src/repro_torch/{module}" in names
     assert len(FILES) >= 50
 
