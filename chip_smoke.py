@@ -215,13 +215,35 @@ exits 2 with one line on stderr that says which):
    norm finite, 16 flash launches a step and no RG-LRU, SSD or plain
    flash; ms a step, tokens/s, peak memory, model FLOPs over the measured
    bf16 peak and a profile of one more step by class are readings.  First,
-   the guard: ``rglru_scan``, ``ssd`` and a ``kv_valid_len`` flash call
-   raise on a CUDA input that needs a gradient.
+   the guard: a ``kv_valid_len`` flash call (no backward) raises on a CUDA
+   input that needs a gradient.
+20. training the recurrent kinds (after phase 19, the main path, part 8):
+   20a, the RG-LRU kernel with carries bit-equal to without, and the
+   backward kernel (``rglru_bwd_cuda``) against ``rglru_bwd_ref`` at
+   recurrentgemma-9b's training shape (B 2, S 4,096, N 4,096) and a ragged
+   one (S 1,000, N 80, h0 and dh_last), bf16 and f32; its time beside its
+   byte bound.  20b, the SSD kernel with states bit-equal to without, its
+   states against the plain version's, and ``ssd_bwd`` (PyTorch ops) fed
+   them against autograd through ``ssd_chunked_ref`` in f32 at mamba2's
+   training shape (B 8, S 2,048, H 32, P 64, N 128, B and C head-shared)
+   and at a ragged S with h0; its time beside the forward's.  20c, the loss
+   and every gradient leaf of mamba2-370m at 2 layers and recurrentgemma-9b
+   at one period (3 layers), the kernel path against the plain versions on
+   the card, 19b's rule (and its tempering of wq and wk).  20d, the trainer
+   with ``--arch mamba2_370m`` at its other defaults, resumed (two SSD
+   launches a layer a step).  20e, 5 AdamW steps of mamba2-370m at full
+   width and 48 layers (B 8 x S 2,048) and of recurrentgemma-9b at full
+   width cut to 3 layers (B 2 x S 4,096): losses and gradient norms finite,
+   the kernels launched as the layers say (the RG-LRU backward once a
+   ``rglru`` layer a step), no plain version on the card; ms a step,
+   tokens/s, model FLOPs (the SSD's, attention's and the RG-LRU's terms
+   counted) over the measured bf16 peak, peak GiB and a profile by class
+   are readings.
 
 Phases 12-15 count their launches apart from phases 4-5 (phase 6's counts)
 and the serving paths; the result line carries them under
-``launches_by_phase`` (flash's ``launches`` is phases 9, 16, 18 and 19
-(19c and 19d) together).
+``launches_by_phase`` (flash's ``launches`` is phases 9, 16, 18, 19 (19c
+and 19d) and 20 (20e) together; ``rglru_bwd`` is 20e's).
 
 Each parity line prints the largest absolute error and its worst ratio to
 the ``torch.allclose`` limit ``atol + rtol |want|`` (the check passes up to
@@ -359,9 +381,40 @@ ZERO_LEAF = 1e-3
 # (at 16 x 16, 0.25, its 1,500-frame cross-attention is nearly uniform and
 # its wq and wk gradients as noisy as the seeded ones: 0.34 against a plain
 # pair's 0.38).  The same rule as above.
-TEMPER = {"yi_6b": 16.0, "whisper_medium": 4.0}
+TEMPER = {"yi_6b": 16.0, "whisper_medium": 4.0, "recurrentgemma_9b": 16.0}
 # 19c: the trainer at its defaults, a checkpoint every 10 steps, then resumed.
 TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_RESUME_STEPS = 20, 10, 25
+# Phase 20, training the recurrent kinds.  recurrentgemma-9b at full width
+# cut to one (rglru, rglru, attn) period: its two untied 256,000 x 4,096
+# tables alone hold 2.1B parameters, and at ~18.4 bytes a parameter for
+# masters, AdamW moments, gradients and bf16 copies two periods (3.3B) would
+# need ~63 GB before activations; prompts of SERVE_SEQ, so the 2,048 window
+# is live.  mamba2-370m at full width and depth, the Mamba-2 paper's
+# training length.
+RG_TRAIN_UNITS = 1
+RG_TRAIN_BATCH, RG_TRAIN_SEQ = 2, SERVE_SEQ
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 8, 2048
+# 20a: the RG-LRU backward kernel against rglru_bwd_ref (sequential, f32) at
+# recurrentgemma's training shape and a ragged one with h0 and dh_last:
+# (B, S, N, with h0 and dh_last).  Relative L2 error of each gradient: in
+# f32 1e-4 (the CPU tests' tolerance against the JAX package's autodiff;
+# the two differ in summation order, expf and fused multiply-adds); in bf16
+# dx, dr and di are rounded once to bf16 (relative L2 ~1e-3): 1e-2; d
+# a_param and dh0 stay f32: 1e-4.
+RGLRU_BWD_SHAPES = ((RG_TRAIN_BATCH, RG_TRAIN_SEQ, 4096, False), (2, 1000, 80, True))
+RGLRU_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# 20b: the SSD's states against the plain version's (SSD_H_RTOL and
+# SSD_H_ATOL), and ssd_bwd fed the f32 kernel's states against autograd
+# through ssd_chunked_ref in f32 within 2e-4 relative L2 (the JAX package's
+# SSD tolerance), at mamba2's training shape with B and C head-shared and
+# at a ragged S with h0 and dh_last: (B, S, H, P, N, with h0 and dh_last).
+SSD_BWD_SHAPES = ((SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, 32, 64, 128, False),
+                  (2, 1000, 32, 64, 128, True))
+SSD_BWD_TOL = 2e-4
+# 20c: mamba2 at 2 layers (B 2 x S 2,048), recurrentgemma at one period (B 1
+# x S 4,096), phase 19b's rule.
+SSM_TRAIN_GATE_UNITS = 2
+RG_TRAIN_GATE_BATCH = 1
 # examples/multi_query_serving.py's jobs: (prompts, window s, slack)
 MULTI_JOBS = ((24, 30.0, 3.0), (16, 20.0, 2.0), (32, 40.0, 2.5))
 # Phase 12: benchmarks/bench_shared_panes.py's sliding regime at the paper's
@@ -1519,41 +1572,57 @@ def train_model_parity(cfg, loss_fn, batch, fa_ops, flash_plain, flash_f32, opt,
     from repro_torch.models.params import init_params
 
     state = opt.init_state(init_params(model_specs(cfg), seed=19, device="cuda"))
-    seeded = gradient_gate(cfg, loss_fn, batch, fa_ops, flash_plain, flash_f32, opt, state,
+    plain = [(fa_ops, "flash_attention_cuda", flash_plain)]
+    pair = [(fa_ops, "flash_attention_cuda", f32_standard(flash_f32))]
+    seeded = gradient_gate(cfg, loss_fn, batch, state.params, opt.cast_params, plain, pair,
                            "seeded")
-    for k, v in state.params.items():
-        if k.endswith("/wq") or k.endswith("/wk"):
-            v /= temper
-    tempered = gradient_gate(cfg, loss_fn, batch, fa_ops, flash_plain, flash_f32, opt,
-                             state, f"wq, wk / {temper}")
+    temper_attention(state.params, temper)
+    tempered = gradient_gate(cfg, loss_fn, batch, state.params, opt.cast_params, plain, pair,
+                             f"wq, wk / {temper}")
     return {"seeded": seeded, "tempered": tempered}
 
 
-def gradient_gate(cfg, loss_fn, batch, fa_ops, flash_plain, flash_f32, opt, state,
-                  what) -> dict:
-    """One comparison of ``train_model_parity`` on ``state``'s masters."""
+def temper_attention(params: dict, temper: float) -> None:
+    """Every ``wq`` and ``wk`` divided by ``temper``, in place."""
+    for k, v in params.items():
+        if k.endswith("/wq") or k.endswith("/wk"):
+            v /= temper
 
-    def run(flash):
-        with swapped(fa_ops, "flash_attention_cuda", flash):
-            masters = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-            loss, _ = loss_fn(cfg, opt.cast_params(masters), batch)
+
+def gradient_gate(cfg, loss_fn, batch, params, cast, plain, pair, what) -> dict:
+    """One comparison of ``train_model_parity`` on the f32 masters
+    ``params`` (cast to the compute dtype by ``cast`` in the graph): the
+    kernel path against the plain one (``plain``: (module, attribute,
+    plain version) swaps), within ``TRAIN_REL_L2`` or ``NOISE_RATIO`` times
+    the distance of a second plain path (``pair``) from the first.  Two
+    sets of gradients are held at a time."""
+
+    def run(swaps):
+        with contextlib.ExitStack() as stack:
+            for mod, attr, fn in swaps:
+                stack.enter_context(swapped(mod, attr, fn))
+            masters = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            loss, _ = loss_fn(cfg, cast(masters), batch)
             loss.backward()
             torch.cuda.synchronize()
         return loss.detach(), {k: v.grad for k, v in masters.items()}
 
-    k_loss, k_grads = run(None)
-    p_loss, p_grads = run(flash_plain)
-    f_loss, f_grads = run(f32_standard(flash_f32))
+    p_loss, p_grads = run(plain)
+    k_loss, k_grads = run([])
+    finite = all(torch.isfinite(g).all() for g in k_grads.values()) and torch.isfinite(k_loss)
+    n_leaves = len(k_grads)
     dist = grad_distance(k_grads, p_grads)
+    del k_grads
+    f_loss, f_grads = run(pair)
     floor = grad_distance(f_grads, p_grads)
+    del f_grads, p_grads
     dist["loss"] = abs((k_loss - p_loss) / p_loss).item()
     floor["loss"] = abs((f_loss - p_loss) / p_loss).item()
     limit = {k: max(TRAIN_REL_L2, NOISE_RATIO * floor[k]) for k in dist}
-    finite = all(torch.isfinite(g).all() for g in k_grads.values()) and torch.isfinite(k_loss)
     worst = sorted(dist, key=lambda k: dist[k] / limit[k], reverse=True)[:4]
     log(f"  {cfg.name} at {cfg.num_layers} + {sum(s.num_units for s in cfg.encoder_segments)} "
         f"layers, {what}, batch {tuple(batch['tokens'].shape)}: loss {k_loss.item():.6f} "
-        f"(plain flash {p_loss.item():.6f}, f32 standard {f_loss.item():.6f}); {len(k_grads)} gradient "
+        f"(plain {p_loss.item():.6f}, second plain {f_loss.item():.6f}); {n_leaves} gradient "
         f"leaves, all finite: {finite}; kernel against plain (limit) for the worst of loss "
         f"and leaves: " + "; ".join(f"{k} {dist[k]:.3e} ({limit[k]:.3e}, plain pair "
                                      f"{floor[k]:.3e})" for k in worst))
@@ -1564,58 +1633,62 @@ def gradient_gate(cfg, loss_fn, batch, fa_ops, flash_plain, flash_f32, opt, stat
     return {"loss": k_loss.item(), "worst": {k: (dist[k], limit[k]) for k in worst}}
 
 
-def trainer_path(train_mod, ckpt_dir, counters, layers: int) -> dict:
-    """19c: the trainer (``launch/train.py`` ``main``) at its defaults (yi-6b
-    ``--reduced``, widened) for ``TRAINER_STEPS`` steps with a checkpoint every
-    ``TRAINER_CKPT_EVERY``, then ``--resume`` to ``TRAINER_RESUME_STEPS``:
-    the resumed run starts at the first run's last checkpoint, every loss
-    is finite and the last below the first run's first; each step launches
-    the flash kernel twice a layer (``layers`` of them: the forward and the
-    remat recompute)."""
-    argv = ["--ckpt-dir", ckpt_dir, "--ckpt-every", str(TRAINER_CKPT_EVERY)]
+def trainer_path(train_mod, ckpt_dir, counters, arch: str, want: dict) -> dict:
+    """The trainer (``launch/train.py`` ``main``) with ``--arch arch`` at its
+    other defaults (``--reduced``, widened) for ``TRAINER_STEPS`` steps with
+    a checkpoint every ``TRAINER_CKPT_EVERY``, then ``--resume`` to
+    ``TRAINER_RESUME_STEPS``: the resumed run starts at the first run's last
+    checkpoint, every loss is finite and the last below the first run's
+    first; each kernel is launched as ``want`` says over both runs (name ->
+    count; every other kernel not at all), and no plain version runs on the
+    card."""
+    argv = ["--arch", arch, "--ckpt-dir", ckpt_dir, "--ckpt-every", str(TRAINER_CKPT_EVERY)]
     counters.reset()
     t0 = time.perf_counter()
     first = train_mod.main(argv + ["--steps", str(TRAINER_STEPS)])
     again = train_mod.main(argv + ["--steps", str(TRAINER_RESUME_STEPS), "--resume"])
     wall = time.perf_counter() - t0
     got = counters.read()
-    want = 2 * layers * TRAINER_RESUME_STEPS
+    launched = {k: got[k] for k in counters.kernels}
+    expected = {k: want.get(k, 0) for k in counters.kernels}
     losses = first["losses"] + again["losses"]
-    log(f"  trainer: {TRAINER_STEPS} steps then --resume to {TRAINER_RESUME_STEPS} in {wall:.1f} "
-        f"s; checkpoints {[p.name for p in first['checkpoints'] + again['checkpoints']]}; "
-        f"resumed at {again['start_step']}; loss {losses[0]:.4f} -> {first['losses'][-1]:.4f} "
-        f"-> {losses[-1]:.4f}; flash launches {got['flash_attention']} (expected {want}), "
-        f"rglru {got['rglru']}, ssd {got['ssd']}, plain on CUDA {got['plain_on_cuda']}")
+    log(f"  trainer --arch {arch}: {TRAINER_STEPS} steps then --resume to "
+        f"{TRAINER_RESUME_STEPS} in {wall:.1f} s; checkpoints "
+        f"{[p.name for p in first['checkpoints'] + again['checkpoints']]}; resumed at "
+        f"{again['start_step']}; loss {losses[0]:.4f} -> {first['losses'][-1]:.4f} -> "
+        f"{losses[-1]:.4f}; launches {launched} (expected {expected}), plain on CUDA "
+        f"{got['plain_on_cuda']}")
     ok = (again["start_step"] == TRAINER_STEPS and len(losses) == TRAINER_RESUME_STEPS
           and all(np.isfinite(losses)) and first["losses"][-1] < losses[0]
           and losses[-1] < losses[0]
           and [p.name for p in first["checkpoints"]] == [
               f"step_{s:08d}" for s in range(TRAINER_CKPT_EVERY, TRAINER_STEPS + 1,
                                              TRAINER_CKPT_EVERY)]
-          and got["flash_attention"] == want and not got["rglru"] and not got["ssd"]
-          and not got["plain_on_cuda"])
+          and launched == expected and not got["plain_on_cuda"])
     if not ok:
-        raise AssertionError("the trainer did not lower its loss, checkpoint, "
-                             "resume at its last checkpoint and launch the flash kernel "
-                             "as expected")
-    return {"steps": TRAINER_RESUME_STEPS, "first_loss": losses[0], "last_loss": losses[-1],
-            "wall_s": wall, "flash_launches": got["flash_attention"]}
+        raise AssertionError(f"the trainer (--arch {arch}) did not lower its loss, "
+                             f"checkpoint, resume at its last checkpoint and launch its "
+                             f"kernels as expected")
+    return {"arch": arch, "steps": TRAINER_RESUME_STEPS, "first_loss": losses[0],
+            "last_loss": losses[-1], "wall_s": wall, "launches": launched}
 
 
-def profile_train_step(run, attention) -> dict:
+def profile_train_step(run, ranges: dict, kernels: dict) -> dict:
     """Device time of one ``run()`` (a train step, which ends on the host)
-    by class: the flash kernel's forward, the attention backward
-    (``flash_bwd``'s kernels, found under a profiler range that wraps it for
-    this run), the other matrix products and the rest; and the idle share.
-    Returns ms by class (empty when the profiler records no device time)."""
+    by class: each of ``ranges`` ({class: (module, function name)}: every
+    kernel launched inside that function, found under a profiler range
+    that wraps it for this run, its products included), each of
+    ``kernels`` ({class: a substring of the kernel's name}), the other
+    matrix products and the rest; and the idle share.  Returns ms by class
+    (empty when the profiler records no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    bwd = attention.flash_bwd
-
-    def marked(*a, **kw):
-        with record_function("flash_bwd"):
-            return bwd(*a, **kw)
+    def marked(name, fn):
+        def call(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return call
 
     def under(evt):
         got = list(evt.kernels)
@@ -1623,26 +1696,33 @@ def profile_train_step(run, attention) -> dict:
             got += under(child)
         return got
 
-    with swapped(attention, "flash_bwd", marked):
+    with contextlib.ExitStack() as stack:
+        for name, (mod, attr) in ranges.items():
+            stack.enter_context(swapped(mod, attr, marked(name, getattr(mod, attr))))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run()
             wall_us = (time.perf_counter() - t0) * 1e6
-    in_bwd = [k for evt in prof.events()
-              if evt.name == "flash_bwd" and evt.device_type == DeviceType.CPU
-              for k in under(evt)]
-    bwd_us = sum(k.duration for k in in_bwd)
-    bwd_mm = sum(k.duration for k in in_bwd if is_matmul(k.name))
-    classes = {"flash forward": 0.0, "attention backward": bwd_us, "matmul": -bwd_mm,
-               "other": -(bwd_us - bwd_mm)}
-    others = {}   # "other" by kernel name, the backward's included
+    classes = dict.fromkeys([*kernels, *ranges, "matmul", "other"], 0.0)
+    empty = []
+    for name in ranges:  # moved out of matmul and other, where the loop below counts them
+        found = [k for evt in prof.events()
+                 if evt.name == name and evt.device_type == DeviceType.CPU for k in under(evt)]
+        mm = sum(k.duration for k in found if is_matmul(k.name))
+        classes[name] += sum(k.duration for k in found)
+        classes["matmul"] -= mm
+        classes["other"] -= sum(k.duration for k in found) - mm
+        if not found:
+            empty.append(name)
+    others = {}   # "other" by kernel name, the ranges' included
     for evt in prof.events():
-        # the range's own span on the device timeline is no kernel
-        if evt.device_type != DeviceType.CUDA or evt.name == "flash_bwd":
+        # a range's own span on the device timeline is no kernel
+        if evt.device_type != DeviceType.CUDA or evt.name in ranges:
             continue
         dt = evt.time_range.elapsed_us()
-        if "flash_fwd_kernel" in evt.name:
-            classes["flash forward"] += dt
+        cls = next((c for c, tag in kernels.items() if tag in evt.name), None)
+        if cls is not None:
+            classes[cls] += dt
         elif is_matmul(evt.name):
             classes["matmul"] += dt
         else:
@@ -1657,11 +1737,10 @@ def profile_train_step(run, attention) -> dict:
         f"{busy / 1e3:.1f} ms, idle share {max(0.0, 1 - busy / wall_us):.1%}; by class (ms, "
         f"share of busy): " + ", ".join(f"{k} {v / 1e3:.1f} ({v / busy:.1%})"
                                          for k, v in classes.items())
-        + ("" if in_bwd else " (no kernel found under the flash_bwd range: the backward "
-                             "is counted in matmul and other)"))
-    log("    largest kernels outside matmul and flash (ms, the backward's included): "
-        + "; ".join(f"{name.replace('void at::native::', '')[:80]} {us / 1e3:.1f}"
-                    for name, us in top))
+        + (f" (no kernel found under {empty}: counted in matmul and other)" if empty else ""))
+    log("    largest kernels outside matmul and the named classes (ms, the ranges' "
+        "included): " + "; ".join(f"{name.replace('void at::native::', '')[:80]} {us / 1e3:.1f}"
+                                  for name, us in top))
     return {k: v / 1e3 for k, v in classes.items()} | {"wall_ms": wall_us / 1e3}
 
 
@@ -1669,14 +1748,18 @@ def is_matmul(name: str) -> bool:
     return any(tag in name.lower() for tag in ("gemm", "xmma", "cutlass", "nvjet", "wgmma"))
 
 
-def timed_train_path(cfg, opt, steps_mod, train_mod, attention, counters, flash_fb,
-                     bf16_peak) -> dict:
-    """19d: yi-6b at full width cut to ``TRAIN_UNITS`` layers, ``TRAIN_STEPS``
-    AdamW steps (the reference's defaults) on ``synthetic_batches`` of
-    ``TRAIN_BATCH`` x ``TRAIN_SEQ``: loss and gradient norm finite at every
-    step, the flash kernel launched twice a layer a step and nothing else;
-    ms a step, tokens/s, peak memory, model FLOPs a step over the measured
-    bf16 peak, and a profile of one more step (readings)."""
+def timed_train_path(cfg, opt, steps_mod, train_mod, counters, batch_size: int, seq: int,
+                     want: dict, extra_flops: tuple, bf16_peak: float, ranges: dict,
+                     kernel_classes: dict) -> dict:
+    """``TRAIN_STEPS`` AdamW steps (the reference's defaults) of ``cfg`` on
+    ``synthetic_batches`` of ``batch_size`` x ``seq``: loss and gradient
+    norm finite at every step, each kernel launched as ``want`` says (name
+    -> count over the steps; every other kernel not at all) and no plain
+    version on the card; ms a step, tokens/s, peak memory, model FLOPs a
+    step (6 N T, N without the embedding table, plus ``extra_flops``:
+    (FLOPs a step, what they are)) over the measured bf16 peak, and a
+    profile of one more step by class (``ranges``, ``kernel_classes``: as
+    ``profile_train_step`` takes them) are readings."""
     from repro_torch.models.params import init_params, num_params
 
     gc.collect()
@@ -1686,7 +1769,7 @@ def timed_train_path(cfg, opt, steps_mod, train_mod, attention, counters, flash_
     specs = steps_mod.model_specs(cfg)
     state = opt.init_state(init_params(specs, seed=19, device="cuda"))
     adamw = opt.AdamWConfig()
-    data = train_mod.synthetic_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=19)
+    data = train_mod.synthetic_batches(cfg, batch_size, seq, seed=19)
     batches = [{k: torch.from_numpy(v).to("cuda") for k, v in next(data).items()}
                for _ in range(TRAIN_STEPS + 1)]
     counters.reset()
@@ -1699,35 +1782,33 @@ def timed_train_path(cfg, opt, steps_mod, train_mod, attention, counters, flash_
         gnorms.append(metrics["grad_norm"].item())
         walls.append(time.perf_counter() - t0)
     got = counters.read()
+    launched = {k: got[k] for k in counters.kernels}
+    expected = {k: want.get(k, 0) for k in counters.kernels}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 - before
-    want = 2 * cfg.num_layers * TRAIN_STEPS
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch_size * seq
     n = num_params(specs) - int(np.prod(specs["embed/tokens"].shape))
-    attn = 3 * cfg.num_layers * flash_fb(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, cfg.num_heads,
-                                         cfg.num_kv_heads, cfg.head_dim, True, 0)[0]
-    flops = 6.0 * n * tokens + attn
+    flops = 6.0 * n * tokens + extra_flops[0]
     steady = walls[1:]
     ms = 1e3 * sum(steady) / len(steady)
-    r = {"layers": cfg.num_layers, "params": num_params(specs), "batch": TRAIN_BATCH,
-         "seq": TRAIN_SEQ, "losses": losses, "grad_norms": gnorms,
+    r = {"arch": cfg.name, "layers": cfg.num_layers, "params": num_params(specs),
+         "batch": batch_size, "seq": seq, "losses": losses, "grad_norms": gnorms,
          "first_ms": walls[0] * 1e3, "ms_per_step": ms, "tokens_per_s": tokens / (ms / 1e3),
-         "peak_gib": peak, "flash_launches": got["flash_attention"],
-         "model_flops": flops, "mfu": flops / (ms / 1e3) / bf16_peak}
-    log(f"  {cfg.name} at {cfg.num_layers} layers ({r['params']:,} parameters), B={TRAIN_BATCH}"
-        f" x S={TRAIN_SEQ}: losses {[round(x, 4) for x in losses]}, grad norms "
+         "peak_gib": peak, "launches": launched, "model_flops": flops,
+         "mfu": flops / (ms / 1e3) / bf16_peak}
+    log(f"  {cfg.name} at {cfg.num_layers} layers ({r['params']:,} parameters), B={batch_size}"
+        f" x S={seq}: losses {[round(x, 4) for x in losses]}, grad norms "
         f"{[round(x, 3) for x in gnorms]}; first step {r['first_ms']:.1f} ms, then "
         f"{ms:.1f} ms a step, {r['tokens_per_s']:.0f} tokens/s; peak memory {peak:.2f} GiB "
-        f"above the {before:.2f} allocated before; "
-        f"flash launches {got['flash_attention']} (expected {want}), rglru {got['rglru']}, "
-        f"ssd {got['ssd']}, plain on CUDA {got['plain_on_cuda']}; model FLOPs a step "
-        f"{flops:.4g} (6 N T, N = {n:,} without the embedding table, plus attention), "
-        f"{r['mfu']:.1%} of the measured bf16 peak {bf16_peak / 1e12:.1f} TFLOP/s")
-    ok = (all(np.isfinite(losses)) and all(np.isfinite(gnorms))
-          and got["flash_attention"] == want and not got["rglru"] and not got["ssd"]
+        f"above the {before:.2f} allocated before; launches {launched} (expected "
+        f"{expected}), plain on CUDA {got['plain_on_cuda']}; model FLOPs a step "
+        f"{flops:.4g} (6 N T, N = {n:,} without the embedding table, plus "
+        f"{extra_flops[0]:.4g} for {extra_flops[1]}), {r['mfu']:.1%} of the measured bf16 "
+        f"peak {bf16_peak / 1e12:.1f} TFLOP/s")
+    ok = (all(np.isfinite(losses)) and all(np.isfinite(gnorms)) and launched == expected
           and not got["plain_on_cuda"])
     if not ok:
         raise AssertionError(f"{cfg.name} training: non-finite loss or grad norm, or the "
-                             f"flash kernel not launched as expected")
+                             f"kernels not launched as expected")
     try:
         holder = [state]
 
@@ -1735,43 +1816,34 @@ def timed_train_path(cfg, opt, steps_mod, train_mod, attention, counters, flash_
             holder[0], m = steps_mod.train_step(cfg, holder[0], batches[-1], adamw)
             m["loss"].item()
 
-        r["profile"] = profile_train_step(step, attention)
+        r["profile"] = profile_train_step(step, ranges, kernel_classes)
     except Exception as exc:  # the profiler is a reading, not a gate
         log(f"    profiler failed: {exc!r}")
     return r
 
 
 def guard_check() -> None:
-    """The kernels without a backward refuse a CUDA input that needs a
-    gradient (and run under ``torch.no_grad()``); so does a
-    ``kv_valid_len`` flash call."""
+    """A ``kv_valid_len`` flash call, which has no backward, refuses a CUDA
+    input that needs a gradient (and runs under ``torch.no_grad()``)."""
     from repro_torch.layers import attention
-    from repro_torch.layers.rglru import rglru_scan
-    from repro_torch.layers.ssd import ssd_chunked
 
-    x = torch.randn((1, 64, 32), device="cuda").bfloat16().requires_grad_(True)
-    gate = torch.sigmoid(torch.randn((1, 64, 32), device="cuda")).bfloat16()
-    xs = torch.randn((1, 64, 2, 16), device="cuda").requires_grad_(True)
-    bc = torch.randn((1, 64, 2, 8), device="cuda")
-    ssd_args = (torch.rand((1, 64, 2), device="cuda") * 0.1, -torch.ones(2, device="cuda"),
-                bc, bc, torch.ones(2, device="cuda"))
     q = torch.randn((1, 64, 4, 64), device="cuda").bfloat16().requires_grad_(True)
-    calls = {"rglru_scan": lambda: rglru_scan(x, gate, gate, torch.randn(32, device="cuda")),
-             "ssd": lambda: ssd_chunked(xs, *ssd_args),
-             "chunked_attention with kv_valid_len": lambda: attention.chunked_attention(
-                 q, q.detach(), q.detach(), attention.AttnSpec(),
-                 kv_valid_len=torch.tensor([40], device="cuda"))}
-    for name, call in calls.items():
-        try:
-            call()
-        except NotImplementedError:
-            pass
-        else:
-            raise AssertionError(f"{name} on a CUDA input that needs a gradient did not raise")
-        with torch.no_grad():
-            call()
-    log(f"  guard: {', '.join(calls)} raise NotImplementedError on a CUDA input that needs a "
-        f"gradient and run under torch.no_grad()")
+
+    def call():
+        return attention.chunked_attention(q, q.detach(), q.detach(), attention.AttnSpec(),
+                                           kv_valid_len=torch.tensor([40], device="cuda"))
+
+    try:
+        call()
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("chunked_attention with kv_valid_len on a CUDA input that needs "
+                             "a gradient did not raise")
+    with torch.no_grad():
+        call()
+    log("  guard: chunked_attention with kv_valid_len raises NotImplementedError on a CUDA "
+        "input that needs a gradient and runs under torch.no_grad()")
 
 
 def training_path(args, counters, bf16_peak: float) -> tuple:
@@ -1826,18 +1898,329 @@ def training_path(args, counters, bf16_peak: float) -> tuple:
         f"{TRAINER_STEPS} steps, then --resume")
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
-        trained_run = trainer_path(trainer, ckpt_dir, counters,
-                                   trainer.widened(get_config(TRAIN_ARCH)).num_layers)
+        # the forward and the remat recompute: two flash launches a layer a step
+        layers = trainer.widened(get_config(TRAIN_ARCH)).num_layers
+        trained_run = trainer_path(trainer, ckpt_dir, counters, TRAIN_ARCH,
+                                   {"flash_attention": 2 * layers * TRAINER_RESUME_STEPS})
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     cfg = get_config(TRAIN_ARCH)
     cfg = dataclasses.replace(cfg, segments=(Segment(cfg.segments[0].pattern, TRAIN_UNITS),))
     log(f"[19d] {cfg.name} at full width, {TRAIN_UNITS} layers, {TRAIN_STEPS} AdamW steps on "
         f"synthetic_batches; counts from the first step to the last")
-    timed = timed_train_path(cfg, optimizer, train_steps, trainer, attention_mod, counters,
-                             flash_flops_bytes, bf16_peak)
+    attn = 3 * cfg.num_layers * flash_flops_bytes(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ,
+                                                  cfg.num_heads, cfg.num_kv_heads,
+                                                  cfg.head_dim, True, 0)[0]
+    timed = timed_train_path(cfg, optimizer, train_steps, trainer, counters, TRAIN_BATCH,
+                             TRAIN_SEQ, {"flash_attention": 2 * cfg.num_layers * TRAIN_STEPS},
+                             (attn, "attention"), bf16_peak,
+                             {"attention backward": (attention_mod, "flash_bwd")},
+                             {"flash forward": "flash_fwd_kernel"})
     log(json.dumps({"training": {"gates": train_gate, "trainer": trained_run, "timed": timed}}))
-    return train_times, trained_run["flash_launches"] + timed["flash_launches"]
+    return (train_times, trained_run["launches"]["flash_attention"]
+            + timed["launches"]["flash_attention"])
+
+# -- phase 20 ----------------------------------------------------------------
+
+def rglru_train_parity(rglru_cuda, rglru_bwd_cuda, rglru_ref, rglru_bwd_ref, fwd_fb,
+                       bwd_fb) -> dict:
+    """20a: at each of ``RGLRU_BWD_SHAPES``, bf16 and f32, the forward with
+    carries bit-equal (y, h_last) to the forward without, its carries
+    against ``rglru_ref``'s (within ``STATE_TOL``), and ``rglru_bwd_cuda``
+    against ``rglru_bwd_ref`` (``RGLRU_BWD_TOL``); at the training shape in
+    bf16, the backward's time beside its byte bound and the plain
+    version's, and the forward's with and without carries.  Returns the
+    backward's kernel record."""
+    rec = {}
+    for B, S, N, ends in RGLRU_BWD_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(20 + S + N)
+        f = lambda *shape: torch.randn(shape, device="cuda", generator=gen)  # noqa: E731
+        x32, r32, i32 = f(B, S, N), torch.sigmoid(f(B, S, N)), torch.sigmoid(f(B, S, N))
+        a_param, dy32 = f(N), f(B, S, N)
+        h0, dh_last = (f(B, N), f(B, N)) if ends else (None, None)
+        for dtype in (torch.bfloat16, torch.float32):
+            x, r, i, dy = (t.to(dtype) for t in (x32, r32, i32, dy32))
+            y, h_last = rglru_cuda(x, r, i, a_param, h0)
+            y2, h_last2, carries = rglru_cuda(x, r, i, a_param, h0, return_carries=True)
+            same = torch.equal(y, y2) and torch.equal(h_last, h_last2)
+            want_c = rglru_ref(x, r, i, a_param, h0, return_carries=True)[2]
+            c_err = (carries - want_c).abs().max().item()
+            got = rglru_bwd_cuda(x, r, i, a_param, carries, dy, dh_last)
+            want = rglru_bwd_ref(x, r, i, a_param, h0, dy, dh_last)
+            names = ("dx", "dr", "di", "da_param", "dh0")
+            rels = {n: rel_l2(g, w) for n, g, w in zip(names, got, want)}
+            tols = {n: RGLRU_BWD_TOL[dtype] if n in ("dx", "dr", "di") else 1e-4
+                    for n in names}
+            abs_err = max((g.float() - w.float()).abs().max().item()
+                          for g, w in zip(got, want))
+            finite = all(torch.isfinite(g).all() for g in got)
+            log(f"  rglru B={B} S={S} N={N} {str(dtype)[6:]}"
+                f"{', h0 and dh_last' if ends else ''}: forward with and without carries "
+                f"{'bit-equal' if same else 'DIFFERENT'}, carries max abs err {c_err:.3e} "
+                f"(limit {STATE_TOL}); backward rel L2 "
+                + ", ".join(f"{n} {rels[n]:.3e} ({tols[n]})" for n in names)
+                + f"; max abs err {abs_err:.3e}")
+            if not (same and c_err <= STATE_TOL and finite
+                    and all(rels[n] <= tols[n] for n in names)):
+                raise AssertionError(f"the RG-LRU backward kernel disagrees with "
+                                     f"rglru_bwd_ref at B={B} S={S} N={N} {dtype}")
+            if ends or dtype != torch.bfloat16:
+                continue
+            b_ms, b_by = bound(*bwd_fb(B, S, N, 2), "float32")
+            rec = {"shape": f"B={B} S={S} N={N} bf16", "max_abs_err": abs_err,
+                   "ms": cuda_ms(lambda: rglru_bwd_cuda(x, r, i, a_param, carries, dy),
+                                 reps=KERNEL_REPS),
+                   "plain_ms": cuda_ms(lambda: rglru_bwd_ref(x, r, i, a_param, None, dy),
+                                       reps=1),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                   "fwd_ms": cuda_ms(lambda: rglru_cuda(x, r, i, a_param), reps=KERNEL_REPS),
+                   "fwd_carries_ms": cuda_ms(lambda: rglru_cuda(x, r, i, a_param,
+                                                                return_carries=True),
+                                             reps=KERNEL_REPS),
+                   "fwd_bound_ms": bound(*fwd_fb(B, S, N, 2), "bfloat16")[0]}
+            log(f"    backward {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, bound "
+                f"{b_ms:.4f} by {b_by} ({b_ms / rec['ms']:.1%} of it reached); forward "
+                f"{rec['fwd_ms']:.4f} ms, with carries {rec['fwd_carries_ms']:.4f} (bound "
+                f"{rec['fwd_bound_ms']:.4f})")
+        del x32, r32, i32, dy32, x, r, i, dy, y, y2, carries, got, want
+        torch.cuda.empty_cache()
+    return rec
+
+
+def ssd_train_parity(ssd_cuda, ssd_chunked_ref, ssd_layer, fwd_fb, bwd_fb) -> dict:
+    """20b: at each of ``SSD_BWD_SHAPES`` (B and C head-shared), the
+    kernel's output bit-equal with and without states, in bf16 and f32, and
+    its states against ``ssd_chunked_ref``'s; ``ssd_bwd`` fed the f32
+    kernel's states against autograd through ``ssd_chunked_ref`` in f32
+    (``SSD_BWD_TOL``).  At the training shape in bf16 (the model's dtype),
+    ``ssd_bwd``'s time beside the forward's (with and without states) and
+    the bytes and operations ``bwd_flops_bytes`` counts.  Steps as the
+    seeded model takes them (dt = softplus(N(-4, 1)), mean ~0.03), so no
+    chunk's decay passes e^-88, where the plain version's autograd, like
+    the JAX layer's, would give NaN.  Returns the readings."""
+    import torch.nn.functional as F
+
+    rec = {}
+    for B, S, H, P, N, ends in SSD_BWD_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(20 + S)
+        f = lambda *shape: torch.randn(shape, device="cuda", generator=gen)  # noqa: E731
+        x, dt = 0.5 * f(B, S, H, P), F.softplus(f(B, S, H) - 4.0)
+        A, D = -(0.5 + f(H).abs()), f(H)
+        Bs, Cs = 0.3 * f(B, S, N), 0.3 * f(B, S, N)
+        dy = f(B, S, H, P)
+        h0, dh_last = (f(B, H, N, P), f(B, H, N, P)) if ends else (None, None)
+
+        def heads(t):
+            return t[:, :, None].expand(B, S, H, N)
+
+        shape = f"B={B} S={S} H={H} P={P} N={N}{', h0 and dh_last' if ends else ''}"
+        for dtype in (torch.bfloat16, torch.float32):
+            args = (x.to(dtype), dt.to(dtype), A, heads(Bs.to(dtype)), heads(Cs.to(dtype)), D,
+                    h0)
+            y, h_last = ssd_cuda(*args)
+            y2, h_last2, states = ssd_cuda(*args, return_states=True)
+            same = torch.equal(y, y2) and torch.equal(h_last, h_last2)
+            want = ssd_chunked_ref(*[a.float() for a in args[:6]], 128, h0,
+                                   return_states=True)[2]
+            ratio = worst_ratio(states, want, SSD_H_RTOL, SSD_H_ATOL[dtype])
+            log(f"  ssd {shape} {str(dtype)[6:]}: output with and without states "
+                f"{'bit-equal' if same else 'DIFFERENT'}; states max abs err "
+                f"{(states - want).abs().max().item():.3e}, worst ratio {ratio:.3f} (rtol "
+                f"{SSD_H_RTOL}, atol {SSD_H_ATOL[dtype]})")
+            if not (same and ratio <= 1.0):
+                raise AssertionError(f"SSD states disagree at {shape} {dtype}")
+            del y, y2, h_last, h_last2, want
+        got = ssd_layer.ssd_bwd(x, dt, A, Bs, Cs, D, states, dy, dh_last, 128)
+        leaves = [None if t is None else t.detach().clone().requires_grad_(True)
+                  for t in (x, dt, A, Bs, Cs, D, h0)]
+        y, h_last = ssd_chunked_ref(*leaves[:3], heads(leaves[3]), heads(leaves[4]), leaves[5],
+                                    128, leaves[6])
+        ((y * dy).sum() + (0.0 if dh_last is None else (h_last * dh_last).sum())).backward()
+        names = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+        rels = {n: rel_l2(g, leaf.grad) for n, g, leaf in zip(names, got, leaves)
+                if leaf is not None}
+        finite = all(torch.isfinite(g).all() for g in got)
+        log(f"    ssd_bwd fed the f32 kernel's states against autograd of ssd_chunked_ref "
+            f"(f32): rel L2 " + ", ".join(f"{n} {v:.3e}" for n, v in rels.items())
+            + f" (limit {SSD_BWD_TOL})")
+        if not (finite and all(v <= SSD_BWD_TOL for v in rels.values())):
+            raise AssertionError(f"ssd_bwd disagrees with the plain version's autograd at "
+                                 f"{shape}")
+        del got, leaves, y, h_last
+        if not ends:
+            xb, dtb, Bb, Cb, dyb = (t.bfloat16() for t in (x, dt, Bs, Cs, dy))
+            args = (xb, dtb, A, heads(Bb), heads(Cb), D)
+            _, _, st = ssd_cuda(*args, return_states=True)
+            b_ms, b_by = bound(*bwd_fb(B, S, H, P, N, shared=True), "float32")
+            ops, nbytes = bwd_fb(B, S, H, P, N, shared=True)
+            rec = {"shape": f"B={B} S={S} H={H} P={P} N={N} bf16, B and C shared",
+                   "bwd_ms": cuda_ms(lambda: ssd_layer.ssd_bwd(xb, dtb, A, Bb, Cb, D, st, dyb,
+                                                               None, 128), reps=3),
+                   "bwd_bound_ms": b_ms, "bwd_bound_by": b_by, "bwd_ops": ops,
+                   "bwd_bytes": nbytes, "max_rel_l2": max(rels.values()),
+                   "fwd_ms": cuda_ms(lambda: ssd_cuda(*args), reps=KERNEL_REPS),
+                   "fwd_states_ms": cuda_ms(lambda: ssd_cuda(*args, return_states=True),
+                                            reps=KERNEL_REPS),
+                   "fwd_bound_ms": bound(*fwd_fb(B, S, H, P, N), "bfloat16")[0]}
+            log(f"    ssd_bwd (PyTorch ops, f32) {rec['bwd_ms']:.4f} ms, bound {b_ms:.4f} by "
+                f"{b_by} ({ops:.4g} operations at the f32 peak, {nbytes:.4g} bytes; "
+                f"{b_ms / rec['bwd_ms']:.1%} of it reached); the forward kernel "
+                f"{rec['fwd_ms']:.4f} ms, with states {rec['fwd_states_ms']:.4f} (bound "
+                f"{rec['fwd_bound_ms']:.4f})")
+            del xb, dtb, Bb, Cb, dyb, st
+        del x, dt, Bs, Cs, dy, states
+        torch.cuda.empty_cache()
+    return rec
+
+
+def recurrent_swaps(fa_ops, rg_ops, ssd_ops, flash_plain, flash_f32, rglru_ref,
+                    rglru_chunked_ref, rglru_bwd_ref, rglru_bwd_chunked_ref,
+                    ssd_chunked_ref) -> tuple:
+    """20c's two plain paths, as (module, attribute, plain version) swaps:
+    the plain flash, ``rglru_ref`` and ``rglru_bwd_ref``, and
+    ``ssd_chunked_ref`` at the kernel's chunk of 128; and a second that
+    differs in summation order only: the f32 flash with q/sqrt(D) rounded,
+    the kernels' order of arithmetic for the RG-LRU, and the SSD at chunk
+    64 (its states taken at every other chunk start, the kernel's)."""
+
+    def rglru_bwd_plain(x, r, i, a_param, carries, dy, dh_last):
+        return rglru_bwd_ref(x, r, i, a_param, carries[:, 0], dy, dh_last)
+
+    def ssd_at(chunk):
+        def call(x, dt, A, Bm, Cm, D, h0, return_states=False):
+            out = ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk, h0, return_states=return_states)
+            step = 128 // chunk
+            return (*out[:2], out[2][:, :, ::step].contiguous()) if return_states else out
+        return call
+
+    plain = [(fa_ops, "flash_attention_cuda", flash_plain), (rg_ops, "rglru_cuda", rglru_ref),
+             (rg_ops, "rglru_bwd_cuda", rglru_bwd_plain), (ssd_ops, "ssd_cuda", ssd_at(128))]
+    pair = [(fa_ops, "flash_attention_cuda", f32_standard(flash_f32)),
+            (rg_ops, "rglru_cuda", rglru_chunked_ref),
+            (rg_ops, "rglru_bwd_cuda", rglru_bwd_chunked_ref), (ssd_ops, "ssd_cuda", ssd_at(64))]
+    return plain, pair
+
+
+def recurrent_training_path(args, counters, bf16_peak: float) -> tuple:
+    """Phase 20: 20a ``rglru_train_parity``, 20b ``ssd_train_parity``, 20c
+    the loss and every gradient leaf of mamba2-370m at 2 layers and
+    recurrentgemma-9b at one period against the plain path (phase 19b's
+    rule), 20d the trainer with ``--arch mamba2_370m``, 20e the timed runs.
+    Returns (20a's kernel record, 20b's readings, the launches of 20d and
+    20e by kernel)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flops_bytes as flash_flops_bytes)
+    from repro_torch.kernels.flash_attention.ref import (
+        chunked_attention_f32_ref, chunked_attention_ref)
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.rglru.ref import (
+        rglru_bwd_chunked_ref, rglru_bwd_ref, rglru_chunked_ref, rglru_ref)
+    from repro_torch.kernels.rglru.rglru import (
+        bwd_flops_bytes as rglru_bwd_fb, flops_bytes as rglru_fb, rglru_bwd_cuda, rglru_cuda)
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+    from repro_torch.kernels.ssd.ssd import (
+        bwd_flops_bytes as ssd_bwd_fb, flops_bytes as ssd_fb, ssd_cuda)
+    from repro_torch.launch import steps as train_steps
+    from repro_torch.launch import train as trainer
+    from repro_torch.layers import attention as attention_mod
+    from repro_torch.layers import ssd as ssd_layer
+    from repro_torch.models.base import get_config
+    from repro_torch.models.config import Segment
+    from repro_torch.models.params import init_params
+    from repro_torch.train import optimizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[20] training the recurrent kinds: the RG-LRU backward kernel and the SSD's "
+        f"states and backward; the loss and every gradient leaf of {SSM_ARCH} at "
+        f"{SSM_TRAIN_GATE_UNITS} layers and {SERVE_ARCH} at {3 * RG_TRAIN_UNITS} against the "
+        f"plain path; the trainer with --arch {SSM_ARCH}; {SSM_ARCH} at full width and depth "
+        f"(B={SSM_TRAIN_BATCH} x S={SSM_TRAIN_SEQ}) and {SERVE_ARCH} at full width, "
+        f"{3 * RG_TRAIN_UNITS} of 38 layers (CUT: one period; its AdamW state at two periods "
+        f"would not leave room for activations), B={RG_TRAIN_BATCH} x S={RG_TRAIN_SEQ}, "
+        f"{TRAIN_STEPS} steps each")
+    log(f"[20a] RG-LRU: the forward with carries, the backward kernel against rglru_bwd_ref")
+    rglru_rec = rglru_train_parity(rglru_cuda, rglru_bwd_cuda, rglru_ref, rglru_bwd_ref,
+                                   rglru_fb, rglru_bwd_fb)
+    log(f"[20b] SSD: the kernel's states, ssd_bwd against autograd of the plain version")
+    ssd_rec = ssd_train_parity(ssd_cuda, ssd_chunked_ref, ssd_layer, ssd_fb, ssd_bwd_fb)
+
+    log(f"[20c] the loss and every gradient leaf, kernel path against plain path (limit "
+        f"{TRAIN_REL_L2} or {NOISE_RATIO} x two plain paths' distance)")
+    plain, pair = recurrent_swaps(fa_ops, rg_ops, ssd_ops, chunked_attention_ref,
+                                  chunked_attention_f32_ref, rglru_ref, rglru_chunked_ref,
+                                  rglru_bwd_ref, rglru_bwd_chunked_ref, ssd_chunked_ref)
+    gates = {}
+    for arch, units, batch_size, seq in (
+            (SSM_ARCH, SSM_TRAIN_GATE_UNITS, TRAIN_GATE_BATCH, SSM_TRAIN_SEQ),
+            (SERVE_ARCH, RG_TRAIN_UNITS, RG_TRAIN_GATE_BATCH, RG_TRAIN_SEQ)):
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, segments=(Segment(cfg.segments[0].pattern, units),))
+        params = init_params(train_steps.model_specs(cfg), seed=20, device="cuda")
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in next(
+            trainer.synthetic_batches(cfg, batch_size, seq, seed=args.seed)).items()}
+        gates[arch] = {"seeded": gradient_gate(cfg, train_steps.loss_fn_for(cfg), batch,
+                                               params, optimizer.cast_params, plain, pair,
+                                               "seeded")}
+        if arch in TEMPER:
+            temper_attention(params, TEMPER[arch])
+            gates[arch]["tempered"] = gradient_gate(
+                cfg, train_steps.loss_fn_for(cfg), batch, params, optimizer.cast_params, plain,
+                pair, f"wq, wk / {TEMPER[arch]}")
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    log(f"[20d] the trainer: python -m repro_torch.launch.train --arch {SSM_ARCH}, "
+        f"{TRAINER_STEPS} steps, then --resume")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # the forward and the remat recompute: two SSD launches a layer a step
+        layers = trainer.widened(get_config(SSM_ARCH)).num_layers
+        trained = trainer_path(trainer, ckpt_dir, counters, SSM_ARCH,
+                               {"ssd": 2 * layers * TRAINER_RESUME_STEPS})
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    log(f"[20e] timed: {TRAIN_STEPS} AdamW steps on synthetic_batches; counts from the first "
+        f"step to the last")
+    cfg = get_config(SSM_ARCH)
+    ssd_term = 3 * cfg.num_layers * ssd_fb(SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, cfg.ssm_num_heads,
+                                           cfg.ssm_head_dim, cfg.ssm_state)[0]
+    timed = {SSM_ARCH: timed_train_path(
+        cfg, optimizer, train_steps, trainer, counters, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ,
+        {"ssd": 2 * cfg.num_layers * TRAIN_STEPS},
+        (ssd_term, "the SSD's chunk products (3 x the forward's)"), bf16_peak,
+        {"SSD backward": (ssd_layer, "ssd_bwd")}, {"SSD forward": "ssd_mma_kernel"})}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(cfg, segments=(Segment(cfg.segments[0].pattern, RG_TRAIN_UNITS),))
+    kinds = cfg.segments[0].pattern
+    n_rglru, n_attn = kinds.count("rglru"), kinds.count("attn")
+    rg_term = 3 * (n_attn * flash_flops_bytes(
+        RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads,
+        cfg.head_dim, True, cfg.window)[0] + n_rglru * rglru_fb(
+        RG_TRAIN_BATCH, RG_TRAIN_SEQ, cfg.lru_width)[0])
+    timed[SERVE_ARCH] = timed_train_path(
+        cfg, optimizer, train_steps, trainer, counters, RG_TRAIN_BATCH, RG_TRAIN_SEQ,
+        {"flash_attention": 2 * n_attn * TRAIN_STEPS, "rglru": 2 * n_rglru * TRAIN_STEPS,
+         "rglru_bwd": n_rglru * TRAIN_STEPS},
+        (rg_term, "windowed attention and the RG-LRU (3 x their forwards)"), bf16_peak,
+        {"attention backward": (attention_mod, "flash_bwd")},
+        {"flash forward": "flash_fwd_kernel", "RG-LRU backward": "rglru_bwd_kernel",
+         "RG-LRU forward": "rglru_kernel"})
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: trained["launches"][k] + sum(t["launches"][k] for t in timed.values())
+                for k in trained["launches"]}
+    log(json.dumps({"recurrent_training": {"rglru_bwd": rglru_rec, "ssd": ssd_rec,
+                                           "gates": gates, "trainer": trained,
+                                           "timed": timed}}))
+    return rglru_rec, ssd_rec, launches
+
 
 
 # -- phase 14 ----------------------------------------------------------------
@@ -2294,7 +2677,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.rglru import ops as rg_ops
     from repro_torch.kernels.rglru.ref import rglru_ref
     from repro_torch.kernels.rglru.rglru import (
-        flops_bytes as rglru_flops_bytes, rglru_cuda, rglru_serial_cuda)
+        flops_bytes as rglru_flops_bytes, rglru_bwd_cuda, rglru_cuda, rglru_serial_cuda)
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_chunked_bf16ops_ref, ssd_chunked_ref
     from repro_torch.kernels.ssd.ssd import flops_bytes as ssd_flops_bytes, ssd_cuda
@@ -2632,8 +3015,9 @@ def main(argv=None) -> int:
     # the last job
     log(f"[9] serving path: {SERVE_ARCH} at full width, prompts of {SERVE_SEQ} tokens")
     counters = LaunchCounters(
-        lm, {"flash_attention": flash_attention_cuda, "rglru": rglru_cuda, "ssd": ssd_cuda},
-        [(fa_ops, "chunked_attention_ref"), (rg_ops, "rglru_ref"),
+        lm, {"flash_attention": flash_attention_cuda, "rglru": rglru_cuda, "ssd": ssd_cuda,
+             "rglru_bwd": rglru_bwd_cuda},
+        [(fa_ops, "chunked_attention_ref"), (rg_ops, "rglru_ref"), (rg_ops, "rglru_bwd_ref"),
          (ssd_ops, "ssd_chunked_ref")])
     cfg = get_config(SERVE_ARCH)
     t0 = time.perf_counter()
@@ -2823,6 +3207,16 @@ def main(argv=None) -> int:
     launches["flash_attention"] += trained
     by_phase["flash_attention"]["19"] = trained
 
+    # 20. training the recurrent kinds: the RG-LRU backward kernel, the SSD's
+    # states and backward, the gradients at 2-3 layers, the trainer on
+    # mamba2-370m, then both models' timed steps
+    rglru_bwd_times, ssd_train, recurrent = recurrent_training_path(
+        args, counters, measured["bfloat16"].peak_flops)
+    for k, n in recurrent.items():
+        launches[k] = launches.get(k, 0) + n
+        by_phase.setdefault(k, {})["20"] = n
+    lm_times["ssd"]["training"] = ssd_train
+
     replaces = {"segagg_narrow": "src/repro/kernels/segagg/segagg.py:48",
                 "segagg_scatter": "src/repro/kernels/segagg/segagg.py:75",
                 "segagg_scatter_atomic": "src/repro/kernels/segagg/segagg.py:75"}
@@ -2839,10 +3233,21 @@ def main(argv=None) -> int:
                             "src/repro/kernels/flash_attention/flash_attention.py:29"),
         "rglru": ("src/repro_torch/csrc/rglru.cu", "src/repro/kernels/rglru/rglru.py:27"),
         "ssd": ("src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd/ssd.py:26")}
+    notes = {"rglru": "optional f32 carries output (the state entering each 128-step "
+                      "chunk) for the backward; null for serving",
+             "ssd": "optional f32 states output (the state entering each 128-step chunk) "
+                    "for ssd_bwd (PyTorch ops, timed under training); null for serving"}
     for kname, (source, replaced) in lm_sources.items():
         kernels.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaced, "launches": launches[kname],
-                        "launches_by_phase": by_phase[kname], **lm_times[kname]})
+                        "launches_by_phase": by_phase[kname], **lm_times[kname],
+                        **({"note": notes[kname]} if kname in notes else {})})
+    kernels.append({"name": "rglru_bwd", "route": "cuda",
+                    "source": "src/repro_torch/csrc/rglru.cu",
+                    "replaces": "src/repro/layers/rglru.py:27 (jax autodiff of rglru_scan's "
+                                "associative scan; the JAX package has no backward kernel)",
+                    "launches": launches["rglru_bwd"],
+                    "launches_by_phase": by_phase["rglru_bwd"], **rglru_bwd_times})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -37,9 +37,14 @@
 // an element (two expf and a sqrtf in f32), issued by 16 warps an SM at
 // B = 1; 4 of 132 SMs idle at B = 1, N = 4096.
 //
+// Training: ``carries`` (optional) receives the state entering each chunk,
+// written by warp 0 before the chunk's scan; a null pointer launches the
+// instantiation without the store, the same code as serving ran before.
+// ``rglru_scan_bwd`` (below) is the gradient, from those carries.
+//
 // C interface, loaded with ctypes: pointers and the stream are void*.  The
-// launcher returns cudaGetLastError() right after the launch; it never
-// synchronises and allocates nothing.
+// launchers return cudaGetLastError() right after the launch; they never
+// synchronise and allocate nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,11 +92,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-template <typename T>
+template <typename T, bool kCarries>
 __global__ void __launch_bounds__(kThreads, 2)
 rglru_kernel(const T* __restrict__ x, const T* __restrict__ r, const T* __restrict__ i,
              const float* __restrict__ a_param, const float* __restrict__ h0,
-             T* __restrict__ y, float* __restrict__ h_last, int seq, int width, int vec) {
+             T* __restrict__ y, float* __restrict__ h_last, float* __restrict__ carries,
+             int seq, int width, int vec) {
   using R = Ring<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // stage s, tensor (x, r, i): a (kChunk, kLanes) tile of that chunk's rows
@@ -153,6 +159,9 @@ rglru_kernel(const T* __restrict__ x, const T* __restrict__ r, const T* __restri
     cp_async_commit();
   }
   for (int ch = 0; ch < chunks; ++ch) {
+    // The state entering each chunk, for the backward (training only).
+    if (kCarries && warp == 0 && live)
+      carries[((int64_t)b * chunks + ch) * width + n] = carry;
     cp_async_wait<R::kStages - 2>();  // this chunk landed
     __syncthreads();  // ... for every warp; the stage read last chunk is free
     if (ch + R::kStages - 1 < chunks) issue(ch + R::kStages - 1);
@@ -198,12 +207,12 @@ rglru_kernel(const T* __restrict__ x, const T* __restrict__ r, const T* __restri
   if (warp == 0 && live) h_last[(int64_t)b * width + n] = carry;
 }
 
-template <typename T>
+template <typename T, bool kCarries>
 int launch(const void* x, const void* r, const void* i, const void* a_param,
-           const void* h0, void* y, void* h_last, int batch, int seq, int width,
-           cudaStream_t stream) {
+           const void* h0, void* y, void* h_last, void* carries, int batch, int seq,
+           int width, cudaStream_t stream) {
   using R = Ring<T>;
-  auto kernel = rglru_kernel<T>;
+  auto kernel = rglru_kernel<T, kCarries>;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -217,22 +226,216 @@ int launch(const void* x, const void* r, const void* i, const void* a_param,
   const dim3 grid((width + kLanes - 1) / kLanes, batch);
   kernel<<<grid, kThreads, R::kBytes, stream>>>(
       (const T*)x, (const T*)r, (const T*)i, (const float*)a_param, (const float*)h0,
-      (T*)y, (float*)h_last, seq, width, vec);
+      (T*)y, (float*)h_last, (float*)carries, seq, width, vec);
+  return (int)cudaGetLastError();
+}
+
+
+// -- the backward ---------------------------------------------------------------
+//
+// With e_t = a_t g_t, the gradient g_t of h_t is the reverse recurrence
+//
+//   g_t = dy_t + e_{t+1},   e_S = dh_last (the step past S has a = 1),
+//
+// the forward's recurrence with time flipped, so it is scanned as the forward
+// is: each warp runs its 8 steps from e = 0 (last step first) and leaves the
+// pair (product of its a, e at its first step); warp w's e_in is the carry
+// from the chunk after combined with the warps after w (combine((P, e), E) =
+// P E + e), and the carry for the chunk before is combined with all 16.
+// Chunks are walked from last to first.  h_{t-1}, which d a_t needs, is
+// recomputed in f32 from the chunk's saved carry (the forward's ``carries``)
+// with the forward's own gate arithmetic and scan, not from y (rounded to
+// x's dtype).  Per step, with u = beta i x and beta = sqrt(max(1 - a^2,
+// 1e-12)):
+//
+//   dlog_a = g h_{t-1} a - [1 - a^2 > 1e-12] g i x a^2 / beta
+//   dr = -8 softplus(a_param) dlog_a,  di = g beta x,  dx = g beta i,
+//
+// d a_param = sum -8 sigmoid(a_param) r dlog_a goes out as one f32 partial a
+// (b, chunk, channel), summed over the warps in a fixed order (no atomics),
+// and dh0 = e_0.  Rows past S load as zeros (a = 1, u = 0, dy = 0), so g
+// passes through them unchanged and they add nothing.  Each warp loads its
+// steps of the next chunk (going back) into registers while it computes this
+// one.  The JAX package has no backward kernel: its gradient is autodiff of
+// the layer's associative scan (src/repro/layers/rglru.py:rglru_scan).
+//
+// Bound on this card: bytes.  x, r, i and dy are read and dx, dr and di
+// written once, 14 bytes an element in bf16 (0.140 ms at B = 2, S = N =
+// 4096); the carries and partials are 1/128 of that.
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+rglru_bwd_kernel(const T* __restrict__ x, const T* __restrict__ r, const T* __restrict__ i,
+                 const float* __restrict__ a_param, const float* __restrict__ carries,
+                 const T* __restrict__ dy, const float* __restrict__ dh_last,
+                 T* __restrict__ dx, T* __restrict__ dr, T* __restrict__ di,
+                 float* __restrict__ dh0, float* __restrict__ da_part, int seq, int width) {
+  // Per warp and lane: the forward scan's (product of a, h) and the reverse
+  // scan's (product of a, e) at the end of its sub-segment; d a_param sums.
+  __shared__ float2 fwd[kWarps][kLanes];
+  __shared__ float2 bwd[kWarps][kLanes];
+  __shared__ float red[kWarps][kLanes];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n = blockIdx.x * kLanes + lane;
+  const int b = blockIdx.y;
+  const bool live = n < width;
+  const float ap = live ? a_param[n] : 0.f;
+  const float c = -kC * (log1pf(expf(-fabsf(ap))) + fmaxf(ap, 0.f));
+  const float dc = -kC / (1.f + expf(-ap));  // d log_a / d a_param, over r
+  const int64_t base = (int64_t)b * seq * width;
+  const int chunks = (seq + kChunk - 1) / kChunk;
+  float e_carry = (dh_last != nullptr && live) ? dh_last[(int64_t)b * width + n] : 0.f;
+
+  // This warp's steps of chunk ``ch``; zeros past S and past N.
+  T cx[kSteps], cr[kSteps], ci[kSteps], cd[kSteps];
+  auto load = [&](int ch, T* vx, T* vr, T* vi, T* vd) {
+    const int t0 = ch * kChunk + warp * kSteps;
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      const bool ok = live && t0 + j < seq;
+      const int64_t off = base + (int64_t)(t0 + j) * width + n;
+      vx[j] = ok ? x[off] : T(0.f);
+      vr[j] = ok ? r[off] : T(0.f);
+      vi[j] = ok ? i[off] : T(0.f);
+      vd[j] = ok ? dy[off] : T(0.f);
+    }
+  };
+  if (chunks > 0) load(chunks - 1, cx, cr, ci, cd);
+  for (int ch = chunks - 1; ch >= 0; --ch) {
+    T nx[kSteps], nr[kSteps], ni[kSteps], nd[kSteps];
+    if (ch > 0) load(ch - 1, nx, nr, ni, nd);  // in flight while this chunk runs
+    const float h_chunk = live ? carries[((int64_t)b * chunks + ch) * width + n] : 0.f;
+    // The forward's gate arithmetic and sub-segment scan from h = 0.
+    float a[kSteps], hs[kSteps], ps[kSteps];
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      const float log_a = c * to_f32(cr[j]);
+      const float beta = sqrtf(fmaxf(1.f - expf(2.f * log_a), 1e-12f));
+      a[j] = ps[j] = expf(log_a);
+      hs[j] = beta * (to_f32(ci[j]) * to_f32(cx[j]));
+    }
+#pragma unroll
+    for (int j = 1; j < kSteps; ++j) {
+      hs[j] = ps[j] * hs[j - 1] + hs[j];
+      ps[j] = ps[j] * ps[j - 1];
+    }
+    // The reverse scan from e = 0.
+    float e = 0.f;
+#pragma unroll
+    for (int j = kSteps - 1; j >= 0; --j) e = a[j] * (to_f32(cd[j]) + e);
+    fwd[warp][lane] = make_float2(ps[kSteps - 1], hs[kSteps - 1]);
+    bwd[warp][lane] = make_float2(ps[kSteps - 1], e);
+    __syncthreads();
+    float h_in = h_chunk, h = h_chunk;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      if (w == warp) h_in = h;
+      const float2 pw = fwd[w][lane];
+      h = pw.x * h + pw.y;
+    }
+    float e_in = e_carry, ee = e_carry;
+#pragma unroll
+    for (int w = kWarps - 1; w >= 0; --w) {
+      if (w == warp) e_in = ee;
+      const float2 pw = bwd[w][lane];
+      ee = pw.x * ee + pw.y;
+    }
+    e_carry = ee;
+    // g from e_in, h_{t-1} as the forward forms h, and the gate gradients.
+    const int t0 = ch * kChunk + warp * kSteps;
+    float dap = 0.f;
+    e = e_in;
+#pragma unroll
+    for (int j = kSteps - 1; j >= 0; --j) {
+      const float g = to_f32(cd[j]) + e;
+      const float h_prev = j > 0 ? hs[j - 1] + ps[j - 1] * h_in : h_in;
+      const float rv = to_f32(cr[j]), iv = to_f32(ci[j]), xv = to_f32(cx[j]);
+      const float log_a = c * rv;
+      const float a2 = expf(2.f * log_a);
+      const float om = 1.f - a2;
+      const float beta = sqrtf(fmaxf(om, 1e-12f));
+      float dlog = g * h_prev * a[j];
+      if (om > 1e-12f) dlog -= g * (iv * xv) * a2 / beta;  // jnp.maximum's gradient
+      dap = fmaf(dc * rv, dlog, dap);
+      if (live && t0 + j < seq) {
+        const int64_t off = base + (int64_t)(t0 + j) * width + n;
+        store(dx + off, g * beta * iv);
+        store(di + off, g * beta * xv);
+        store(dr + off, c * dlog);
+      }
+      e = a[j] * g;
+    }
+    red[warp][lane] = dap;
+    __syncthreads();
+    if (warp == 0 && live) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += red[w][lane];
+      da_part[((int64_t)b * chunks + ch) * width + n] = s;
+    }
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      cx[j] = nx[j];
+      cr[j] = nr[j];
+      ci[j] = ni[j];
+      cd[j] = nd[j];
+    }
+  }
+  if (warp == 0 && live) dh0[(int64_t)b * width + n] = e_carry;
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* r, const void* i, const void* a_param,
+               const void* carries, const void* dy, const void* dh_last, void* dx, void* dr,
+               void* di, void* dh0, void* da_part, int batch, int seq, int width,
+               cudaStream_t stream) {
+  const dim3 grid((width + kLanes - 1) / kLanes, batch);
+  rglru_bwd_kernel<T><<<grid, kThreads, 0, stream>>>(
+      (const T*)x, (const T*)r, (const T*)i, (const float*)a_param, (const float*)carries,
+      (const T*)dy, (const float*)dh_last, (T*)dx, (T*)dr, (T*)di, (float*)dh0,
+      (float*)da_part, seq, width);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x, r, i, y: contiguous (B, S, N) of one dtype (bf16 when is_bf16, else
-// f32); a_param (N,) f32; h0 (B, N) f32 or null (zeros); h_last (B, N) f32.
+// f32); a_param (N,) f32; h0 (B, N) f32 or null (zeros); h_last (B, N) f32;
+// carries (B, ceil(S / 128), N) f32, the state entering each chunk, or null
+// (serving: nothing written, the kernel the same as without the argument).
 extern "C" int rglru_scan(const void* x, const void* r, const void* i, const void* a_param,
-                          const void* h0, void* y, void* h_last, int batch, int seq,
-                          int width, int is_bf16, void* stream) {
+                          const void* h0, void* y, void* h_last, void* carries, int batch,
+                          int seq, int width, int is_bf16, void* stream) {
   if (batch <= 0 || width <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, r, i, a_param, h0, y, h_last, batch, seq, width, s);
-  return launch<float>(x, r, i, a_param, h0, y, h_last, batch, seq, width, s);
+    return carries ? launch<__nv_bfloat16, true>(x, r, i, a_param, h0, y, h_last, carries,
+                                                 batch, seq, width, s)
+                   : launch<__nv_bfloat16, false>(x, r, i, a_param, h0, y, h_last, carries,
+                                                  batch, seq, width, s);
+  return carries ? launch<float, true>(x, r, i, a_param, h0, y, h_last, carries, batch, seq,
+                                       width, s)
+                 : launch<float, false>(x, r, i, a_param, h0, y, h_last, carries, batch, seq,
+                                        width, s);
+}
+
+// x, r, i, dy, dx, dr, di: contiguous (B, S, N) of one dtype; a_param (N,)
+// f32; carries (B, ceil(S / 128), N) f32 from rglru_scan (chunk 0's is h0);
+// dh_last (B, N) f32 or null (zeros); dh0 (B, N) and da_part
+// (B, ceil(S / 128), N) f32, the caller sums da_part over its first two dims.
+extern "C" int rglru_scan_bwd(const void* x, const void* r, const void* i, const void* a_param,
+                              const void* carries, const void* dy, const void* dh_last,
+                              void* dx, void* dr, void* di, void* dh0, void* da_part, int batch,
+                              int seq, int width, int is_bf16, void* stream) {
+  if (batch <= 0 || width <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    return launch_bwd<__nv_bfloat16>(x, r, i, a_param, carries, dy, dh_last, dx, dr, di, dh0,
+                                     da_part, batch, seq, width, s);
+  return launch_bwd<float>(x, r, i, a_param, carries, dy, dh_last, dx, dr, di, dh0, da_part,
+                           batch, seq, width, s);
 }
 
 extern "C" const char* rglru_error_string(int code) {

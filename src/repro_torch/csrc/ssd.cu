@@ -84,6 +84,12 @@
 // every mma of a 16-row strip (wgmma, two blocks per SM and a chunk-parallel
 // state pass for B = 1 are left for later work).
 //
+// Training: ``states`` (optional) receives the f32 state entering each chunk,
+// (B, H, chunks, N, P), which the backward (layers/ssd.py ssd_bwd, PyTorch
+// ops) starts from.  The bf16 kernel stores it from the state's f32
+// accumulators, the f32 kernel from shared memory; a null pointer writes
+// nothing, and the bf16 kernel is then the instantiation without the store.
+//
 // C interface, loaded with ctypes.  The launcher returns cudaGetLastError()
 // right after the launch; it never synchronises and allocates nothing.
 
@@ -128,8 +134,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 ssd_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* __restrict__ A,
            const T* __restrict__ bm, const T* __restrict__ cm,
            const float* __restrict__ dskip, const float* __restrict__ h0,
-           T* __restrict__ y, float* __restrict__ h_last, Strides sb, Strides sc, int seq,
-           int heads, int P, int N) {
+           T* __restrict__ y, float* __restrict__ h_last, float* __restrict__ states,
+           Strides sb, Strides sc, int seq, int heads, int P, int N) {
   // y and h tiles: TX column groups of kTC columns (strided by TX), TY row
   // groups (rows strided by TY).
   constexpr int TX = PT / kTC, TY = kThreads / TX;
@@ -171,10 +177,19 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* __res
   }
 
   const int nchunks = (seq + kQ - 1) / kQ;
+  // (B, H, chunks, N, P): the state entering each chunk, for the backward
+  float* const sts = states == nullptr ? nullptr
+                                       : states + ((int64_t)b * heads + h) * nchunks * N * P + p0;
   for (int c = 0; c < nchunks; ++c) {
     const int t0 = c * kQ;
     const int len = min(kQ, seq - t0);
     __syncthreads();  // the previous chunk's reads of B, G and xw are done
+    if (sts != nullptr) {
+      for (int i = tid; i < N * PT; i += kThreads) {
+        const int n = i / PT, p = i % PT;
+        if (p0 + p < P) sts[(int64_t)c * N * P + (int64_t)n * P + p] = hs[i];
+      }
+    }
 
     // B and C rows and dt, zero past the end of the sequence.
     for (int i = tid; i < kQ * N; i += kThreads) {
@@ -463,14 +478,14 @@ __device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src, in
   }
 }
 
-template <int PT>
+template <int PT, bool kStates>
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dt,
                const float* __restrict__ A, const bf16* __restrict__ bm,
                const bf16* __restrict__ cm, const float* __restrict__ dskip,
                const float* __restrict__ h0, bf16* __restrict__ y,
-               float* __restrict__ h_last, Strides sb, Strides sc, int seq, int heads, int P,
-               int N, int vec) {
+               float* __restrict__ h_last, float* __restrict__ states, Strides sb, Strides sc,
+               int seq, int heads, int P, int N, int vec) {
   constexpr int kNt = PT / 8;       // 8-column tiles of y and of the state
   constexpr int kLdX = PT + kPad;   // x rows
   static_assert(kNt % 2 == 0, "B operands come two column tiles at a time");
@@ -584,6 +599,16 @@ ssd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dt,
           ht[i] = hi;
           hl[i] = __float2bfloat16_rn(hacc[nt][e] - __bfloat162float(hi));
         }
+      if (kStates) {  // the f32 state entering this chunk, from the accumulators
+        float* sts = states + (((int64_t)b * heads + h) * nchunks + c) * N * P + p0;
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int n = r0 + g + 8 * (e >> 1), p = nt * 8 + 2 * t + (e & 1);
+            if (n < N && p < np) sts[(int64_t)n * P + p] = hacc[nt][e];
+          }
+      }
     }
     if (c + 1 < nchunks) load_chunk(c + 1);
     cp_async_commit();
@@ -795,8 +820,9 @@ ssd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dt,
 
 template <int PT>
 int launch_f32(const void* x, const void* dt, const void* A, const void* bm, const void* cm,
-               const void* D, const void* h0, void* y, void* h_last, const int64_t* st,
-               int batch, int seq, int heads, int P, int N, cudaStream_t stream) {
+               const void* D, const void* h0, void* y, void* h_last, void* states,
+               const int64_t* st, int batch, int seq, int heads, int P, int N,
+               cudaStream_t stream) {
   auto kernel = ssd_kernel<float, PT>;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
@@ -810,15 +836,17 @@ int launch_f32(const void* x, const void* dt, const void* A, const void* bm, con
   const dim3 grid((P + PT - 1) / PT, heads, batch);
   kernel<<<grid, kThreads, smem_floats(N, PT) * sizeof(float), stream>>>(
       (const float*)x, (const float*)dt, (const float*)A, (const float*)bm, (const float*)cm,
-      (const float*)D, (const float*)h0, (float*)y, (float*)h_last, sb, sc, seq, heads, P, N);
+      (const float*)D, (const float*)h0, (float*)y, (float*)h_last, (float*)states, sb, sc, seq,
+      heads, P, N);
   return (int)cudaGetLastError();
 }
 
-template <int PT>
+template <int PT, bool kStates>
 int launch_mma(const void* x, const void* dt, const void* A, const void* bm, const void* cm,
-               const void* D, const void* h0, void* y, void* h_last, const int64_t* st,
-               int batch, int seq, int heads, int P, int N, int vec, cudaStream_t stream) {
-  auto kernel = ssd_mma_kernel<PT>;
+               const void* D, const void* h0, void* y, void* h_last, void* states,
+               const int64_t* st, int batch, int seq, int heads, int P, int N, int vec,
+               cudaStream_t stream) {
+  auto kernel = ssd_mma_kernel<PT, kStates>;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -830,8 +858,8 @@ int launch_mma(const void* x, const void* dt, const void* A, const void* bm, con
   const dim3 grid((P + PT - 1) / PT, heads, batch);
   kernel<<<grid, kThreads, mma_smem_bytes(N, PT), stream>>>(
       (const bf16*)x, (const bf16*)dt, (const float*)A, (const bf16*)bm, (const bf16*)cm,
-      (const float*)D, (const float*)h0, (bf16*)y, (float*)h_last, sb, sc, seq, heads, P, N,
-      vec);
+      (const float*)D, (const float*)h0, (bf16*)y, (float*)h_last, (float*)states, sb, sc, seq,
+      heads, P, N, vec);
   return (int)cudaGetLastError();
 }
 
@@ -860,12 +888,14 @@ int pick_pt(int64_t bh, int P, int sms, Work work) {
 // is_bf16, else f32), as are bm and cm (B, S, H, N) with a contiguous last dim
 // and (b, s, h) element strides in strides[0..2] and [3..5] (h may be 0);
 // A, D (H,) f32; h0 (B, H, N, P) f32 or null (zeros); h_last (B, H, N, P)
-// f32.  The caller checks 1 <= N <= 128.  bf16 runs the tensor-core kernel,
-// f32 the CUDA-core one.
+// f32; states (B, H, ceil(S / 128), N, P) f32, the state entering each
+// chunk, or null (serving: the bf16 kernel is then the instantiation
+// without the store).  The caller checks 1 <= N <= 128.  bf16 runs the
+// tensor-core kernel, f32 the CUDA-core one.
 extern "C" int ssd_fwd(const void* x, const void* dt, const void* A, const void* bm,
                        const void* cm, const void* D, const void* h0, void* y,
-                       void* h_last, const int64_t* strides, int batch, int seq, int heads,
-                       int P, int N, int is_bf16, void* stream) {
+                       void* h_last, void* states, const int64_t* strides, int batch, int seq,
+                       int heads, int P, int N, int is_bf16, void* stream) {
   if (batch <= 0 || heads <= 0 || P <= 0) return 0;
   if (N <= 0 || N > kMaxN) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
@@ -890,14 +920,24 @@ extern "C" int ssd_fwd(const void* x, const void* dt, const void* A, const void*
     bool vec = aligned && P % 8 == 0 && N % 8 == 0;
     for (int i = 0; i < 6; ++i) vec = vec && strides[i] % 8 == 0;
     const int v = vec ? 1 : 0;
+    if (states != nullptr) {
+      if (pt == 64)
+        return launch_mma<64, true>(x, dt, A, bm, cm, D, h0, y, h_last, states, strides, batch,
+                                    seq, heads, P, N, v, s);
+      if (pt == 32)
+        return launch_mma<32, true>(x, dt, A, bm, cm, D, h0, y, h_last, states, strides, batch,
+                                    seq, heads, P, N, v, s);
+      return launch_mma<16, true>(x, dt, A, bm, cm, D, h0, y, h_last, states, strides, batch,
+                                  seq, heads, P, N, v, s);
+    }
     if (pt == 64)
-      return launch_mma<64>(x, dt, A, bm, cm, D, h0, y, h_last, strides, batch, seq, heads, P,
-                            N, v, s);
+      return launch_mma<64, false>(x, dt, A, bm, cm, D, h0, y, h_last, states, strides, batch,
+                                   seq, heads, P, N, v, s);
     if (pt == 32)
-      return launch_mma<32>(x, dt, A, bm, cm, D, h0, y, h_last, strides, batch, seq, heads, P,
-                            N, v, s);
-    return launch_mma<16>(x, dt, A, bm, cm, D, h0, y, h_last, strides, batch, seq, heads, P, N,
-                          v, s);
+      return launch_mma<32, false>(x, dt, A, bm, cm, D, h0, y, h_last, states, strides, batch,
+                                   seq, heads, P, N, v, s);
+    return launch_mma<16, false>(x, dt, A, bm, cm, D, h0, y, h_last, states, strides, batch,
+                                 seq, heads, P, N, v, s);
   }
   // Work: every tile recomputes C B^T (Q^2 N multiply-adds) and does
   // pt (Q^2 + 2 Q N) more.
@@ -905,13 +945,13 @@ extern "C" int ssd_fwd(const void* x, const void* dt, const void* A, const void*
     return (double)kQ * kQ * N + (double)cand * (kQ * kQ + 2.0 * kQ * N);
   });
   if (pt == 64)
-    return launch_f32<64>(x, dt, A, bm, cm, D, h0, y, h_last, strides, batch, seq, heads, P, N,
-                          s);
+    return launch_f32<64>(x, dt, A, bm, cm, D, h0, y, h_last, states, strides, batch, seq, heads,
+                          P, N, s);
   if (pt == 32)
-    return launch_f32<32>(x, dt, A, bm, cm, D, h0, y, h_last, strides, batch, seq, heads, P, N,
-                          s);
-  return launch_f32<16>(x, dt, A, bm, cm, D, h0, y, h_last, strides, batch, seq, heads, P, N,
-                        s);
+    return launch_f32<32>(x, dt, A, bm, cm, D, h0, y, h_last, states, strides, batch, seq, heads,
+                          P, N, s);
+  return launch_f32<16>(x, dt, A, bm, cm, D, h0, y, h_last, states, strides, batch, seq, heads, P,
+                        N, s);
 }
 
 extern "C" const char* ssd_error_string(int code) {

@@ -55,9 +55,14 @@ LIBRARIES: Dict[str, tuple] = {
                                 _PTR, _PTR),
     }),
     "rglru": ("rglru.cu", {
-        # x, r, i, a_param, h0, y, h_last, batch, seq, width, is_bf16, stream
-        "rglru_scan": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32,
+        # x, r, i, a_param, h0, y, h_last, carries (or null), batch, seq,
+        # width, is_bf16, stream
+        "rglru_scan": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32,
                        _I32, _I32, _PTR),
+        # x, r, i, a_param, carries, dy, dh_last (or null), dx, dr, di, dh0,
+        # da_part, batch, seq, width, is_bf16, stream
+        "rglru_scan_bwd": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                           _PTR, _PTR, _I32, _I32, _I32, _I32, _PTR),
     }),
     # The earlier designs of the two kernels above (the flash one without
     # q_offset and kv_len): the yardsticks that chip_smoke.py times the
@@ -71,9 +76,9 @@ LIBRARIES: Dict[str, tuple] = {
                               _I32, _I32, _PTR),
     }),
     "ssd": ("ssd.cu", {
-        # x, dt, A, Bm, Cm, D, h0, y, h_last, strides[6], batch, seq, heads,
-        # head_dim, state, is_bf16, stream
-        "ssd_fwd": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64P,
+        # x, dt, A, Bm, Cm, D, h0, y, h_last, states (or null), strides[6],
+        # batch, seq, heads, head_dim, state, is_bf16, stream
+        "ssd_fwd": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64P,
                     _I32, _I32, _I32, _I32, _I32, _I32, _PTR),
     }),
 }

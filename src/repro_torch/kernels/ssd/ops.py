@@ -6,40 +6,43 @@ Dispatch follows the tensors: a CUDA tensor launches the Hopper kernel
 (``ref.ssd_chunked_ref``).  No path runs the plain version on a CUDA tensor.
 Unlike the JAX package's Pallas op, nothing is rounded to x's dtype before
 the chunk math or before the D skip (the model's layer keeps xw, la, B, C
-and h in f32 and rounds only y).  The kernel has no backward yet: on the
-card a call that autograd would have to differentiate raises
-``NotImplementedError`` rather than return an output with no history (on
-the CPU autograd runs through the plain version).
+and h in f32 and rounds only y).  The op records no autograd history:
+``layers/ssd.py`` ``_SSD`` pairs it with its backward, ``ssd_bwd``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 from .ref import ssd_chunked_ref
-from .ssd import ssd_cuda
+from .ssd import CHUNK, ssd_cuda
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
         Cm: torch.Tensor, D: torch.Tensor, h0: Optional[torch.Tensor] = None,
-        chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+        chunk: int = 128, return_states: bool = False):
     """x (B, S, H, P), dt (B, S, H) positive, A (H,) negative, Bm/Cm
     (B, S, H, N), D (H,), h0 (B, H, N, P) or None.  Returns (y (B, S, H, P)
-    in x's dtype, h_last (B, H, N, P) f32).  ``chunk`` is the plain
-    version's chunk; the kernel's is 128 (the result does not depend on it
-    beyond rounding)."""
+    in x's dtype, h_last (B, H, N, P) f32), and with ``return_states`` the
+    f32 state entering each chunk (B, H, chunks, N, P).  ``chunk`` is the
+    plain version's chunk; the kernel's is ``CHUNK`` = 128 (the result does
+    not depend on it beyond rounding; the states do: ``state_chunk`` gives
+    the one they were taken at)."""
+    # serving calls each version as it did before the states existed
+    states = {"return_states": True} if return_states else {}
     if x.device.type == "cuda":
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, D, h0)):
-            raise NotImplementedError(
-                "ssd on the card has no backward yet (ROADMAP queue 1, item 5: the "
-                "backward of rglru and ssm); call it under torch.no_grad()")
         # A, D and h0 widen to f32 (bf16 to f32 is exact); x, dt, B and C go
         # as they are, B and C through their strides.
         return ssd_cuda(x.contiguous(), dt.contiguous(), A.float().contiguous(), Bm, Cm,
                         D.float().contiguous(),
-                        None if h0 is None else h0.float().contiguous())
+                        None if h0 is None else h0.float().contiguous(), **states)
     if x.device.type != "cpu":
         raise ValueError(f"ssd runs on CUDA or CPU tensors, not {x.device}")
-    return ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk, h0)
+    return ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk, h0, **states)
+
+
+def state_chunk(x: torch.Tensor, chunk: int) -> int:
+    """The chunk length of the states ``ssd`` returns for x: the kernel's on
+    the card, the plain version's min(chunk, S) on the CPU."""
+    return CHUNK if x.device.type == "cuda" else max(min(chunk, x.shape[1]), 1)

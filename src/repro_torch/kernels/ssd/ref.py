@@ -7,7 +7,8 @@
   the JAX layer (``repro/layers/ssd.py`` ``ssd_chunked``) as a Python loop
   over chunks, all in f32: y in x's dtype, h_last in f32.  The ragged last
   chunk is taken at its own length, which is what the layer's zero padding
-  (la = 0, x = 0) computes.
+  (la = 0, x = 0) computes.  It can also return the state entering each
+  chunk, which the backward (``layers/ssd.py`` ``ssd_bwd``) starts from.
 * ``ssd_chunked_bf16ops_ref``: the bf16 kernel's arithmetic, the same
   chunked algorithm with the operands of its tensor-core products split
   into bf16 parts as the kernel splits them (the probe and the card tests hold the kernel
@@ -40,12 +41,13 @@ def ssd_rec_ref(x: torch.Tensor, la: torch.Tensor, Bm: torch.Tensor, Cm: torch.T
 
 def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
-                    chunk: int = 128, h0: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    chunk: int = 128, h0: Optional[torch.Tensor] = None,
+                    return_states: bool = False):
     """x (B, S, H, P), dt (B, S, H) positive, A (H,) negative, Bm/Cm
     (B, S, H, N) (stride-0 head views are read as they are), D (H,), h0
     (B, H, N, P) or None.  Returns (y (B, S, H, P) in x's dtype, h_last
-    (B, H, N, P) f32)."""
+    (B, H, N, P) f32), and with ``return_states`` the f32 state entering
+    each chunk of min(chunk, S) steps, (B, H, chunks, N, P)."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = max(min(chunk, S), 1)
@@ -53,7 +55,9 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     h = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
          if h0 is None else h0.float())
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
+    states = torch.empty((B, H, -(-S // Q), N, P), dtype=torch.float32, device=x.device)
     for lo in range(0, S, Q):
+        states[:, :, lo // Q] = h
         hi = min(lo + Q, S)
         dtq = dt[:, lo:hi].float()                                # (B,q,H)
         xq = x[:, lo:hi].float() * dtq[..., None]                  # dt-weighted
@@ -74,6 +78,8 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             "bqhn,bqhp->bhnp", Bq * w[..., None], xq)
         y[:, lo:hi] = y_intra + y_inter
     y = y + x.float() * D.float()[None, None, :, None]
+    if return_states:
+        return y.to(x.dtype), h, states
     return y.to(x.dtype), h
 
 

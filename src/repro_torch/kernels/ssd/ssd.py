@@ -3,7 +3,9 @@
 ``ssd_cuda`` replaces the JAX package's ``_ssd_kernel``
 (``repro/kernels/ssd/ssd.py:26``) together with the dt weighting and the D
 skip of its public op: one block per (batch, head, P-tile) loops over
-128-step chunks with the (N, P) state in shared memory.  B and C are read
+128-step chunks with the (N, P) state in shared memory.  With
+``return_states=True`` it also returns the f32 state entering each chunk,
+which the backward (``layers/ssd.py`` ``ssd_bwd``) starts from.  B and C are read
 through their strides, so the model's head-shared projections come as
 stride-0 ``expand`` views.  It checks device, dtype, shape and layout,
 allocates the outputs, launches on the current stream, raises on a launch
@@ -13,7 +15,7 @@ caller).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -63,20 +65,25 @@ def _check(x, dt, A, Bm, Cm, D, h0) -> None:
 
 
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
-             Cm: torch.Tensor, D: torch.Tensor, h0: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             Cm: torch.Tensor, D: torch.Tensor, h0: Optional[torch.Tensor] = None,
+             return_states: bool = False):
     """x (B, S, H, P), dt (B, S, H), Bm/Cm (B, S, H, N) (any (b, s, h)
     strides), all bf16 or all f32 on the card; A, D (H,) f32; h0 (B, H, N, P)
     f32 or None (zeros) -> (y (B, S, H, P) in x's dtype, h_last (B, H, N, P)
     f32) of h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t^T,
-    y_t = C_t h_t + D x_t."""
+    y_t = C_t h_t + D x_t; with ``return_states`` also the f32 state
+    entering each ``CHUNK``-step chunk, (B, H, chunks, N, P) (serving
+    passes a null pointer: nothing more is written)."""
     _check(x, dt, A, Bm, Cm, D, h0)
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     y = torch.empty_like(x)
     h_last = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
+    states = (torch.empty((B, H, -(-S // CHUNK), N, P), dtype=torch.float32, device=x.device)
+              if return_states else None)
+    out = (y, h_last, states) if return_states else (y, h_last)
     if B == 0 or H == 0 or P == 0:
-        return y, h_last
+        return out
     strides = (ctypes.c_int64 * 6)(*Bm.stride()[:3], *Cm.stride()[:3])
     lib = _build.load("ssd")
     with torch.cuda.device(x.device):
@@ -84,11 +91,11 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
         code = lib.ssd_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             D.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-            h_last.data_ptr(), strides, B, S, H, P, N,
-            int(x.dtype == torch.bfloat16), stream)
+            h_last.data_ptr(), None if states is None else states.data_ptr(), strides,
+            B, S, H, P, N, int(x.dtype == torch.bfloat16), stream)
     _build.check("ssd", code, "ssd_fwd")
     ssd_cuda.launches += 1
-    return y, h_last
+    return out
 
 
 ssd_cuda.launches = 0
@@ -108,4 +115,27 @@ def flops_bytes(B: int, S: int, H: int, P: int, N: int, itemsize: int = 2) -> tu
     ops = 2.0 * B * H * mac
     nbytes = (itemsize * (2.0 * B * S * H * P + B * S * H + 2.0 * B * S * N)
               + 4.0 * 2 * H + 4.0 * 2 * B * H * N * P)
+    return ops, nbytes
+
+
+def bwd_flops_bytes(B: int, S: int, H: int, P: int, N: int, shared: bool = True,
+                    itemsize: int = 2) -> tuple:
+    """(operations, device-memory bytes) of one ``layers/ssd.py`` ``ssd_bwd``
+    call on the kernel's chunks.  Operations, per (b, h) and chunk of q
+    steps: dG = dy xw^T and G^T dy over the causal half (q(q+1)/2 · P
+    multiply-adds each), the state's four (q · N · P: C h, C^T dy, dh^T
+    xw and B dh), dC and dB through C B^T over the causal half (q(q+1)/2 ·
+    N each; once per b when B and C are ``shared`` by the heads); two
+    operations a multiply-add.  Bytes: x, dt, B, C and dy read and dx, ddt,
+    dB and dC written in ``itemsize`` (B and C once when shared), the
+    states read and dh0 written in f32."""
+    mac = mac_bc = 0.0
+    for lo in range(0, S, CHUNK):
+        q = min(CHUNK, S - lo)
+        mac += q * (q + 1) / 2 * 2 * P + 4.0 * q * N * P
+        mac_bc += q * (q + 1) / 2 * 2 * N
+    ops = 2.0 * B * (H * mac + (1 if shared else H) * mac_bc)
+    bc = 4.0 * B * S * N * (1 if shared else H)
+    nbytes = (itemsize * (4.0 * B * S * H * P + 2.0 * B * S * H + bc)
+              + 4.0 * B * H * N * P * (-(-S // CHUNK) + 1))
     return ops, nbytes

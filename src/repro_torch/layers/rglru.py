@@ -8,7 +8,12 @@ arXiv:2402.19427), as the JAX package's ``layers/rglru.py``.
 
 ``rglru_scan`` goes through ``kernels.rglru.ops``: the Hopper kernel on a
 CUDA tensor, the plain sequential version on a CPU tensor; both keep log_a,
-u and h in f32.  ``rglru_step`` is the single-step update of decode.
+u and h in f32.  When a gradient is wanted (grad mode on and an input
+requiring it) it runs as ``_RGLRU``: the forward also returns the state
+entering each chunk, and the backward is ``ops.rglru_bwd`` (the backward
+kernel on the card, the plain reverse recurrence on the CPU), where the
+JAX package differentiates its associative scan.  Under ``no_grad`` (prefill)
+nothing of that runs.  ``rglru_step`` is the single-step update of decode.
 """
 from __future__ import annotations
 
@@ -20,6 +25,29 @@ from ..kernels.rglru import ops as rglru_ops
 from ..kernels.rglru.ref import gate_terms
 
 
+class _RGLRU(torch.autograd.Function):
+    """The RG-LRU scan with an explicit backward: x, r, i, a_param, h0 and
+    the chunk carries are saved (never h at every step); the backward
+    recomputes h from the carries."""
+
+    @staticmethod
+    def forward(ctx, x, r, i, a_param, h0):
+        y, h_last, carries = rglru_ops.rglru(x, r, i, a_param, h0, return_carries=True)
+        ctx.save_for_backward(x, r, i, a_param, carries)
+        ctx.h0_dtype = None if h0 is None else h0.dtype
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x, r, i, a_param, carries = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        dx, dr, di, da, dh0 = rglru_ops.rglru_bwd(x, r, i, a_param, carries, dy, dh_last)
+        dh0 = None if ctx.h0_dtype is None else dh0.to(ctx.h0_dtype)
+        return dx, dr.to(r.dtype), di.to(i.dtype), da.to(a_param.dtype), dh0
+
+
 def rglru_scan(
     x: torch.Tensor,        # (B, S, N) gated input
     r: torch.Tensor,        # (B, S, N) recurrence gate, in (0,1)
@@ -28,6 +56,9 @@ def rglru_scan(
     h0: Optional[torch.Tensor] = None,  # (B, N) initial state
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B,S,N) in x's dtype, h_last (B,N) f32)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, r, i, a_param, h0)):
+        return _RGLRU.apply(x, r, i, a_param, h0)
     return rglru_ops.rglru(x, r, i, a_param, h0)
 
 

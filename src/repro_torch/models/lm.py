@@ -305,7 +305,9 @@ def _rglru_block(cfg, p, prefix, x, conv_state=None, h_state=None, step=False):
 
 def _ssm_block(cfg, p, prefix, x, conv_state=None, h_state=None, step=False):
     """Mamba-2 block.  Returns (y, (conv_state, h_state)).  B and C are
-    shared by the heads: they go to the SSD as stride-0 head views.
+    shared by the heads: they go to the chunked SSD as (B, S, N) (the kernel
+    reads them through stride-0 head views, and their gradients are summed
+    over the heads inside ``ssd_bwd``), to ``ssd_step`` as head views.
     ``step``: x is one decode token and the state takes its single-step
     update (``ssd_step``) instead of the chunked SSD."""
     B_, S, _ = x.shape
@@ -320,14 +322,13 @@ def _ssm_block(cfg, p, prefix, x, conv_state=None, h_state=None, step=False):
     dt = F.softplus(h @ p[f"{prefix}/w_dt"] + p[f"{prefix}/dt_bias"])
     A = -F.softplus(p[f"{prefix}/a_log"].float())
     xh = xi.reshape(B_, S, Hs, P)
-    Bh = Bm[:, :, None, :].expand(B_, S, Hs, N)
-    Ch = Cm[:, :, None, :].expand(B_, S, Hs, N)
     if step:
-        y, h_last = ssd_step(xh[:, 0], dt[:, 0], A, Bh[:, 0], Ch[:, 0],
-                             p[f"{prefix}/d_skip"], h_state)
+        y, h_last = ssd_step(xh[:, 0], dt[:, 0], A, Bm[:, 0, None].expand(B_, Hs, N),
+                             Cm[:, 0, None].expand(B_, Hs, N), p[f"{prefix}/d_skip"],
+                             h_state)
         y = y[:, None]
     else:
-        y, h_last = ssd_chunked(xh, dt, A, Bh, Ch, p[f"{prefix}/d_skip"],
+        y, h_last = ssd_chunked(xh, dt, A, Bm, Cm, p[f"{prefix}/d_skip"],
                                 chunk=cfg.ssm_chunk, h0=h_state)
     y = y.reshape(B_, S, -1)
     y = rms_norm(y, p[f"{prefix}/gate_norm"]) * F.silu(z)

@@ -676,10 +676,19 @@ class TestWhisperOnCard:
         assert flash_attention_cuda.launches == before
 
 
+from repro_torch.kernels.rglru.ref import rglru_bwd_ref  # noqa: E402
+from repro_torch.kernels.rglru.rglru import rglru_bwd_cuda  # noqa: E402
 from repro_torch.layers import attention as torch_attention  # noqa: E402
-from repro_torch.layers.rglru import rglru_scan  # noqa: E402
-from repro_torch.layers.ssd import ssd_chunked  # noqa: E402
+from repro_torch.layers.ssd import ssd_bwd  # noqa: E402
+from repro_torch.models.config import patterned  # noqa: E402
 from repro_torch.train.optimizer import cast_params, init_state  # noqa: E402
+
+# The RG-LRU backward kernel against rglru_bwd_ref (f32, sequential) on the
+# same inputs: in f32 every gradient within a relative L2 error of 1e-4 (the
+# CPU tests' tolerance against the JAX package's autodiff; the two differ in
+# summation order, expf and fused multiply-adds); in bf16 dx, dr and di are
+# rounded once to bf16 (relative L2 ~1e-3), d a_param and dh0 stay f32.
+RGLRU_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
 @pytest.mark.cuda
@@ -736,23 +745,107 @@ class TestTrainOnCard:
             assert masters[f"seg0/l0/attn/{leaf}"].grad.norm() > 0, leaf
 
     def test_kernels_without_a_backward_raise_under_grad(self, cuda):
-        x = torch.randn((1, 64, 32), device=cuda).bfloat16().requires_grad_(True)
-        gate = torch.sigmoid(torch.randn((1, 64, 32), device=cuda)).bfloat16()
-        a = torch.randn(32, device=cuda)
-        with pytest.raises(NotImplementedError, match="no backward"):
-            rglru_scan(x, gate, gate, a)
-        with torch.no_grad():
-            assert rglru_scan(x, gate, gate, a)[0].shape == x.shape
-        xs = torch.randn((1, 64, 2, 16), device=cuda).requires_grad_(True)
-        dt = torch.rand((1, 64, 2), device=cuda) * 0.1
-        bc = torch.randn((1, 64, 2, 8), device=cuda)
-        args = (dt, -torch.ones(2, device=cuda), bc, bc, torch.ones(2, device=cuda))
-        with pytest.raises(NotImplementedError, match="no backward"):
-            ssd_chunked(xs, *args)
-        with torch.no_grad():
-            assert ssd_chunked(xs, *args)[0].shape == xs.shape
         q, k, v = _qkv(cuda, 1, 64, 64, 4, 4, 64, seed=0)
         with pytest.raises(NotImplementedError, match="kv_valid_len"):
             torch_attention.chunked_attention(
                 q.requires_grad_(True), k, v, torch_attention.AttnSpec(),
                 kv_valid_len=torch.tensor([40], device=cuda))
+
+    # S not a multiple of the 128-step chunk (1000, 257), N not of the
+    # 32-channel tile (80, 33); recurrentgemma's training width.
+    @pytest.mark.parametrize("B, S, N", [(2, 1000, 80), (1, 257, 33), (2, 512, 4096)])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("with_h0", [False, True])
+    def test_rglru_bwd_matches_plain_version(self, cuda, B, S, N, dtype, with_h0):
+        rng = np.random.default_rng(B * S + N + with_h0)
+        f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)  # noqa: E731
+        x, r, i = (t.to(dtype) for t in (f(B, S, N), torch.sigmoid(f(B, S, N)),
+                                         torch.sigmoid(f(B, S, N))))
+        a_param, h0 = f(N), (f(B, N) if with_h0 else None)
+        dy, dh_last = f(B, S, N).to(dtype), (f(B, N) if with_h0 else None)
+        _, _, carries = rglru_cuda(x, r, i, a_param, h0, return_carries=True)
+        before = rglru_bwd_cuda.launches
+        got = rglru_bwd_cuda(x, r, i, a_param, carries, dy, dh_last)
+        assert rglru_bwd_cuda.launches == before + 1
+        want = rglru_bwd_ref(x, r, i, a_param, h0, dy, dh_last)
+        for name, g, w in zip(("dx", "dr", "di", "da_param", "dh0"), got, want):
+            tol = RGLRU_BWD_TOL[dtype] if name in ("dx", "dr", "di") else 1e-4
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert torch.isfinite(g).all(), name
+            assert _rel_l2(g, w) < tol, (name, _rel_l2(g, w))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_null_carries_and_states_give_bit_equal_serving_outputs(self, cuda, dtype):
+        """Serving passes null carries and states: the outputs are bit-equal
+        to a call that writes them, and what is written is the plain
+        versions' state entering each chunk."""
+        rng = np.random.default_rng(24)
+        f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)  # noqa: E731
+        x, r, i = f(2, 300, 96).to(dtype), torch.sigmoid(f(2, 300, 96)).to(dtype), \
+            torch.sigmoid(f(2, 300, 96)).to(dtype)
+        a_param, h0 = f(96), f(2, 96)
+        y, h_last = rglru_cuda(x, r, i, a_param, h0)
+        y2, h_last2, carries = rglru_cuda(x, r, i, a_param, h0, return_carries=True)
+        assert torch.equal(y, y2) and torch.equal(h_last, h_last2)
+        want = rglru_ref(x, r, i, a_param, h0, return_carries=True)[2]
+        torch.testing.assert_close(carries, want, rtol=2e-4, atol=2e-4)
+        for shared in (True, False):
+            args = _ssd_inputs(cuda, 2, 300, 32, 64, 128, dtype, shared, True, seed=24)
+            y, h_last = ssd_cuda(*args)
+            y2, h_last2, states = ssd_cuda(*args, return_states=True)
+            assert torch.equal(y, y2) and torch.equal(h_last, h_last2)
+            want = ssd_chunked_ref(*[a.float() for a in args[:6]], 128, args[6],
+                                   return_states=True)[2]
+            assert states.shape == (2, 32, 3, 128, 64)
+            torch.testing.assert_close(states, want, rtol=2e-3, atol=SSD_H_ATOL[dtype])
+
+    @pytest.mark.parametrize("B, S, H, P, N, shared, with_h0", [
+        (2, 300, 4, 32, 16, False, True), (2, 257, 32, 64, 128, True, False),
+        (1, 1000, 8, 64, 128, True, True)])
+    def test_ssd_bwd_matches_autograd_of_plain_version(self, cuda, B, S, H, P, N, shared,
+                                                       with_h0):
+        """f32: ``ssd_bwd`` fed the kernel's states against autograd through
+        ``ssd_chunked_ref``, within 2e-4 (the JAX package's SSD tolerance)."""
+        x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(cuda, B, S, H, P, N, torch.float32, shared,
+                                              with_h0, seed=S + H)
+        dt = dt * 0.2  # chunk decays below e^-88 (the plain version's autograd NaNs past it)
+        gen = torch.Generator(device=cuda).manual_seed(S)
+        dy = torch.randn((B, S, H, P), device=cuda, generator=gen)
+        dh_last = torch.randn((B, H, N, P), device=cuda, generator=gen) if with_h0 else None
+        Bs, Cs = (Bm[:, :, 0], Cm[:, :, 0]) if shared else (Bm, Cm)
+        _, _, states = ssd_cuda(x, dt, A, Bm, Cm, D, h0, return_states=True)
+        got = ssd_bwd(x, dt, A, Bs, Cs, D, states, dy, dh_last, 128)
+        leaves = [None if t is None else t.detach().clone().requires_grad_(True)
+                  for t in (x, dt, A, Bs, Cs, D, h0)]
+        heads = [t[:, :, None].expand(B, S, H, N) if shared else t for t in leaves[3:5]]
+        y, h_last = ssd_chunked_ref(*leaves[:3], *heads, leaves[5], 128, leaves[6])
+        ((y * dy).sum() + (0 if dh_last is None else (h_last * dh_last).sum())).backward()
+        for name, g, leaf in zip(("dx", "ddt", "dA", "dBm", "dCm", "dD", "dh0"), got, leaves):
+            if leaf is None:
+                continue
+            assert g.shape == leaf.shape and torch.isfinite(g).all(), name
+            assert _rel_l2(g, leaf.grad) < 2e-4, (name, _rel_l2(g, leaf.grad))
+
+    @pytest.mark.parametrize("arch, pattern", [("mamba2_370m", ("ssm",)),
+                                               ("recurrentgemma_9b", ("rglru", "rglru", "attn"))])
+    def test_backward_reaches_every_leaf_of_recurrent_models(self, cuda, arch, pattern):
+        """Full width, 2 layers: every f32 master gets a finite gradient,
+        through the kernels only: per layer two forward launches (the
+        forward and the remat recompute) and one RG-LRU backward launch."""
+        cfg = dataclasses.replace(get_config(arch), segments=patterned(pattern, 2))
+        state = init_state(init_params(torch_lm.build_specs(cfg), seed=1, device=cuda))
+        masters = {k: v.requires_grad_(True) for k, v in state.params.items()}
+        toks = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (2, 258)).astype(np.int32)).to(cuda)
+        before = (rglru_cuda.launches, rglru_bwd_cuda.launches, ssd_cuda.launches)
+        loss, _ = torch_lm.lm_loss(cfg, cast_params(masters),
+                                   {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        loss.backward()
+        rg = 2 if arch == "recurrentgemma_9b" else 0
+        assert (rglru_cuda.launches - before[0], rglru_bwd_cuda.launches - before[1],
+                ssd_cuda.launches - before[2]) == (2 * rg, rg, 4 - 2 * rg)
+        assert torch.isfinite(loss)
+        for k, p in masters.items():
+            assert p.grad is not None and p.grad.dtype == torch.float32, k
+            assert torch.isfinite(p.grad).all(), k
+            assert p.grad.norm() > 0, k

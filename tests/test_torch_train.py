@@ -1,12 +1,14 @@
 """The port's training path on the CPU against the JAX package's: the loss
 functions' values and every gradient leaf (``lm_loss`` for the reduced
-dense, GQA, partial-RoPE, LayerNorm-with-bias, vision-patch and MoE
-configs, ``encdec_loss`` for reduced whisper-medium) against
+dense, GQA, partial-RoPE, LayerNorm-with-bias, vision-patch, MoE, SSM
+(mamba2-370m, through ``_SSD`` and ``ssd_bwd``) and hybrid RG-LRU
+(recurrentgemma-9b, through ``_RGLRU`` and ``rglru_bwd_ref``) configs,
+``encdec_loss`` for reduced whisper-medium) against
 ``jax.value_and_grad``; remat on and off; ``xent_loss`` over several
 blocks with masked labels; two AdamW updates (one clipped) against
 ``repro.train.optimizer.apply_updates``; ``synthetic_batches``; the
 checkpoint format both ways; and the trainer on the CPU (``main``) lowering its
-loss, checkpointing and resuming.  Parameters are the JAX package's seeded
+loss, checkpointing and resuming (yi-6b), and training mamba2-370m.  Parameters are the JAX package's seeded
 init in f32, carried across with ``params_from_numpy``; batches are numpy.
 
 Tolerances: f32 throughout.  The loss within 1e-5 relative and each
@@ -46,7 +48,7 @@ LOSS_TOL = 1e-5
 LEAF_TOL = 1e-4
 ZERO_LEAF = 1e-3
 ARCHS = ("yi_6b", "granite_8b", "chatglm3_6b", "starcoder2_7b", "internvl2_76b",
-         "olmoe_1b_7b", "whisper_medium")
+         "olmoe_1b_7b", "whisper_medium", "mamba2_370m", "recurrentgemma_9b")
 
 
 def _rel(got, want) -> float:
@@ -127,7 +129,8 @@ def test_loss_and_grads_match_reference(arch):
     _check_grads(grads, jgrads)
 
 
-@pytest.mark.parametrize("arch", ["yi_6b", "whisper_medium"])
+@pytest.mark.parametrize("arch", ["yi_6b", "whisper_medium", "mamba2_370m",
+                                  "recurrentgemma_9b"])
 def test_remat_changes_no_gradient(arch):
     _, tcfg, _, tp = _both(arch)
     batch = _batch(tcfg, S=64)
@@ -303,3 +306,15 @@ def test_cpu_trainer_trains_checkpoints_and_resumes(tmp_path):
     assert again["start_step"] == 8 and len(again["losses"]) == 2
     assert all(np.isfinite(again["losses"]))
     assert TC.latest_valid(tmp_path).name == "step_00000010"
+
+
+def test_cpu_trainer_trains_mamba2(tmp_path):
+    """``--arch mamba2_370m`` (reduced and widened: 4 ``ssm`` layers) through
+    ``_SSD`` and ``ssd_bwd``: the loss falls, checkpoints are written."""
+    argv = ["--device", "cpu", "--arch", "mamba2_370m", "--steps", "6", "--batch", "4",
+            "--seq", "48", "--lr", "5e-3", "--ckpt-dir", str(tmp_path), "--ckpt-every", "3"]
+    out = TT.main(argv)
+    assert out["start_step"] == 0 and len(out["losses"]) == 6
+    assert all(np.isfinite(out["losses"]))
+    assert out["losses"][-1] < out["losses"][0]
+    assert [p.name for p in out["checkpoints"]] == ["step_00000003", "step_00000006"]
