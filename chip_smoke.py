@@ -239,11 +239,27 @@ exits 2 with one line on stderr that says which):
    tokens/s, model FLOPs (the SSD's, attention's and the RG-LRU's terms
    counted) over the measured bf16 peak, peak GiB and a profile by class
    are readings.
+21. the sharded programs (after phase 20, the main path, part 9;
+   ``launch/steps.py`` on ``launch/mesh.py``'s ``make_host_mesh``, a
+   one-rank NCCL group): 21a, ``build_train_program`` for yi-6b at full
+   width and 8 layers, B 4 x S 2,048 (phase 19d's cell), 3 steps beside
+   ``train_step`` on the same seed and batches: every leaf of the state
+   bit-equal (else the worst leaf within 2e-2 relative L2), 16 flash
+   launches a step in the program and no plain version on the card; ms a
+   step and peak GiB of each path are readings.  21c, the prefill program
+   and one decode program on recurrentgemma-9b at 3 layers and mamba2-370m
+   at 8 (B 2, S 4,096): logits and cache bit-equal to ``lm.prefill`` and
+   ``lm.decode_step``, the same flash, RG-LRU and SSD launches.  Then the
+   group is destroyed and the dry run (``launch/dryrun.py``, a fake group,
+   fake CUDA tensors) traces: 21b, 21a's cell on a (1, 1) mesh, its
+   predicted peak beside 21a's measured one (fail below 0.75 of it); 21d,
+   yi-6b ``train_4k`` on the single production mesh (data 32 x model 8).
 
 Phases 12-15 count their launches apart from phases 4-5 (phase 6's counts)
 and the serving paths; the result line carries them under
 ``launches_by_phase`` (flash's ``launches`` is phases 9, 16, 18, 19 (19c
-and 19d) and 20 (20e) together; ``rglru_bwd`` is 20e's).
+and 19d), 20 (20e) and 21 (the programs' runs in 21a and 21c) together;
+``rglru_bwd`` is 20e's).
 
 Each parity line prints the largest absolute error and its worst ratio to
 the ``torch.allclose`` limit ``atol + rtol |want|`` (the check passes up to
@@ -358,6 +374,11 @@ TRAIN_ARCH = "yi_6b"
 TRAIN_UNITS = 8
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048     # 8,192 tokens a step
 TRAIN_STEPS = 5
+SHARDED_STEPS = 3           # phase 21a: program and train_step, step by step
+SHARDED_REL_L2 = 2e-2       # 21a's gate where a leaf is not bit-equal
+SHARDED_SERVE = ((SERVE_ARCH, 1), (SSM_ARCH, 8))   # 21c: (arch, units)
+SHARDED_BATCH, SHARDED_SEQ = 2, SERVE_SEQ
+PEAK_FLOOR = 0.75           # 21b: predicted / measured peak at least this
 # 19a: the kernel's lse against the f32 reference's (the same f32 logits
 # summed in another order) and dq, dk, dv against flash_bwd fed the f32
 # reference's output and lse (bf16 gradients, and delta = rowsum(dO O) from
@@ -2223,6 +2244,177 @@ def recurrent_training_path(args, counters, bf16_peak: float) -> tuple:
 
 
 
+# -- phase 21 ----------------------------------------------------------------
+
+def sharded_path(args, counters) -> dict:
+    """Phase 21: 21a the train program against ``train_step``, 21c the
+    prefill and decode programs against the unsharded port, then (with the
+    process group destroyed) 21b the dry run of 21a's cell on a (1, 1) mesh
+    against 21a's measured peak and 21d yi-6b ``train_4k`` on the single
+    production mesh.  Returns the programs' launches by kernel."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun, steps as steps_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.models import lm
+    from repro_torch.models.base import ShapeCell, get_config
+    from repro_torch.models.config import Segment
+    from repro_torch.models.params import init_params
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_host_mesh()
+    log(f"[21] sharded programs on {mesh} (world size {dist.get_world_size()})")
+    full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t  # noqa: E731
+    launched = dict.fromkeys(counters.kernels, 0)
+
+    # 21a: the train program beside train_step
+    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(cfg, segments=(Segment(cfg.segments[0].pattern, TRAIN_UNITS),))
+    cell = ShapeCell("phase19d", "train", TRAIN_SEQ, TRAIN_BATCH)
+    adamw = AdamWConfig()
+    data = synthetic_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=21)
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in next(data).items()}
+               for _ in range(SHARDED_STEPS)]
+    prog = steps_mod.build_train_program(cfg, cell, mesh, adamw=adamw)
+    specs = steps_mod.model_specs(cfg)
+    runs = {}
+    for name in ("program", "train_step"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        state = init_state(init_params(specs, seed=21, device="cuda"))
+        if name == "program":
+            state, = prog.distribute(state)
+        torch.cuda.reset_peak_memory_stats()  # the steps' peak, the state included
+        counters.reset()
+        walls, losses = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "program":
+                state, metrics = prog.run(state, batch)
+            else:
+                state, metrics = steps_mod.train_step(cfg, state, batch, adamw)
+            losses.append(full(metrics["loss"]).item())
+            walls.append(time.perf_counter() - t0)
+        got = counters.read()
+        if got["plain_on_cuda"] or got["flash_attention"] != 2 * TRAIN_UNITS * SHARDED_STEPS:
+            raise AssertionError(f"21a {name}: launches {got} (want "
+                                 f"{2 * TRAIN_UNITS * SHARDED_STEPS} flash, no plain version)")
+        if name == "program":
+            for k in launched:
+                launched[k] += got[k]
+        peak = torch.cuda.max_memory_allocated() - before
+        runs[name] = {"losses": losses, "first_ms": walls[0] * 1e3,
+                      "ms_per_step": 1e3 * sum(walls[1:]) / len(walls[1:]),
+                      "peak_bytes": peak, "peak_gib": peak / 2 ** 30}
+        log(f"  21a {name}: losses {[round(x, 5) for x in losses]}, first step "
+            f"{walls[0] * 1e3:.1f} ms, then {runs[name]['ms_per_step']:.1f} ms a step, peak "
+            f"{peak / 2 ** 30:.2f} GiB above the {before / 2 ** 30:.2f} allocated before")
+        if name == "program":
+            # the program's state kept on the host while train_step runs
+            kept = {f"{p}/{k}": full(v).cpu() for p in ("params", "m", "v")
+                    for k, v in getattr(state, p).items()}
+        else:
+            mine = {f"{p}/{k}": v for p in ("params", "m", "v")
+                    for k, v in getattr(state, p).items()}
+        del state, metrics
+    unequal = [k for k in mine if not torch.equal(mine[k], kept[k].to("cuda"))]
+    worst = max(((rel_l2(kept[k].to("cuda"), mine[k]), k) for k in unequal), default=(0.0, None))
+    log(f"  21a state after {SHARDED_STEPS} steps: {len(mine) - len(unequal)} of {len(mine)} "
+        f"leaves bit-equal" + (f"; worst {worst[1]} at relative L2 {worst[0]:.3e}"
+                               if unequal else ""))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(runs["program"]["losses"],
+                                                       runs["train_step"]["losses"]))
+    if loss_err > SHARDED_REL_L2 or worst[0] > SHARDED_REL_L2:
+        raise AssertionError(f"21a: the program's state departs from train_step's: "
+                             f"{worst} (losses {runs['program']['losses']} against "
+                             f"{runs['train_step']['losses']})")
+    del mine, kept, batches
+    ratio = runs["program"]["ms_per_step"] / runs["train_step"]["ms_per_step"]
+    log(f"  21a DTensor at world size 1: {runs['program']['ms_per_step']:.1f} ms a step against "
+        f"{runs['train_step']['ms_per_step']:.1f} ({ratio:.3f}x)")
+
+    # 21c: prefill and decode programs against the unsharded port
+    serve = {}
+    for arch, units in SHARDED_SERVE:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, segments=(Segment(cfg.segments[0].pattern, units),))
+        params = init_params(steps_mod.model_specs(cfg), seed=21, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        tokens = torch.randint(0, cfg.vocab_size, (SHARDED_BATCH, SHARDED_SEQ), device="cuda",
+                               generator=gen, dtype=torch.int32)
+        nxt = torch.randint(0, cfg.vocab_size, (SHARDED_BATCH, 1), device="cuda",
+                            generator=gen, dtype=torch.int32)
+        pprog = steps_mod.build_prefill_program(
+            cfg, ShapeCell("p", "prefill", SHARDED_SEQ, SHARDED_BATCH), mesh)
+        dprog = steps_mod.build_decode_program(
+            cfg, ShapeCell("d", "decode", SHARDED_SEQ, SHARDED_BATCH), mesh)
+        counters.reset()
+        want_logits, want_cache, clen = lm.prefill(cfg, params, tokens, SHARDED_SEQ)
+        plain_launch = counters.read()
+        counters.reset()
+        logits, cache, pclen = pprog.run(params, {"tokens": tokens})
+        prog_launch = counters.read()
+        same = (torch.equal(full(logits), want_logits) and pclen == clen
+                and all(torch.equal(full(cache[k]), want_cache[k]) for k in want_cache))
+        counts = {k: (prog_launch[k], plain_launch[k]) for k in counters.kernels}
+        for k in launched:
+            launched[k] += prog_launch[k]
+        want_step, _ = lm.decode_step(cfg, params, want_cache, clen, nxt)
+        counters.reset()
+        step_logits, _ = dprog.run(params, cache, clen, nxt)
+        dec = counters.read()
+        same_step = torch.equal(full(step_logits), want_step)
+        serve[arch] = {"units": units, "prefill_bit_equal": same, "decode_bit_equal": same_step,
+                       "launches": counts}
+        log(f"  21c {cfg.name} at {cfg.num_layers} layers: prefill logits and cache bit-equal "
+            f"{same}, launches (program, port) {counts}; decode step logits bit-equal "
+            f"{same_step}, launches {dec}")
+        if not (same and same_step) or any(a != b for a, b in counts.values()) \
+                or prog_launch["plain_on_cuda"] or dec["plain_on_cuda"] \
+                or not any(a for a, _ in counts.values()):
+            raise AssertionError(f"21c {cfg.name}: the programs depart from the unsharded port")
+        del params, cache, want_cache, logits, want_logits
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 21b: the dry run of 21a's cell on a (1, 1) mesh
+    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(cfg, segments=(Segment(cfg.segments[0].pattern, TRAIN_UNITS),))
+    rec = dryrun.run_cell(cfg, cell, mesh_shape={"data": 1, "model": 1})
+    predicted = rec["memory"]["peak_bytes_per_chip"]
+    measured = runs["program"]["peak_bytes"]
+    log(f"  21b dry run of 21a's cell on (1, 1): predicted peak {predicted / 2 ** 30:.2f} GiB, "
+        f"measured {measured / 2 ** 30:.2f} GiB, ratio {predicted / measured:.3f}; traced "
+        f"{rec['roofline']['flops_per_chip']:.4g} flops, {rec['lower_s']} s to trace")
+    if predicted < PEAK_FLOOR * measured:
+        raise AssertionError(f"21b: the dry run predicts {predicted} bytes, below {PEAK_FLOOR} "
+                             f"of the {measured} measured")
+
+    # 21d: yi-6b train_4k on the single production mesh
+    rec_d = dryrun.run_cell(TRAIN_ARCH, "train_4k", False)
+    if rec_d["status"] != "ok":
+        raise AssertionError(f"21d: {rec_d}")
+    r = rec_d["roofline"]
+    log(f"  21d dry run {TRAIN_ARCH} train_4k on {rec_d['chips']} cards: peak "
+        f"{rec_d['memory']['peak_bytes_per_chip'] / 2 ** 30:.2f} GiB a card (fits "
+        f"{rec_d['memory']['fits_hbm']}), {r['dominant']}-bound, step {r['step_seconds']:.4f} s "
+        f"(compute {r['compute_s']:.4f}, memory {r['memory_s']:.4f}, collective "
+        f"{r['collective_s']:.4f}), mfu_bound {rec_d['mfu_bound']:.4f}, {rec_d['lower_s']} s "
+        f"to trace (derived from the published H100 SXM peaks, not measured)")
+    log(json.dumps({"sharded": {"train": runs, "serve": serve,
+                                "dryrun_peak": {"predicted": predicted, "measured": measured},
+                                "train_4k": rec_d}}))
+    return launched
+
+
 # -- phase 14 ----------------------------------------------------------------
 
 def admission_path(args, cfg, ex, cm, engine, core, counters) -> dict:
@@ -3216,6 +3408,11 @@ def main(argv=None) -> int:
         launches[k] = launches.get(k, 0) + n
         by_phase.setdefault(k, {})["20"] = n
     lm_times["ssd"]["training"] = ssd_train
+
+    # 21. the sharded programs on a one-rank group, then the dry run
+    for k, n in sharded_path(args, counters).items():
+        launches[k] = launches.get(k, 0) + n
+        by_phase.setdefault(k, {})["21"] = n
 
     replaces = {"segagg_narrow": "src/repro/kernels/segagg/segagg.py:48",
                 "segagg_scatter": "src/repro/kernels/segagg/segagg.py:75",

@@ -20,11 +20,12 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, register_cost
 
 MAX_HEAD_DIM = 256
 
@@ -93,7 +94,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``return_lse`` returns (out, lse): lse (B, H, Sq) f32, each row's
     ``m + log(l)`` of the logits as the kernel forms them (q/sqrt(D)
     rounded to bf16, soft-capped, masked); a row that sees no key gets
-    ``log(1e-20)``."""
+    ``log(1e-20)``.  The launch is the op ``repro_torch::flash_attention_fwd``
+    (CUDA only; its fake gives the shapes)."""
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset {q_offset} must be >= 0")
     kv_len = None
@@ -102,14 +104,35 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention: kv_valid_len must be ({q.shape[0]},), "
                              f"got {tuple(kv_valid_len.shape)}")
         kv_len = kv_valid_len.to(device=q.device, dtype=torch.int32).contiguous()
-    lse = (torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32,
-                       device=q.device) if return_lse else None)
-    out, launched = _launch("flash_attention", "flash_attention_fwd", q, k, v,
-                            causal, window, logit_cap, int(q_offset),
-                            None if kv_len is None else kv_len.data_ptr(),
-                            None if lse is None else lse.data_ptr())
-    flash_attention_cuda.launches += launched
+    out, lse = torch.ops.repro_torch.flash_attention_fwd(
+        q, k, v, bool(causal), int(window), float(logit_cap), int(q_offset), kv_len,
+        bool(return_lse))
     return (out, lse) if return_lse else out
+
+
+def _lse_shape(q: torch.Tensor, return_lse: bool) -> tuple:
+    return (q.shape[0], q.shape[2], q.shape[1]) if return_lse else (0,)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                  window: int, logit_cap: float, q_offset: int,
+                  kv_len: Optional[torch.Tensor], return_lse: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    lse = torch.empty(_lse_shape(q, return_lse), dtype=torch.float32, device=q.device)
+    out, launched = _launch("flash_attention", "flash_attention_fwd", q, k, v,
+                            causal, window, logit_cap, q_offset,
+                            None if kv_len is None else kv_len.data_ptr(),
+                            lse.data_ptr() if return_lse else None)
+    flash_attention_cuda.launches += launched
+    return out, lse
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal, window, logit_cap, q_offset, kv_len, return_lse):
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty(_lse_shape(q, return_lse), dtype=torch.float32))
 
 
 flash_attention_cuda.launches = 0
@@ -137,12 +160,24 @@ def flops_bytes(B: int, Sq: int, Sk: int, H: int, Hkv: int, D: int, causal: bool
     each row's live keys and values moved once."""
     lens = [Sk] * B if kv_valid_len is None else [min(Sk, max(0, int(n)))
                                                    for n in kv_valid_len]
+    qp = np.arange(q_offset, q_offset + Sq, dtype=np.int64)
     live = 0
     for n in lens:
-        for qp in range(q_offset, q_offset + Sq):
-            hi = min(n, qp + 1) if causal else n
-            lo = max(0, qp - window + 1) if window > 0 else 0
-            live += max(0, hi - lo)
+        hi = np.minimum(n, qp + 1) if causal else np.full_like(qp, n)
+        lo = np.maximum(0, qp - window + 1) if window > 0 else np.zeros_like(qp)
+        live += int(np.maximum(0, hi - lo).sum())
     ops = 4.0 * H * D * live
     nbytes = itemsize * (2.0 * B * Sq * H * D + 2.0 * sum(lens) * Hkv * D)
     return ops, nbytes
+
+
+def _op_cost(q, k, v, causal, window, logit_cap, q_offset, kv_len, return_lse):
+    """(operations, bytes) of one op call from its shapes, every key taken
+    as live (``kv_valid_len``'s values are data), the lse's f32 written."""
+    B, Sq, H, D = q
+    ops, nbytes = flops_bytes(B, Sq, k[1], H, k[2], D, causal, window,
+                              q_offset=q_offset)
+    return ops, nbytes + (4.0 * B * H * Sq if return_lse else 0.0)
+
+
+register_cost(torch.ops.repro_torch.flash_attention_fwd, _op_cost)

@@ -3,8 +3,9 @@
 Dispatch follows the tensors: a CUDA tensor launches the Hopper kernel
 (``flash_attention_cuda``) or raises; a CPU tensor takes the plain PyTorch
 version (``ref.chunked_attention_ref``).  No path runs the plain version on
-a CUDA tensor.  What the kernel does not take (a dtype other than bf16, a
-negative ``q_offset``) raises on the card.
+a CUDA tensor.  A fake tensor (the dry run) takes the kernel's op.  What
+the kernel does not take (a dtype other than bf16, a negative
+``q_offset``) raises on the card.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from .. import is_fake
 from .flash_attention import flash_attention_cuda
 from .ref import chunked_attention_ref
 
@@ -29,7 +31,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"query heads {q.shape[2]} are not a multiple of KV "
                          f"heads {k.shape[2]}")
-    if q.device.type == "cuda":
+    if q.device.type == "cuda" or is_fake(q):
         return flash_attention_cuda(q, k, v, causal, window, logit_cap,
                                     q_offset=q_offset, kv_valid_len=kv_valid_len,
                                     return_lse=return_lse)

@@ -3,7 +3,8 @@
 Dispatch follows the tensors: a CUDA tensor launches the Hopper kernels
 (``rglru_cuda``, ``rglru_bwd_cuda``) or raises; a CPU tensor takes the
 plain PyTorch versions (``ref.rglru_ref``, ``ref.rglru_bwd_ref``).  No path
-runs a plain version on a CUDA tensor.  Unlike the JAX package's Pallas op,
+runs a plain version on a CUDA tensor.  A fake tensor (the dry run) takes
+the kernels' ops.  Unlike the JAX package's Pallas op,
 nothing is rounded to bf16 between the gates and the scan (the model's
 layer keeps log_a and u in f32).  Neither function records autograd
 history: ``layers/rglru.py`` ``_RGLRU`` joins them.
@@ -14,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from .. import is_fake
 from .ref import rglru_bwd_ref, rglru_ref
 from .rglru import rglru_bwd_cuda, rglru_cuda
 
@@ -21,7 +23,7 @@ from .rglru import rglru_bwd_cuda, rglru_cuda
 def _device(x: torch.Tensor) -> str:
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"rglru runs on CUDA or CPU tensors, not {x.device}")
-    return x.device.type
+    return "cuda" if is_fake(x) else x.device.type
 
 
 def rglru(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor, a_param: torch.Tensor,

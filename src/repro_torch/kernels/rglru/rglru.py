@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, register_cost
 
 DTYPES = (torch.bfloat16, torch.float32)
 CHUNK = 128  # the kernels' chunk: one carry a chunk
@@ -83,14 +83,35 @@ def rglru_cuda(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
     f32) of h_t = a_t h_{t-1} + sqrt(1 - a_t^2) i_t x_t with
     a_t = exp(-8 softplus(a_param) r_t); with ``return_carries`` also the
     f32 state entering each chunk, (B, ceil(S / CHUNK), N) (serving passes
-    a null pointer: nothing more is written)."""
-    B, S, N = x.shape
-    carries = (torch.empty((B, _chunks(S), N), dtype=torch.float32, device=x.device)
-               if return_carries else None)
-    y, h_last, launched = _launch("rglru", "rglru_scan", x, r, i, a_param, h0,
-                                  (None if carries is None else carries.data_ptr(),))
-    rglru_cuda.launches += launched
+    a null pointer: nothing more is written).  The launch is the op
+    ``repro_torch::rglru_scan`` (CUDA only; its fake gives the shapes)."""
+    y, h_last, carries = torch.ops.repro_torch.rglru_scan(x, r, i, a_param, h0,
+                                                          bool(return_carries))
     return (y, h_last, carries) if return_carries else (y, h_last)
+
+
+def _carries_shape(x: torch.Tensor, return_carries: bool) -> tuple:
+    B, S, N = x.shape
+    return (B, _chunks(S), N) if return_carries else (0,)
+
+
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=(), device_types="cuda")
+def _rglru_op(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor, a_param: torch.Tensor,
+              h0: Optional[torch.Tensor], return_carries: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    carries = torch.empty(_carries_shape(x, return_carries), dtype=torch.float32,
+                          device=x.device)
+    y, h_last, launched = _launch("rglru", "rglru_scan", x, r, i, a_param, h0,
+                                  (carries.data_ptr() if return_carries else None,))
+    rglru_cuda.launches += launched
+    return y, h_last, carries
+
+
+@_rglru_op.register_fake
+def _(x, r, i, a_param, h0, return_carries):
+    return (torch.empty_like(x, memory_format=torch.contiguous_format),
+            x.new_empty((x.shape[0], x.shape[2]), dtype=torch.float32),
+            x.new_empty(_carries_shape(x, return_carries), dtype=torch.float32))
 
 
 rglru_cuda.launches = 0
@@ -103,7 +124,18 @@ def rglru_bwd_cuda(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
     initial state is the first chunk's), dy (B, S, N) in x's dtype and
     dh_last (B, N) f32 or None: (dx, dr, di in x's dtype, d a_param (N,)
     f32, dh0 (B, N) f32).  The kernel writes d a_param as (B, chunks, N)
-    partials, summed here."""
+    partials, summed here.  The launch is the op
+    ``repro_torch::rglru_scan_bwd`` (CUDA only; its fake gives the shapes)."""
+    return tuple(torch.ops.repro_torch.rglru_scan_bwd(x, r, i, a_param, carries, dy,
+                                                      dh_last))
+
+
+@torch.library.custom_op("repro_torch::rglru_scan_bwd", mutates_args=(),
+                         device_types="cuda")
+def _rglru_bwd_op(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor, a_param: torch.Tensor,
+                  carries: torch.Tensor, dy: torch.Tensor, dh_last: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
     _check(x, r, i, a_param, None)
     B, S, N = x.shape
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -132,6 +164,14 @@ def rglru_bwd_cuda(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
     _build.check("rglru", code, "rglru_scan_bwd")
     rglru_bwd_cuda.launches += 1
     return dx, dr, di, part.sum((0, 1)), dh0
+
+
+@_rglru_bwd_op.register_fake
+def _(x, r, i, a_param, carries, dy, dh_last):
+    B, S, N = x.shape
+    grads = [torch.empty_like(x, memory_format=torch.contiguous_format) for _ in range(3)]
+    return (*grads, x.new_empty((N,), dtype=torch.float32),
+            x.new_empty((B, N), dtype=torch.float32))
 
 
 rglru_bwd_cuda.launches = 0
@@ -170,3 +210,15 @@ def bwd_flops_bytes(B: int, S: int, N: int, itemsize: int = 2) -> tuple:
     ops = 30.0 * B * S * N
     nbytes = 7.0 * itemsize * B * S * N + 8.0 * B * _chunks(S) * N + 4.0 * N + 8.0 * B * N
     return ops, nbytes
+
+
+register_cost(torch.ops.repro_torch.rglru_scan,
+              lambda x, r, i, a, h0, carries: _with_carries(flops_bytes(*x), x, carries))
+register_cost(torch.ops.repro_torch.rglru_scan_bwd,
+              lambda x, r, i, a, carries, dy, dh_last: bwd_flops_bytes(*x))
+
+
+def _with_carries(cost: tuple, x, return_carries: bool) -> tuple:
+    """``flops_bytes`` plus the carries' f32 writes when they are asked for."""
+    B, S, N = x
+    return cost[0], cost[1] + (4.0 * B * _chunks(S) * N if return_carries else 0.0)

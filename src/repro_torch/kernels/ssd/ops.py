@@ -4,6 +4,7 @@ D skip, as the model's layer (``layers/ssd.py`` ``ssd_chunked``) computes it.
 Dispatch follows the tensors: a CUDA tensor launches the Hopper kernel
 (``ssd_cuda``) or raises; a CPU tensor takes the plain PyTorch version
 (``ref.ssd_chunked_ref``).  No path runs the plain version on a CUDA tensor.
+A fake tensor (the dry run) takes the kernel's op.
 Unlike the JAX package's Pallas op, nothing is rounded to x's dtype before
 the chunk math or before the D skip (the model's layer keeps xw, la, B, C
 and h in f32 and rounds only y).  The op records no autograd history:
@@ -15,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from .. import is_fake
 from .ref import ssd_chunked_ref
 from .ssd import CHUNK, ssd_cuda
 
@@ -31,7 +33,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     the one they were taken at)."""
     # serving calls each version as it did before the states existed
     states = {"return_states": True} if return_states else {}
-    if x.device.type == "cuda":
+    if x.device.type == "cuda" or is_fake(x):
         # A, D and h0 widen to f32 (bf16 to f32 is exact); x, dt, B and C go
         # as they are, B and C through their strides.
         return ssd_cuda(x.contiguous(), dt.contiguous(), A.float().contiguous(), Bm, Cm,
@@ -45,4 +47,4 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
 def state_chunk(x: torch.Tensor, chunk: int) -> int:
     """The chunk length of the states ``ssd`` returns for x: the kernel's on
     the card, the plain version's min(chunk, S) on the CPU."""
-    return CHUNK if x.device.type == "cuda" else max(min(chunk, x.shape[1]), 1)
+    return CHUNK if x.device.type == "cuda" or is_fake(x) else max(min(chunk, x.shape[1]), 1)

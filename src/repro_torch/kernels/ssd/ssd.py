@@ -15,11 +15,11 @@ caller).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, register_cost
 
 DTYPES = (torch.bfloat16, torch.float32)
 CHUNK = 128      # the kernel's chunk length
@@ -73,17 +73,33 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
     f32) of h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t^T,
     y_t = C_t h_t + D x_t; with ``return_states`` also the f32 state
     entering each ``CHUNK``-step chunk, (B, H, chunks, N, P) (serving
-    passes a null pointer: nothing more is written)."""
+    passes a null pointer: nothing more is written).  The launch is the op
+    ``repro_torch::ssd_fwd`` (CUDA only; its fake gives the shapes)."""
+    y, h_last, states = torch.ops.repro_torch.ssd_fwd(x, dt, A, Bm, Cm, D, h0,
+                                                      bool(return_states))
+    return (y, h_last, states) if return_states else (y, h_last)
+
+
+def _out_shapes(x: torch.Tensor, Bm: torch.Tensor, return_states: bool) -> tuple:
+    """(h_last, states) shapes; states (0,) when not asked for."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    return (B, H, N, P), ((B, H, -(-S // CHUNK), N, P) if return_states else (0,))
+
+
+@torch.library.custom_op("repro_torch::ssd_fwd", mutates_args=(), device_types="cuda")
+def _ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+            Cm: torch.Tensor, D: torch.Tensor, h0: Optional[torch.Tensor],
+            return_states: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     _check(x, dt, A, Bm, Cm, D, h0)
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     y = torch.empty_like(x)
-    h_last = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
-    states = (torch.empty((B, H, -(-S // CHUNK), N, P), dtype=torch.float32, device=x.device)
-              if return_states else None)
-    out = (y, h_last, states) if return_states else (y, h_last)
+    h_shape, s_shape = _out_shapes(x, Bm, return_states)
+    h_last = torch.empty(h_shape, dtype=torch.float32, device=x.device)
+    states = torch.empty(s_shape, dtype=torch.float32, device=x.device)
     if B == 0 or H == 0 or P == 0:
-        return out
+        return y, h_last, states
     strides = (ctypes.c_int64 * 6)(*Bm.stride()[:3], *Cm.stride()[:3])
     lib = _build.load("ssd")
     with torch.cuda.device(x.device):
@@ -91,11 +107,19 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
         code = lib.ssd_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             D.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-            h_last.data_ptr(), None if states is None else states.data_ptr(), strides,
+            h_last.data_ptr(), states.data_ptr() if return_states else None, strides,
             B, S, H, P, N, int(x.dtype == torch.bfloat16), stream)
     _build.check("ssd", code, "ssd_fwd")
     ssd_cuda.launches += 1
-    return out
+    return y, h_last, states
+
+
+@_ssd_op.register_fake
+def _(x, dt, A, Bm, Cm, D, h0, return_states):
+    h_shape, s_shape = _out_shapes(x, Bm, return_states)
+    return (torch.empty_like(x, memory_format=torch.contiguous_format),
+            x.new_empty(h_shape, dtype=torch.float32),
+            x.new_empty(s_shape, dtype=torch.float32))
 
 
 ssd_cuda.launches = 0
@@ -139,3 +163,15 @@ def bwd_flops_bytes(B: int, S: int, H: int, P: int, N: int, shared: bool = True,
     nbytes = (itemsize * (4.0 * B * S * H * P + 2.0 * B * S * H + bc)
               + 4.0 * B * H * N * P * (-(-S // CHUNK) + 1))
     return ops, nbytes
+
+
+def _op_cost(x, dt, A, Bm, Cm, D, h0, return_states):
+    """``flops_bytes`` from the op's shapes, and the states' f32 writes when
+    they are asked for."""
+    B, S, H, P = x
+    ops, nbytes = flops_bytes(B, S, H, P, Bm[-1])
+    states = 4.0 * B * H * -(-S // CHUNK) * Bm[-1] * P if return_states else 0.0
+    return ops, nbytes + states
+
+
+register_cost(torch.ops.repro_torch.ssd_fwd, _op_cost)

@@ -3,6 +3,12 @@ PyTorch), on the card unless ``--device cpu``:
 
     python -m repro_torch.launch.train --arch yi_6b --steps 50
 
+Steps run through ``build_train_program`` on ``make_host_mesh``'s mesh (a
+one-rank group in this process when none exists; the ranks of the group
+under a launcher), as the reference's trainer runs its jitted program on
+its host mesh; the state is a set of DTensors, and checkpoints are written
+from full tensors.
+
 Synthetic LM data (the reference's stream, the same arrays for the same
 seed), mixed-precision AdamW, remat, checkpoints and restart (crash-safe;
 ``--resume`` takes the newest valid checkpoint), and the straggler bound
@@ -24,11 +30,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.base import get_config
+from ..models.base import ShapeCell, get_config
 from ..models.params import init_params, num_params
 from ..train.checkpoint import latest_valid, restore_checkpoint, save_checkpoint
 from ..train.optimizer import AdamWConfig, TrainState, init_state
-from .steps import model_specs, train_step
+from .mesh import make_host_mesh
+from .steps import build_train_program, model_specs
 
 
 def synthetic_batches(cfg, batch: int, seq: int, seed: int = 0
@@ -69,10 +76,15 @@ def widened(cfg):
     )
 
 
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's full value (the same on every rank); a tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def _flat(state: TrainState) -> Dict[str, torch.Tensor]:
-    return {**{f"params/{k}": v for k, v in state.params.items()},
-            **{f"m/{k}": v for k, v in state.m.items()},
-            **{f"v/{k}": v for k, v in state.v.items()}}
+    return {**{f"params/{k}": _full(v) for k, v in state.params.items()},
+            **{f"m/{k}": _full(v) for k, v in state.m.items()},
+            **{f"v/{k}": _full(v) for k, v in state.v.items()}}
 
 
 def _unflat(flat: Dict[str, torch.Tensor], step: int) -> TrainState:
@@ -120,14 +132,18 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             print("no valid checkpoint found; cold start")
     if state is None:
         state = init_state(init_params(specs, seed=0, device=dev))
+    mesh = make_host_mesh(model_parallel=1, device=dev)
+    prog = build_train_program(cfg, ShapeCell("example", "train", args.seq, args.batch),
+                               mesh, adamw=adamw)
+    state, = prog.distribute(state)
 
     data = synthetic_batches(cfg, args.batch, args.seq)
     losses, checkpoints = [], []
     for i in range(start_step, args.steps):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
         t0 = time.perf_counter()
-        state, metrics = train_step(cfg, state, batch, adamw)
-        loss = float(metrics["loss"])  # waits for the step
+        state, metrics = prog.run(state, batch)
+        loss = float(_full(metrics["loss"]))  # waits for the step
         dt = time.perf_counter() - t0
         if dt > args.c_max:
             print(f"[straggler] step {i} took {dt:.1f}s > C_max "
@@ -135,7 +151,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         losses.append(loss)
         if i % 10 == 0 or i == args.steps - 1:
             print(f"step {i:4d} loss {loss:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} ({dt*1e3:.0f} ms)")
+                  f"gnorm {float(_full(metrics['grad_norm'])):.3f} ({dt*1e3:.0f} ms)")
         if (i + 1) % args.ckpt_every == 0 or i == args.steps - 1:
             path = save_checkpoint(args.ckpt_dir, i + 1, _flat(state),
                                    extra={"loss": loss})

@@ -17,7 +17,9 @@ decode) nothing of that runs: the forward-only call, no lse.
 ``decode_attention`` is one query token over a KV cache, in plain PyTorch
 on both devices, as the reference computes it outside any Pallas kernel.
 GQA reads KV head ``h // (H / Hkv)``; KV heads are never repeated in
-memory.
+memory.  On DTensors both run on the local shards (``local_region``): batch
+on the data-parallel axes, heads on "model" only where the KV heads divide
+it (sharding q's heads alone would break the local head-to-KV map).
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from ..dist.context import act_placements, dtensor_mesh, local_region, mesh_axes
+from ..kernels import is_fake
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.flash_attention.ref import NEG_INF
 
@@ -55,9 +59,10 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` over a leading batch dim with an f32 result, the products
     and their sums taken in f32, as the reference's einsums with
     ``preferred_element_type=float32`` form them: bf16 operands on the card
-    go to the tensor cores with f32 accumulation (``out_dtype``); elsewhere
-    the operands are widened to f32 first (exact for bf16)."""
-    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+    (and fake ones, which stand for the card's in the dry run) go to the
+    tensor cores with f32 accumulation (``out_dtype``); elsewhere the
+    operands are widened to f32 first (exact for bf16)."""
+    if (a.is_cuda or is_fake(a)) and a.dtype == b.dtype == torch.bfloat16:
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 
@@ -153,6 +158,13 @@ class _Flash(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _core_placements(mesh, q: torch.Tensor, k: torch.Tensor) -> tuple:
+    """(q's, k's and v's) placements for the attention core."""
+    heads = "model" if k.shape[2] % mesh_axes(mesh).get("model", 1) == 0 else None
+    return (act_placements(mesh, q.shape, "batch", None, heads, None),
+            act_placements(mesh, k.shape, "batch", None, heads, None))
+
+
 def chunked_attention(
     q: torch.Tensor,                 # (B, Sq, H, D)
     k: torch.Tensor,                 # (B, Sk, Hkv, D)
@@ -166,6 +178,12 @@ def chunked_attention(
     which masks valid lengths only on paths it does not differentiate
     (on the CPU autograd runs through the plain scan; on the card that
     raises, since the kernel's output would carry no history)."""
+    mesh = dtensor_mesh(q, k, v)
+    if mesh is not None:
+        pq, pk = _core_placements(mesh, q, k)
+        pb = act_placements(mesh, q.shape[:1], "batch")
+        return local_region(chunked_attention, (q, k, v, spec, q_offset, kv_valid_len),
+                            (pq, pk, pk, None, None, pb), pq)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         if kv_valid_len is None:
             return _Flash.apply(q, k, v, spec, q_offset)
@@ -188,6 +206,13 @@ def decode_attention(
     ``s < cache_len`` (and ``s >= cache_len - window`` with a window).
     Logits in f32; q scaled in f32 and cast back, p cast to v's dtype
     before P·V, as the reference does.  Returns (B, 1, H, D) in q's dtype."""
+    mesh = dtensor_mesh(q, k_cache, v_cache)
+    if mesh is not None:
+        pq, pk = _core_placements(mesh, q, k_cache)
+        pc = (act_placements(mesh, cache_len.shape, "batch")
+              if torch.is_tensor(cache_len) else None)
+        return local_region(decode_attention, (q, k_cache, v_cache, cache_len, spec),
+                            (pq, pk, pk, pc, None), pq)
     B, _, H, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     g = H // Hkv

@@ -63,21 +63,43 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([out, x_pass], dim=-1) if x_pass.shape[-1] else out
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x (..., K), w (K, N).  On DTensors x's middle dims are
+    gathered first (only its leading and last dims stay split), the product
+    runs on x's rows flattened, and its result's rows are laid out as x's
+    were (gathered where DTensor split rows that x keeps whole), its
+    gradient's rows likewise: so the rows fold back into x's leading dims
+    even when those do not divide by the split (a batch that stays
+    replicated), and no flattened split is a strided one."""
+    if not hasattr(x, "placements"):
+        return x @ w
+    from torch.distributed.tensor import Replicate, Shard
+
+    whole = tuple(p if not p.is_shard() or type(p) is Shard and p.dim in (0, x.ndim - 1)
+                  else Replicate() for p in x.placements)
+    xf = x.redistribute(x.device_mesh, whole).flatten(0, -2)
+    rows = xf.placements
+    y = xf.redistribute(xf.device_mesh, rows) @ w
+    keep = tuple(p if p.is_shard(0) else Replicate() if q.is_shard(0) else q
+                 for p, q in zip(rows, y.placements))
+    return y.redistribute(y.device_mesh, keep).unflatten(0, x.shape[:-1])
+
+
 def gated_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
               w_down: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """SwiGLU/GeGLU feed-forward: down( act(x@gate) * (x@up) )."""
-    h = _activate(x @ w_gate, act) * (x @ w_up)
-    return h @ w_down
+    h = _activate(matmul(x, w_gate), act) * matmul(x, w_up)
+    return matmul(h, w_down)
 
 
 def mlp(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
         b_up: Optional[torch.Tensor] = None, b_down: Optional[torch.Tensor] = None,
         act: str = "gelu") -> torch.Tensor:
     """Plain two-matrix feed-forward (whisper, starcoder-style)."""
-    h = x @ w_up
+    h = matmul(x, w_up)
     if b_up is not None:
         h = h + b_up
-    out = _activate(h, act) @ w_down
+    out = matmul(_activate(h, act), w_down)
     if b_down is not None:
         out = out + b_down
     return out

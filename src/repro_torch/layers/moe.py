@@ -21,7 +21,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial
 
+from ..dist.context import act_placements, constrain, dtensor_mesh, local_region, shard_start
 from .common import _activate
 
 
@@ -42,6 +44,8 @@ class Routing(NamedTuple):
     keep: torch.Tensor     # bool: slot < cap (False: dropped by capacity)
     gate: torch.Tensor     # f32 gate value (renormalised over the k)
     aux: torch.Tensor      # f32 scalar: the Switch load-balance loss
+    counts: torch.Tensor   # f32 (E,): token-choices of each expert
+    psum: torch.Tensor     # f32 (E,): router probabilities summed over tokens
 
 
 def capacity(spec: MoESpec, tokens_per_group: int) -> int:
@@ -69,11 +73,17 @@ def route_group(gate_logits: torch.Tensor, spec: MoESpec, cap: int) -> Routing:
     flat = onehot.reshape(G, Tg * k, E)
     prior = torch.cumsum(flat, dim=1, dtype=torch.int32) - flat    # earlier choices
     slot = torch.gather(prior, -1, order.reshape(G, Tg * k, 1)).reshape(G, Tg, k)
-    # Switch-style load-balance aux loss, over all tokens.
-    frac_tokens = onehot.sum(2).reshape(-1, E).float().mean(0)
-    frac_probs = probs.reshape(-1, E).mean(0)
-    aux = E * torch.sum(frac_tokens * frac_probs) / k
-    return Routing(order, slot.long(), slot < cap, gate, aux)
+    counts = onehot.sum(2).reshape(-1, E).float().sum(0)
+    psum = probs.reshape(-1, E).sum(0)
+    return Routing(order, slot.long(), slot < cap, gate,
+                   load_balance(counts, psum, G * Tg, spec), counts, psum)
+
+
+def load_balance(counts: torch.Tensor, psum: torch.Tensor, tokens: int,
+                 spec: MoESpec) -> torch.Tensor:
+    """The Switch-style load-balance loss over ``tokens`` tokens:
+    E * sum(fraction of choices x mean probability) / k."""
+    return spec.num_experts * torch.sum((counts / tokens) * (psum / tokens)) / spec.top_k
 
 
 def moe_ffn(
@@ -87,34 +97,81 @@ def moe_ffn(
     """Returns (y (B, S, D) in x's dtype, aux_loss).  ``moe_ffn.dropped``
     adds up the token-choices dropped by capacity over calls (a tensor on
     x's device, read without a sync until the caller reads it; the caller
-    resets it to 0)."""
+    resets it to 0).
+
+    On DTensors the two parts run on the local shards (``local_region``),
+    the token groups on the data-parallel axes ("batch", as the reference
+    pins them): the routing with every expert, replicated on "model"; the
+    experts split on "model" where the expert count divides it, each shard
+    running its own experts on every token and the partial sums added.
+    The load-balance loss takes its counts over the whole batch."""
     B, S, D = x.shape
     Tg = min(spec.group_size, S)
     if S % Tg:
         raise ValueError(f"moe_ffn: sequence length {S} is not a multiple of the "
                          f"routing group {Tg}")
     G = B * (S // Tg)
-    E, k = spec.num_experts, spec.top_k
     cap = capacity(spec, Tg)
-    xt = x.reshape(G * Tg, D)
-    r = route_group((xt @ gate_w).reshape(G, Tg, E), spec, cap)
+    grid = constrain(x, "batch", None, None).reshape(G, Tg, D)
+    xt = constrain(grid, "batch", None, None)
+    mesh = dtensor_mesh(xt, gate_w, w_gate)
+    place = (lambda shape, *axes: None) if mesh is None else (
+        lambda shape, *axes: act_placements(mesh, shape, *axes))
+    pg = place(xt.shape, "batch", None, None)
+    pr = place((G, Tg, spec.top_k), "batch", None, None)
+    # the experts' counts are sums over the local groups: added over the
+    # data-parallel axes where the groups are split there
+    pc = None if mesh is None else tuple(Partial() if p.is_shard() else p for p in pg)
+    expert, slot, keep, gate, counts, psum = local_region(
+        lambda xt, gw: _route(xt, gw, spec, cap), (xt, gate_w),
+        (pg, place(gate_w.shape, None, None)), (pr, pr, pr, pr, pc, pc))
+    pe = place(w_gate.shape, "model", None, None)
+    e0 = 0 if mesh is None else shard_start(mesh, pe, 0, spec.num_experts)[0]
+    py = None if mesh is None else tuple(Partial() if pl.is_shard() else q
+                                         for pl, q in zip(pe, pg))
+    y = local_region(lambda *a: _experts(*a, spec, cap, e0),
+                     (xt, expert, slot, keep, gate, w_gate, w_up, w_down),
+                     (pg, pr, pr, pr, pr, pe, pe, pe), py)
+    if mesh is not None:  # back to x's layout: groups split where rows are not
+        y = y.redistribute(mesh, grid.placements)
+    return y.reshape(B, S, D), load_balance(counts, psum, G * Tg, spec)
+
+
+def _route(xt: torch.Tensor, gate_w: torch.Tensor, spec: MoESpec, cap: int):
+    """Routing of a (G, Tg, D) token grid over every expert: (expert, slot,
+    keep, gate) (G, Tg, k) each, and the experts' choice counts and summed
+    probabilities (E,)."""
+    G, Tg, D = xt.shape
+    r = route_group((xt.reshape(G * Tg, D) @ gate_w).reshape(G, Tg, -1), spec, cap)
     moe_ffn.dropped = moe_ffn.dropped + (~r.keep).sum()
-    # Row of each kept choice in the flat (E, G, cap) buffer; dropped
+    return r.expert, r.slot, r.keep, r.gate, r.counts, r.psum
+
+
+def _experts(xt, expert, slot, keep, gate, w_gate, w_up, w_down, spec: MoESpec,
+             cap: int, e0: int) -> torch.Tensor:
+    """The FFN of experts ``e0 .. e0 + w_gate.shape[0]`` on a (G, Tg, D)
+    token grid routed by ``_route``: each token's weighted sum of the rows
+    those experts give it, (G, Tg, D) in xt's dtype."""
+    G, Tg, D = xt.shape
+    k = spec.top_k
+    El = w_gate.shape[0]
+    mine = keep & (expert >= e0) & (expert < e0 + El)
+    # Row of each kept choice in the flat (El, G, cap) buffer; dropped
     # choices go to one spare row past the end, which is never read.
-    group = torch.arange(G, device=x.device)[:, None, None]
-    dest = (r.expert * G + group) * cap + r.slot
-    dest = torch.where(r.keep, dest, E * G * cap).reshape(G * Tg, k)
-    buf = x.new_zeros((E * G * cap + 1, D))
-    buf[dest] = xt[:, None].expand(G * Tg, k, D)
-    xe = buf[:-1].view(E, G * cap, D)
+    group = torch.arange(G, device=xt.device)[:, None, None]
+    dest = ((expert - e0) * G + group) * cap + slot
+    dest = torch.where(mine, dest, El * G * cap).reshape(G * Tg, k)
+    flat = xt.reshape(G * Tg, D)
+    buf = flat.new_zeros((El * G * cap + 1, D))
+    buf[dest] = flat[:, None].expand(G * Tg, k, D)
+    xe = buf[:-1].view(El, G * cap, D)
     h = _activate(torch.bmm(xe, w_gate), spec.act) * torch.bmm(xe, w_up)
-    ye = torch.bmm(h, w_down).view(E * G * cap, D)
+    ye = torch.bmm(h, w_down).view(El * G * cap, D)
     # The combine weights rounded to x's dtype, as the reference's einsum
     # takes them; a dropped choice weighs 0 (its row index is any valid one).
-    w = torch.where(r.keep, r.gate, 0.0).to(x.dtype).reshape(G * Tg, 1, k)
-    rows = ye[torch.where(r.keep.reshape(G * Tg, k), dest, 0)]        # (G*Tg,k,D)
-    y = torch.bmm(w, rows)                                         # (G*Tg,1,D)
-    return y.reshape(B, S, D), r.aux
+    w = torch.where(mine, gate, 0.0).to(xt.dtype).reshape(G * Tg, 1, k)
+    rows = ye[torch.where(mine.reshape(G * Tg, k), dest, 0)]     # (G*Tg,k,D)
+    return torch.bmm(w, rows).reshape(G, Tg, D)
 
 
 moe_ffn.dropped = 0

@@ -13,7 +13,9 @@ requiring it) it runs as ``_RGLRU``: the forward also returns the state
 entering each chunk, and the backward is ``ops.rglru_bwd`` (the backward
 kernel on the card, the plain reverse recurrence on the CPU), where the
 JAX package differentiates its associative scan.  Under ``no_grad`` (prefill)
-nothing of that runs.  ``rglru_step`` is the single-step update of decode.
+nothing of that runs.  On DTensors the scan runs on the local shards
+(``local_region``): batch on the data-parallel axes, channels on "model".
+``rglru_step`` is the single-step update of decode.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..dist.context import act_placements, dtensor_mesh, local_region
 from ..kernels.rglru import ops as rglru_ops
 from ..kernels.rglru.ref import gate_terms
 
@@ -56,6 +59,13 @@ def rglru_scan(
     h0: Optional[torch.Tensor] = None,  # (B, N) initial state
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B,S,N) in x's dtype, h_last (B,N) f32)."""
+    mesh = dtensor_mesh(x, r, i, a_param, h0)
+    if mesh is not None:
+        px = act_placements(mesh, x.shape, "batch", None, "model")
+        ph = act_placements(mesh, (x.shape[0], x.shape[2]), "batch", "model")
+        pa = act_placements(mesh, a_param.shape, "model")
+        return local_region(rglru_scan, (x, r, i, a_param, h0), (px, px, px, pa, ph),
+                            (px, ph))
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, r, i, a_param, h0)):
         return _RGLRU.apply(x, r, i, a_param, h0)

@@ -13,8 +13,9 @@ and an input requiring it) it runs as ``_SSD``: the forward also returns
 the state entering each chunk, and the backward is ``ssd_bwd``, explicit
 gradients in PyTorch ops on both devices (the JAX package differentiates
 its layer's jnp code; it has no backward kernel).  Under ``no_grad``
-(prefill) nothing of that runs.  ``ssd_step`` is the single-step update of
-decode.
+(prefill) nothing of that runs.  On DTensors the scan runs on the local
+shards (``local_region``): batch on the data-parallel axes, heads on
+"model".  ``ssd_step`` is the single-step update of decode.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..dist.context import act_placements, dtensor_mesh, local_region
 from ..kernels.ssd import ops as ssd_ops
 
 
@@ -178,12 +180,15 @@ class _SSD(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dh_last):
         x, dt, A, Bm, Cm, D, states = ctx.saved_tensors
-        if dy is None:
-            dy = torch.zeros_like(x)
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
         dx, ddt, dA, dB, dC, dD, dh0 = ssd_bwd(x, dt, A, Bm, Cm, D, states, dy, dh_last,
                                                ctx.chunk)
         dh0 = None if ctx.h0_dtype is None else dh0.to(ctx.h0_dtype)
-        return dx, ddt, dA.to(A.dtype), dB, dC, dD.to(D.dtype), dh0, None
+        # contiguous gradients: inside a program they cross a local_map
+        # boundary, where torch 2.11 gives a DTensor gradient the strides of
+        # its forward value (a later view of a non-contiguous one fails)
+        grads = (dx, ddt, dA.to(A.dtype), dB, dC, dD.to(D.dtype), dh0)
+        return (*(None if g is None else g.contiguous() for g in grads), None)
 
 
 def ssd_chunked(
@@ -199,6 +204,17 @@ def ssd_chunked(
     """Returns (y (B,S,H,P) in x's dtype, h_last (B,H,N,P) f32).  A 3-D Bm
     or Cm is shared by the heads (the kernel reads it through a stride-0
     view; its gradient is summed over the heads in ``ssd_bwd``)."""
+    mesh = dtensor_mesh(x, dt, A, Bm, Cm, D, h0)
+    if mesh is not None:
+        B_, _, H, P = x.shape
+        px = act_placements(mesh, x.shape, "batch", None, "model", None)
+        pdt = act_placements(mesh, dt.shape, "batch", None, "model")
+        pa = act_placements(mesh, A.shape, "model")
+        pbc = act_placements(mesh, Bm.shape, "batch", None,
+                             *(("model",) if Bm.dim() == 4 else ()), None)
+        ph = act_placements(mesh, (B_, H, Bm.shape[-1], P), "batch", "model", None, None)
+        return local_region(ssd_chunked, (x, dt, A, Bm, Cm, D, chunk, h0),
+                            (px, pdt, pa, pbc, pbc, pa, None, ph), (px, ph))
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, D, h0)):
         return _SSD.apply(x, dt, A, Bm, Cm, D, h0, chunk)
@@ -215,7 +231,16 @@ def ssd_step(
     D: torch.Tensor,        # (H,)
     h: torch.Tensor,        # (B, H, N, P) f32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One decode step; returns (y (B,H,P) in x's dtype, h_new (B,H,N,P) f32)."""
+    """One decode step; returns (y (B,H,P) in x's dtype, h_new (B,H,N,P) f32).
+    On DTensors it runs on the local shards, as ``ssd_chunked`` does."""
+    mesh = dtensor_mesh(x, dt, A, Bm, Cm, D, h)
+    if mesh is not None:
+        px = act_placements(mesh, x.shape, "batch", "model", None)
+        pdt = act_placements(mesh, dt.shape, "batch", "model")
+        pa = act_placements(mesh, A.shape, "model")
+        ph = act_placements(mesh, h.shape, "batch", "model", None, None)
+        return local_region(ssd_step, (x, dt, A, Bm, Cm, D, h),
+                            (px, pdt, pa, px, px, pa, ph), (px, ph))
     dtf = dt.float()
     a = torch.exp(dtf * A.float()[None, :])                      # (B,H)
     xw = x.float() * dtf[..., None]                              # (B,H,P)

@@ -1,11 +1,17 @@
-"""Architecture registry and the assigned shape cells (a copy of the JAX
-package's ``models/base.py``; ``input_specs``, for the dry run, waits for the
-launch package)."""
+"""Architecture registry, the assigned shape cells and their input specs (the
+JAX package's ``models/base.py``).
+
+Every assigned architecture is a selectable config (``--arch <id>``); each
+(arch x shape) cell is exercised by ``repro_torch.launch.dryrun`` through
+``input_specs`` (meta tensors: the shape and dtype, no allocation).
+"""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Dict, List, Optional
+
+import torch
 
 from .config import ModelConfig
 
@@ -53,3 +59,31 @@ def cell_supported(cfg: ModelConfig, cell: ShapeCell) -> Optional[str]:
         return (f"{cfg.name}: pure full-attention arch — long_500k needs "
                 "sub-quadratic attention (see DESIGN.md)")
     return None
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell) -> Dict[str, torch.Tensor]:
+    """Model inputs for one cell, as meta tensors (``device="meta"``: the
+    shape and dtype, nothing allocated)."""
+    B, S = cell.global_batch, cell.seq_len
+
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    i32, bf16 = torch.int32, torch.bfloat16
+    if cfg.frontend == "vision":
+        s_text = S - cfg.num_patches
+        specs = {"tokens": spec((B, s_text), i32),
+                 "patches": spec((B, cfg.num_patches, cfg.d_model), bf16)}
+        if cell.kind == "train":
+            specs["labels"] = spec((B, s_text), i32)
+        return specs
+    if cfg.frontend == "audio":
+        specs = {"frames": spec((B, cfg.encoder_seq, cfg.d_model), bf16),
+                 "tokens": spec((B, S), i32)}
+        if cell.kind == "train":
+            specs["labels"] = spec((B, S), i32)
+        return specs
+    specs = {"tokens": spec((B, S), i32)}
+    if cell.kind == "train":
+        specs["labels"] = spec((B, S), i32)
+    return specs

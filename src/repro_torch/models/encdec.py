@@ -30,8 +30,10 @@ from .lm import (
     decode_step,
     embed_tokens,
     prefill,
+    serving,
     xent_loss,
 )
+from ..dist.context import gathered
 from .params import ParamSpec, Params, Specs
 from ..layers.common import layer_norm, rms_norm, sinusoidal_at
 
@@ -77,8 +79,9 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor,
     x, _ = backbone(cfg, params, x, positions, remat=remat,
                     segments=cfg.encoder_segments, key_prefix="enc", causal=False)
     if cfg.norm == "ln":
-        return layer_norm(x, params["enc_final_norm"], params["enc_final_norm_bias"])
-    return rms_norm(x, params["enc_final_norm"])
+        return layer_norm(x, gathered(params["enc_final_norm"]),
+                          gathered(params["enc_final_norm_bias"]))
+    return rms_norm(x, gathered(params["enc_final_norm"]))
 
 
 def encdec_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
@@ -99,7 +102,7 @@ def encdec_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
     return xent_loss(cfg, params, x, batch["labels"])
 
 
-@torch.inference_mode()
+@serving
 def encdec_prefill(cfg: ModelConfig, params: Params, frames: torch.Tensor,
                    tokens: torch.Tensor, cache_size: int
                    ) -> Tuple[torch.Tensor, Cache, int, torch.Tensor]:

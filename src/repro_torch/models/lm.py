@@ -9,7 +9,11 @@ the reference, so that its parameters carry across as a copy:
 * cache:  flat dict ``"seg{i}/l{j}/<leaf>"`` -> (U, B, ...) stacked.
 
 The reference's ``lax.scan`` over units is a Python loop over the unit
-index; its sharding constraints have no counterpart here.  Its remat
+index.  Its sharding constraints are ``dist.context``'s ``constrain`` and
+``constrain_param`` at the same points (unit boundaries on ("batch",
+"seq_model"), per-unit parameters on their spec, the loss's hidden state
+and vocab-sharded logits): DTensor redistributions inside a
+``launch/steps.py`` program, the identity on plain tensors.  Its remat
 (``jax.checkpoint`` with ``nothing_saveable`` around each unit) is
 ``torch.utils.checkpoint`` around each unit in ``backbone(remat=True)``,
 and around each block of ``xent_loss``.
@@ -30,6 +34,7 @@ them there.  ``check_ported`` raises on a kind the reference does not know.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -37,10 +42,15 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+from torch.distributed.tensor import Partial
 
 from ..device import DeviceLike
+from ..dist.context import (act_placements, active_mesh, constrain, constrain_param,
+                            dtensor_mesh, gathered, is_dtensor, local_region, mesh_axes,
+                            shard_start, to_placements)
 from ..layers.attention import AttnSpec, chunked_attention, decode_attention
-from ..layers.common import apply_rope, gated_mlp, layer_norm, mlp, rms_norm, sinusoidal_at
+from ..layers.common import (apply_rope, gated_mlp, layer_norm, matmul, mlp, rms_norm,
+                             sinusoidal_at)
 from ..layers.moe import MoESpec, moe_ffn
 from ..layers.rglru import rglru_scan, rglru_step, short_conv1d
 from ..layers.ssd import ssd_chunked, ssd_step
@@ -50,6 +60,16 @@ from .params import ParamSpec, Params, Specs, init_params, params_from_numpy
 Cache = Dict[str, torch.Tensor]
 
 PORTED_KINDS = ("attn", "moe", "rglru", "ssm", "xattn")
+
+# Logical axes of the residual stream at a unit boundary and of the loss's
+# hidden state.  The reference stores both (batch, "seq_model", None):
+# sequence-parallel on "model".  On
+# DTensors a (batch, sequence)-split activation that a product flattens to
+# (B*S, D) becomes a strided shard, whose redistribution sizes its shards
+# with real index tensors and so cannot run on fake tensors (the dry run);
+# the port keeps the sequence whole at the boundary, which costs the saved
+# unit inputs a factor of the "model" size in memory.
+UNIT_AXES = ("batch", None, None)
 
 
 # ===========================================================================
@@ -187,9 +207,28 @@ def check_ported(cfg: ModelConfig) -> None:
 # ===========================================================================
 
 def _norm(cfg: ModelConfig, x, p, prefix):
+    """The block's norm, its output laid out for the block's products (on
+    DTensors: batch on the data-parallel axes, the rest whole)."""
     if cfg.norm == "ln":
-        return layer_norm(x, p[f"{prefix}/norm"], p[f"{prefix}/norm_bias"])
-    return rms_norm(x, p[f"{prefix}/norm"])
+        h = layer_norm(x, p[f"{prefix}/norm"], p[f"{prefix}/norm_bias"])
+    else:
+        h = rms_norm(x, p[f"{prefix}/norm"])
+    return constrain(h, "batch", None, None)
+
+
+def _pin(t: torch.Tensor, *logical_axes: Optional[str], heads: int = 0) -> torch.Tensor:
+    """A DTensor laid out by ``constrain``'s rules, where a "model" dim is
+    split only when ``heads`` (the number of heads it holds; 0: its size)
+    divides the "model" axis: on each side of a reshape that splits or
+    merges heads, so that neither the reshape nor its gradient meets a split
+    that does not fall between heads.  Identity on a plain tensor."""
+    mesh = dtensor_mesh(t)
+    if mesh is None:
+        return t
+    if heads and heads % mesh_axes(mesh).get("model", 1):
+        logical_axes = tuple(None if a == "model" else a for a in logical_axes)
+    shape = [heads if a == "model" and heads else n for n, a in zip(t.shape, logical_axes)]
+    return t.redistribute(mesh, act_placements(mesh, shape, *logical_axes))
 
 
 def _attn_spec(cfg: ModelConfig, causal: bool = True) -> AttnSpec:
@@ -198,9 +237,13 @@ def _attn_spec(cfg: ModelConfig, causal: bool = True) -> AttnSpec:
 
 
 def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk"): one (D, H*K) matmul."""
+    """einsum("bsd,dhk->bshk"): one (D, H*K) matmul.  On DTensors the
+    product is laid out with its heads on "model" where they divide it,
+    else whole, before it is split into heads (DTensor may have split the
+    H*K columns anywhere)."""
     D, H, K = w.shape
-    return (x @ w.reshape(D, H * K)).unflatten(-1, (H, K))
+    y = matmul(x, _pin(w.reshape(D, H * K), None, "model", heads=H))
+    return _pin(y, "batch", *(None,) * (y.dim() - 2), "model", heads=H).unflatten(-1, (H, K))
 
 
 def _qkv(cfg, p, prefix, x, positions, rope=True):
@@ -221,7 +264,8 @@ def _attn_out(cfg, p, prefix, o):
     """einsum("bshk,hkd->bsd"): one (H*K, D) matmul."""
     w = p[f"{prefix}/wo"]
     H, K, D = w.shape
-    y = o.flatten(-2) @ w.reshape(H * K, D)
+    of = _pin(o.flatten(-2), "batch", *(None,) * (o.dim() - 3), "model", heads=H)
+    y = matmul(of, _pin(w.reshape(H * K, D), "model", None, heads=H))
     if cfg.bias:
         y = y + p[f"{prefix}/bo"]
     return y
@@ -237,6 +281,7 @@ def _self_attn_block(cfg, p, prefix, x, positions, causal=True):
 
 def _cross_kv(cfg, p, prefix, enc_out):
     """The cross-attention's K and V from the encoder's output."""
+    enc_out = constrain(enc_out, "batch", None, None)
     xk = _proj_heads(enc_out, p[f"{prefix}/wk"])
     xv = _proj_heads(enc_out, p[f"{prefix}/wv"])
     if cfg.bias:
@@ -288,11 +333,11 @@ def _rglru_block(cfg, p, prefix, x, conv_state=None, h_state=None, step=False):
     ``step``: x is one decode token and the recurrence takes its single-step
     update (``rglru_step``) instead of the scan."""
     h = _norm(cfg, x, p, prefix)
-    xb = h @ p[f"{prefix}/w_x"]
-    gate = F.gelu(h @ p[f"{prefix}/w_gate"], approximate="tanh")
+    xb = matmul(h, p[f"{prefix}/w_x"])
+    gate = F.gelu(matmul(h, p[f"{prefix}/w_gate"]), approximate="tanh")
     xb, conv_state = short_conv1d(xb, p[f"{prefix}/conv_w"], conv_state)
-    r = torch.sigmoid(xb @ p[f"{prefix}/w_r"])
-    i = torch.sigmoid(xb @ p[f"{prefix}/w_i"])
+    r = torch.sigmoid(matmul(xb, p[f"{prefix}/w_r"]))
+    i = torch.sigmoid(matmul(xb, p[f"{prefix}/w_i"]))
     if step:
         y, h_last = rglru_step(xb[:, 0], r[:, 0], i[:, 0], p[f"{prefix}/a_param"],
                                h_state)
@@ -300,7 +345,7 @@ def _rglru_block(cfg, p, prefix, x, conv_state=None, h_state=None, step=False):
     else:
         y, h_last = rglru_scan(xb, r, i, p[f"{prefix}/a_param"], h_state)
     y = y * gate
-    return x + y @ p[f"{prefix}/w_out"], (conv_state, h_last)
+    return x + matmul(y, p[f"{prefix}/w_out"]), (conv_state, h_last)
 
 
 def _ssm_block(cfg, p, prefix, x, conv_state=None, h_state=None, step=False):
@@ -313,15 +358,15 @@ def _ssm_block(cfg, p, prefix, x, conv_state=None, h_state=None, step=False):
     B_, S, _ = x.shape
     Hs, P, N = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state
     h = _norm(cfg, x, p, prefix)
-    z = h @ p[f"{prefix}/w_z"]
-    xi = h @ p[f"{prefix}/w_x"]
+    z = matmul(h, p[f"{prefix}/w_z"])
+    xi = matmul(h, p[f"{prefix}/w_x"])
     xi, conv_state = short_conv1d(xi, p[f"{prefix}/conv_w"], conv_state)
     xi = F.silu(xi)
-    Bm = h @ p[f"{prefix}/w_B"]
-    Cm = h @ p[f"{prefix}/w_C"]
-    dt = F.softplus(h @ p[f"{prefix}/w_dt"] + p[f"{prefix}/dt_bias"])
+    Bm = matmul(h, p[f"{prefix}/w_B"])
+    Cm = matmul(h, p[f"{prefix}/w_C"])
+    dt = F.softplus(matmul(h, p[f"{prefix}/w_dt"]) + p[f"{prefix}/dt_bias"])
     A = -F.softplus(p[f"{prefix}/a_log"].float())
-    xh = xi.reshape(B_, S, Hs, P)
+    xh = _pin(xi, "batch", None, "model", heads=Hs).reshape(B_, S, Hs, P)
     if step:
         y, h_last = ssd_step(xh[:, 0], dt[:, 0], A, Bm[:, 0, None].expand(B_, Hs, N),
                              Cm[:, 0, None].expand(B_, Hs, N), p[f"{prefix}/d_skip"],
@@ -330,9 +375,9 @@ def _ssm_block(cfg, p, prefix, x, conv_state=None, h_state=None, step=False):
     else:
         y, h_last = ssd_chunked(xh, dt, A, Bm, Cm, p[f"{prefix}/d_skip"],
                                 chunk=cfg.ssm_chunk, h0=h_state)
-    y = y.reshape(B_, S, -1)
+    y = _pin(y.reshape(B_, S, -1), "batch", None, "model", heads=Hs)
     y = rms_norm(y, p[f"{prefix}/gate_norm"]) * F.silu(z)
-    return x + y @ p[f"{prefix}/w_out"], (conv_state, h_last)
+    return x + matmul(y, p[f"{prefix}/w_out"]), (conv_state, h_last)
 
 
 # ===========================================================================
@@ -367,6 +412,13 @@ def _unit_forward(cfg: ModelConfig, seg: Segment, si: int, x, positions,
     return x, aux
 
 
+def _units(sp: Params) -> Dict[str, Tuple[torch.Tensor, ...]]:
+    """Each stacked (U, ...) leaf as its U unit slices (one ``unbind``: one
+    gradient node a leaf, and on DTensors one sharding rule, where indexing
+    unit by unit would make U)."""
+    return {k: v.unbind(0) for k, v in sp.items()}
+
+
 def _segment_params(params: Params, si: int, key_prefix: str = "seg") -> Params:
     pref = f"{key_prefix}{si}/"
     return {k: v for k, v in params.items() if k.startswith(pref)}
@@ -385,17 +437,30 @@ def backbone(cfg: ModelConfig, params: Params, x: torch.Tensor,
     and recomputes it in the backward, as the reference's ``jax.checkpoint``
     with ``nothing_saveable`` does; it changes no value."""
     check_ported(cfg)
+    from .encdec import build_encdec_specs
+
     segs = cfg.segments if segments is None else segments
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = remat and torch.is_grad_enabled()
+    all_specs = build_encdec_specs(cfg) if cfg.encoder_segments else build_specs(cfg)
     for si, seg in enumerate(segs):
         sp = _segment_params(params, si, key_prefix)
+        units = _units(sp)
         for u in range(seg.num_units):
-            unit_params = {k: v[u] for k, v in sp.items()}
+            unit_params = {k: v[u] for k, v in units.items()}
 
             def unit(h, unit_params=unit_params, seg=seg, si=si):
-                return _unit_forward(cfg, seg, si, h, positions, unit_params,
+                # The unit boundary on the data-parallel axes (the reference
+                # also splits the sequence on "model" here: see UNIT_AXES);
+                # per-unit parameter slices (and so their gradients) pinned
+                # to the parameter sharding.
+                h = constrain(h, *UNIT_AXES)
+                unit_params = {k: gathered(constrain_param(v, all_specs[k].axes[1:])
+                                           if k in all_specs else v)
+                               for k, v in unit_params.items()}
+                h, a = _unit_forward(cfg, seg, si, h, positions, unit_params,
                                      enc_out=enc_out, key_prefix=key_prefix, causal=causal)
+                return constrain(h, *UNIT_AXES), a
 
             if remat:
                 x, a = torch.utils.checkpoint.checkpoint(unit, x, use_reentrant=False)
@@ -410,19 +475,40 @@ def backbone(cfg: ModelConfig, params: Params, x: torch.Tensor,
 # ===========================================================================
 
 def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    w = params["embed/tokens"]
-    x = F.embedding(tokens.long(), w)
+    x = _lookup(tokens, gathered(params["embed/tokens"]))
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+
+
+def _lookup(tokens: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``w[tokens]``.  On DTensors the lookup runs on the local shards: a
+    shard of a vocab-split table looks up the tokens in its range, gives 0
+    for the others, and the shards' rows are added (DTensor's own rule for
+    this keeps a mask that not every version carries through)."""
+    mesh = dtensor_mesh(tokens, w)
+    if mesh is None:
+        return F.embedding(tokens.long(), w)
+    pt = act_placements(mesh, tokens.shape, "batch", None)
+    v0, split = shard_start(mesh, w.placements, 0, w.shape[0])
+
+    def lookup(tok, w_local):
+        idx = tok.long() - v0
+        inside = (idx >= 0) & (idx < w_local.shape[0])
+        rows = F.embedding(idx.clamp(0, w_local.shape[0] - 1), w_local)
+        return torch.where(inside[..., None], rows, 0.0)
+
+    out = tuple(Partial() if i in split else p for i, p in enumerate(pt))
+    return local_region(lookup, (tokens, w), (pt, w.placements), out)
 
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.norm == "ln":
-        x = layer_norm(x, params["final_norm"], params["final_norm_bias"])
+        x = layer_norm(x, gathered(params["final_norm"]), gathered(params["final_norm_bias"]))
     else:
-        x = rms_norm(x, params["final_norm"])
+        x = rms_norm(x, gathered(params["final_norm"]))
+    x = constrain(x, "batch", None, None)
     if cfg.tie_embeddings:
-        return x @ params["embed/tokens"].T
-    return x @ params["unembed"]
+        return matmul(x, gathered(params["embed/tokens"]).T)
+    return matmul(x, gathered(params["unembed"]))
 
 
 def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
@@ -459,6 +545,7 @@ def xent_loss(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
     a gather (the same value and gradient as the reference's one-hot
     contraction); labels of -1 are masked.  Returns (mean loss over the
     unmasked labels, {"xent", "tokens"})."""
+    hidden = constrain(hidden, *UNIT_AXES)
     B, S, D = hidden.shape
     nb = max(S // block, 1)
     while S % nb:
@@ -466,11 +553,11 @@ def xent_loss(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
     blk = S // nb
 
     def block_loss(h, lab):
-        logits = unembed(cfg, params, h).float()
+        logits = constrain(unembed(cfg, params, h).float(), "batch", None, "model")
         mask = (lab >= 0).float()
         shifted = logits - logits.amax(dim=-1, keepdim=True).detach()
         lse = torch.log(torch.exp(shifted).sum(dim=-1))
-        label_logit = shifted.gather(-1, lab.clamp(min=0).long()[..., None])[..., 0]
+        label_logit = _label_logit(shifted, lab)
         return -((label_logit - lse) * mask).sum(), mask.sum()
 
     remat = torch.is_grad_enabled()
@@ -486,6 +573,31 @@ def xent_loss(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
         nll, cnt = nll + b_nll, cnt + b_cnt
     loss = nll / torch.clamp(cnt, min=1.0)
     return loss, {"xent": loss, "tokens": cnt}
+
+
+def _label_logit(shifted: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``shifted[b, s, labels[b, s]]`` (labels of -1 read entry 0).  On
+    DTensors the gather runs on the local shards: a shard of a
+    vocab-sharded ("model") block reads the labels in its range, gives 0
+    elsewhere, and the shards' values are added."""
+    mesh = dtensor_mesh(shifted, labels)
+    if mesh is None:
+        return _gather_labels(shifted, labels, 0)
+    ps = act_placements(mesh, shifted.shape, "batch", None, "model")
+    pl = act_placements(mesh, labels.shape, "batch", None)
+    v0, split = shard_start(mesh, ps, 2, shifted.shape[-1])
+    out = tuple(Partial() if i in split else p for i, p in enumerate(pl))
+    return local_region(lambda sh, lab: _gather_labels(sh, lab, v0), (shifted, labels),
+                        (ps, pl), out)
+
+
+def _gather_labels(shifted: torch.Tensor, labels: torch.Tensor, v0: int) -> torch.Tensor:
+    """The label logits of vocab entries ``v0 .. v0 + shifted.shape[-1]``
+    (0 for a label outside them)."""
+    idx = labels.clamp(min=0).long() - v0
+    inside = (idx >= 0) & (idx < shifted.shape[-1])
+    got = shifted.gather(-1, idx.clamp(0, shifted.shape[-1] - 1)[..., None])[..., 0]
+    return torch.where(inside, got, 0.0)
 
 
 def cache_shape_specs(cfg: ModelConfig, batch: int, cache_size: int,
@@ -520,19 +632,55 @@ def cache_shape_specs(cfg: ModelConfig, batch: int, cache_size: int,
     return out
 
 
+def _write(dst: torch.Tensor, src: torch.Tensor, put) -> None:
+    """``put(dst, src)``: write ``src`` into cache leaf (slice) ``dst`` in
+    place.  On DTensors the write runs on each rank's local shards, ``src``
+    laid out as ``dst`` first (an index write has no sharding rule in every
+    DTensor version, and an in-place write must not change ``dst``'s
+    placements)."""
+    if not is_dtensor(dst):
+        put(dst, src)
+        return
+    pl = dst.placements
+    local_region(lambda d, t: (put(d, t), d)[1], (dst, src), (pl, pl), pl)
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_size: int,
                dtype: torch.dtype = torch.bfloat16,
                device: Optional[torch.device] = None) -> Cache:
-    return {k: torch.zeros(shape, dtype=dt, device=device)
-            for k, (shape, dt) in cache_shape_specs(cfg, batch, cache_size,
-                                                    dtype).items()}
+    """Zeroed cache leaves; inside a program's mesh (``active_mesh``),
+    DTensors laid out by ``dist.sharding.cache_pspecs`` (batch on the
+    data-parallel axes)."""
+    specs = cache_shape_specs(cfg, batch, cache_size, dtype)
+    mesh = active_mesh()
+    if mesh is not None:
+        from torch.distributed.tensor import zeros
+
+        from ..dist.sharding import cache_pspecs
+
+        return {k: zeros(shape, dtype=dt, device_mesh=mesh,
+                         placements=to_placements(spec, mesh))
+                for (k, (shape, dt)), spec in zip(specs.items(),
+                                                   cache_pspecs(cfg, specs, mesh).values())}
+    return {k: torch.zeros(shape, dtype=dt, device=device) for k, (shape, dt) in specs.items()}
 
 
 # ===========================================================================
 # Prefill
 # ===========================================================================
 
-@torch.inference_mode()
+def serving(fn):
+    """Run ``fn`` under ``torch.inference_mode()``; inside a program's mesh
+    under ``torch.no_grad()`` (a DTensor view of a parameter made outside
+    inference mode cannot be taken in it).  The values are the same."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with torch.no_grad() if active_mesh() is not None else torch.inference_mode():
+            return fn(*args, **kwargs)
+    return run
+
+
+@serving
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             cache_size: int, patches: Optional[torch.Tensor] = None,
             enc_out: Optional[torch.Tensor] = None
@@ -548,7 +696,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     if enc_out is None and any("xattn" in seg.pattern for seg in cfg.segments):
         raise ValueError(f"{cfg.name}: xattn layers need the encoder's output (enc_out=)")
     nchunks = max(cfg.prefill_row_chunks, 1)
-    if nchunks > 1 and tokens.shape[0] % nchunks == 0:
+    if nchunks > 1 and tokens.shape[0] % (nchunks * _batch_shards(tokens)) == 0:
         return _prefill_row_chunked(cfg, params, tokens, cache_size, patches, enc_out,
                                     nchunks)
     B = tokens.shape[0]
@@ -567,8 +715,9 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
     for si, seg in enumerate(cfg.segments):
         sp = _segment_params(params, si)
+        units = _units(sp)
         for u in range(seg.num_units):
-            unit_params = {k: v[u] for k, v in sp.items()}
+            unit_params = {k: gathered(v[u]) for k, v in units.items()}
             for li, kind in enumerate(seg.pattern):
                 pref = f"seg{si}/l{li}"
                 if kind in ("attn", "moe", "xattn"):
@@ -580,13 +729,17 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                     # Ring buffer: slot t % size holds token t, so decode's
                     # write pointer (cache_len % size) evicts the oldest.
                     slots = torch.arange(S_total - ins, S_total, device=x.device) % size
-                    kc[:, slots] = k[:, -ins:].to(kc.dtype)
-                    vc[:, slots] = v[:, -ins:].to(vc.dtype)
+
+                    def put(d, t, slots=slots):
+                        d[:, slots] = t
+
+                    _write(kc, k[:, -ins:].to(kc.dtype), put)
+                    _write(vc, v[:, -ins:].to(vc.dtype), put)
                     if kind == "xattn":
                         xk, xv = _cross_kv(cfg, unit_params, f"{pref}/xattn", enc_out)
                         x = _cross_attn_block(cfg, unit_params, f"{pref}/xattn", x, xk, xv)
-                        cache[f"{pref}/xk"][u].copy_(xk)
-                        cache[f"{pref}/xv"][u].copy_(xv)
+                        _write(cache[f"{pref}/xk"][u], xk, torch.Tensor.copy_)
+                        _write(cache[f"{pref}/xv"][u], xv, torch.Tensor.copy_)
                     if kind == "moe":
                         x, _ = _moe_block(cfg, unit_params, f"{pref}/moe", x)
                     else:
@@ -597,8 +750,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                     x, (conv_new, h_new) = block(
                         cfg, unit_params, f"{pref}/{kind}", x, conv_state=conv,
                         h_state=hst)
-                    conv.copy_(conv_new)
-                    hst.copy_(h_new)
+                    _write(conv, conv_new, torch.Tensor.copy_)
+                    _write(hst, h_new, torch.Tensor.copy_)
                     if kind == "rglru":
                         x = _mlp_block(cfg, unit_params, f"{pref}/mlp", x)
 
@@ -606,34 +759,55 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return logits, cache, S_total
 
 
+def _batch_shards(t: torch.Tensor) -> int:
+    """How many shards a DTensor's batch dim (dim 0) is split into; 1 for a
+    plain tensor."""
+    if not is_dtensor(t):
+        return 1
+    n = 1
+    for size, p in zip(t.device_mesh.shape, t.placements):
+        n *= size if p.is_shard(0) else 1
+    return n
+
+
+def _rows(t: torch.Tensor, dim: int, dp: int, nchunks: int, c: int) -> torch.Tensor:
+    """Chunk ``c`` of ``nchunks`` along batch dim ``dim``, taken from each of
+    the ``dp`` batch shards in turn (rows c*b .. (c+1)*b of each shard's
+    block, b = rows / (dp * nchunks)): (..., dp, b, ...)."""
+    return t.unflatten(dim, (dp, nchunks, -1)).select(dim + 1, c)
+
+
 def _prefill_row_chunked(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                          cache_size: int, patches, enc_out, nchunks: int):
     """Sequential batch-row chunks; each writes its rows (dim 1) of every
-    cache leaf."""
+    cache leaf.  A batch split into ``dp`` shards is chunked inside each
+    shard, so every chunk keeps the same split; with one shard, chunk c is
+    rows c*b .. (c+1)*b."""
     B = tokens.shape[0]
-    Bc = B // nchunks
+    dp = _batch_shards(tokens)
     inner_cfg = dataclasses.replace(cfg, prefill_row_chunks=1)
     cache = init_cache(cfg, B, cache_size, dtype=params["embed/tokens"].dtype,
                        device=tokens.device)
     logits = []
     S_total = tokens.shape[1]
-    for idx in range(nchunks):
-        rows = slice(idx * Bc, (idx + 1) * Bc)
-        pat = patches[rows] if patches is not None else None
-        enc = enc_out[rows] if enc_out is not None else None
-        logits_c, cache_c, S_total = prefill(inner_cfg, params, tokens[rows],
-                                             cache_size, pat, enc)
+    for c in range(nchunks):
+        def rows(t):
+            return None if t is None else _rows(t, 0, dp, nchunks, c).flatten(0, 1)
+
+        logits_c, cache_c, S_total = prefill(inner_cfg, params, rows(tokens), cache_size,
+                                             rows(patches), rows(enc_out))
         for k in cache:
-            cache[k][:, rows] = cache_c[k].to(cache[k].dtype)
-        logits.append(logits_c)
-    return torch.cat(logits, dim=0), cache, S_total
+            _rows(cache[k], 1, dp, nchunks, c).copy_(
+                cache_c[k].unflatten(1, (dp, -1)).to(cache[k].dtype))
+        logits.append(logits_c.unflatten(0, (dp, -1)))
+    return torch.stack(logits, 1).flatten(0, 2), cache, S_total
 
 
 # ===========================================================================
 # Decode
 # ===========================================================================
 
-@torch.inference_mode()
+@serving
 def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
                 cache_len, tokens: torch.Tensor,
                 enc_out: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cache]:
@@ -660,8 +834,9 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
 
     for si, seg in enumerate(cfg.segments):
         sp = _segment_params(params, si)
+        units = _units(sp)
         for u in range(seg.num_units):
-            unit_params = {k: v[u] for k, v in sp.items()}
+            unit_params = {k: gathered(v[u]) for k, v in units.items()}
             for li, kind in enumerate(seg.pattern):
                 pref = f"seg{si}/l{li}"
                 if kind in ("attn", "moe", "xattn"):
@@ -670,8 +845,11 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
                     kc, vc = cache[f"{pref}/k"][u], cache[f"{pref}/v"][u]
                     size = kc.shape[1]
                     slot = (clen % size).reshape(1)
-                    kc.index_copy_(1, slot, k.to(kc.dtype))
-                    vc.index_copy_(1, slot, v.to(vc.dtype))
+                    def put(d, t, slot=slot):
+                        d.index_copy_(1, slot, t)
+
+                    _write(kc, k.to(kc.dtype), put)
+                    _write(vc, v.to(vc.dtype), put)
                     valid = torch.clamp(clen + 1, max=size)
                     o = decode_attention(q, kc, vc, valid, spec)
                     x = x + _attn_out(cfg, unit_params, f"{pref}/attn", o)
@@ -689,8 +867,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
                     x, (conv_new, h_new) = block(
                         cfg, unit_params, f"{pref}/{kind}", x, conv_state=conv,
                         h_state=hst, step=True)
-                    conv.copy_(conv_new)
-                    hst.copy_(h_new)
+                    _write(conv, conv_new, torch.Tensor.copy_)
+                    _write(hst, h_new, torch.Tensor.copy_)
                     if kind == "rglru":
                         x = _mlp_block(cfg, unit_params, f"{pref}/mlp", x)
 

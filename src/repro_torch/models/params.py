@@ -40,6 +40,11 @@ def num_params(specs: Specs) -> int:
     return sum(int(np.prod(s.shape)) for s in specs.values())
 
 
+def shape_structs(specs: Specs) -> Params:
+    """Meta tensors (``device="meta"``) of every spec's shape and dtype."""
+    return {k: torch.empty(s.shape, dtype=s.dtype, device="meta") for k, s in specs.items()}
+
+
 def _init_leaf(gen: torch.Generator, spec: ParamSpec,
                device: torch.device) -> torch.Tensor:
     if spec.init == "zeros":

@@ -8,8 +8,8 @@ TrainState layout (flat dicts keyed as the parameter specs):
 
 The loss casts the masters to bf16 inside the autograd graph
 (``cast_params``), so compute runs in bf16 and the gradients land in f32 on
-the masters.  Every tensor stays on the state's device.  The reference's
-``state_shape_structs`` (abstract shapes for XLA) has no counterpart here.
+the masters.  Every tensor stays on the state's device.
+``state_shape_structs`` gives the state's meta tensors for the dry run.
 """
 from __future__ import annotations
 
@@ -44,6 +44,15 @@ def init_state(params: Params) -> TrainState:
                       v={k: torch.zeros_like(v) for k, v in f32.items()}, step=0)
 
 
+def state_shape_structs(param_structs: Params) -> TrainState:
+    """The state of ``param_structs`` as meta tensors: f32 masters and
+    moments of the same shapes (step 0)."""
+    f32 = {k: torch.empty(s.shape, dtype=torch.float32, device="meta")
+           for k, s in param_structs.items()}
+    return TrainState(params=f32, m={k: torch.empty_like(v) for k, v in f32.items()},
+                      v={k: torch.empty_like(v) for k, v in f32.items()}, step=0)
+
+
 def cast_params(params: Params, dtype: torch.dtype = torch.bfloat16) -> Params:
     return {k: v.to(dtype) for k, v in params.items()}
 
@@ -70,8 +79,7 @@ def apply_updates(state: TrainState, grads: Params,
     state would not fit beside the first on one card.  Returns the state at
     ``step + 1`` (a new tuple around the same tensors) and
     {"grad_norm", "lr"}."""
-    g32 = {k: g.float() for k, g in grads.items()}
-    gnorm = torch.sqrt(sum(g.square().sum() for g in g32.values()))
+    gnorm = torch.sqrt(sum(_on_shards(_sum_sq, g, out=_summed(g)) for g in grads.values()))
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     step = state.step + 1
     t = torch.tensor(step, dtype=torch.float32, device=gnorm.device)
@@ -79,11 +87,49 @@ def apply_updates(state: TrainState, grads: Params,
     b1c = 1.0 - cfg.b1 ** t
     b2c = 1.0 - cfg.b2 ** t
     for k, p in state.params.items():
-        g = g32[k] * scale
-        m = state.m[k].copy_(cfg.b1 * state.m[k] + (1 - cfg.b1) * g)
-        v = state.v[k].copy_(cfg.b2 * state.v[k] + (1 - cfg.b2) * g.square())
-        upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        if p.ndim >= 2:  # decay matrices only (not norms/biases/gains)
-            upd = upd + cfg.weight_decay * p
-        p.copy_(p - lr * upd)
+        _on_shards(lambda *a: _update(cfg, *a), p, state.m[k], state.v[k], grads[k],
+                   scale, lr, b1c, b2c)
     return state._replace(step=step), {"grad_norm": gnorm, "lr": lr}
+
+
+def _sum_sq(g: torch.Tensor) -> torch.Tensor:
+    return g.float().square().sum()
+
+
+def _update(cfg: AdamWConfig, p, m, v, g, scale, lr, b1c, b2c) -> torch.Tensor:
+    """One leaf's AdamW update in place; returns p."""
+    g = g.float() * scale
+    m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+    v.copy_(cfg.b2 * v + (1 - cfg.b2) * g.square())
+    upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+    if p.ndim >= 2:  # decay matrices only (not norms/biases/gains)
+        upd = upd + cfg.weight_decay * p
+    return p.copy_(p - lr * upd)
+
+
+def _summed(g: torch.Tensor):
+    """The placements of a per-shard sum of DTensor ``g``: added over the
+    mesh dims it is split on (None for a plain tensor)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    if not hasattr(g, "placements"):
+        return None
+    return tuple(Partial() if p.is_shard() else Replicate() for p in g.placements)
+
+
+def _on_shards(fn, first: torch.Tensor, *rest, out=None):
+    """``fn(first, *rest)``; on DTensors on each rank's local shards (every
+    tensor argument laid out as ``first``, 0-d ones replicated), the result
+    laid out as ``first`` or as ``out``.  Elementwise work on the local
+    shards gives the same values with one DTensor rule less a leaf shape."""
+    from ..dist.context import local_region
+
+    pl = getattr(first, "placements", None)
+    if pl is None:
+        return fn(first, *rest)
+    from torch.distributed.tensor import Replicate
+
+    rep = (Replicate(),) * len(pl)
+    args = (first, *rest)
+    return local_region(fn, args, [None if not torch.is_tensor(a) else rep if a.dim() == 0
+                                   else pl for a in args], out or pl)
