@@ -18,7 +18,12 @@ exits 2 with one line on stderr that says which):
    version taken in float64), for G in {1, 5, 360K, 1.5M, 16M}, V in {1, 3},
    N a batch of paper files, keys out of range on both sides, empty input;
    the cluster-table scatter (with the plan ``tuning.scatter_plan`` takes at
-   each G) and the global-atomic scatter also under Zipf keys at 360K;
+   each G) and the global-atomic scatter also under Zipf keys at 360K; the
+   narrow kernel's edges (``narrow_parity``): G in {1, 5, 32, 33, 2,048,
+   12,288}, V in {1, 3}, keys and values from row 0 or 1 (one offset from a
+   16-byte boundary) or at different offsets, N a multiple of 4 or not, N
+   in {1, 2, 3, 5, 7}; each call one launch (``torch.profiler``: one kernel,
+   no fill before it) and its workspace left zero;
 4. single-query path (the main path, part 1): for CQ3, CQ4, CQ2 and
    TPC-Q6-like, ``measure_cost_model`` on the card at batch sizes that
    span the plans' batches (``CALIBRATION_FILES``), ``Planner("single")``
@@ -298,6 +303,9 @@ PANE_GROUPS = 16_000_000    # a pane scan's composite key space (panes x groups)
 CALIBRATION_FILES = (1, 4, 16, 64, 256, 1024, 2048, 3072)
 CROSSOVER_GROUPS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096,
                     8192, 12288)
+# The narrow kernel's edges: register slots (1, 5, 32), the shared table
+# (33, 2,048, 12,288 = NARROW_TABLE_BYTES / 4).
+NARROW_GROUPS = (1, 5, 32, 33, 2048, 12288)
 # LM kernels: bf16 output against the plain version in f32 (bf16 rounds the
 # inputs, p and the output); the RG-LRU state stays f32 in both.
 BF16_TOL = 2e-2
@@ -483,11 +491,7 @@ def kernel_parity(kernels, segagg_ref, rows: int) -> None:
     for name, fn, groups in kernels:
         for g in groups:
             for v in (1, 3):
-                keys = torch.randint(0, g, (rows,), generator=gen, dtype=torch.int32)
-                bad = torch.rand(rows, generator=gen) < 0.01
-                wild = torch.randint(1, g + 2, (rows,), generator=gen, dtype=torch.int32)
-                keys = torch.where(bad & (wild % 2 == 0), -wild, keys)
-                keys = torch.where(bad & (wild % 2 == 1), g - 1 + wild, keys).cuda()
+                keys = wild_keys(rows, g, gen).cuda()
                 ones = torch.ones((rows, v), device="cuda")
                 vals = torch.rand((rows, v), generator=gen).cuda()
                 got, want = fn(keys, ones, g), segagg_ref(keys, ones, g)
@@ -505,6 +509,82 @@ def kernel_parity(kernels, segagg_ref, rows: int) -> None:
         if empty.shape != (5, 3) or empty.abs().sum().item() != 0.0:
             raise AssertionError(f"{name}: empty input must give zeros")
         log(f"  parity {name:21s} empty input: zeros (5, 3)")
+
+
+def wild_keys(n: int, g: int, gen) -> torch.Tensor:
+    """(n,) int32 keys uniform in [0, g), 1% of them outside on either side
+    (negative ones included, down to -(g + 1))."""
+    keys = torch.randint(0, g, (n,), generator=gen, dtype=torch.int32)
+    bad = torch.rand(n, generator=gen) < 0.01
+    wild = torch.randint(1, g + 2, (n,), generator=gen, dtype=torch.int32)
+    keys = torch.where(bad & (wild % 2 == 0), -wild, keys)
+    return torch.where(bad & (wild % 2 == 1), g - 1 + wild, keys)
+
+
+def narrow_parity(fn, work, fits, segagg_ref, rows: int) -> int:
+    """The narrow kernel's paths against the plain version: counts by
+    ``torch.equal``, float sums within ``FLOAT_RTOL`` of the plain version in
+    float64.  For each G of ``NARROW_GROUPS`` and V in (1, 3): N ``rows`` and
+    ``rows`` + 3, keys and values both from row 0 or both from row 1 of
+    longer tensors (the vector path with 0 or 3 head rows), and at V = 1
+    keys from row 1 beside values from row 0 (the element path); then N in
+    {1, 2, 3, 5, 7} from rows 0-3; a (G, V) table that does not ``fits``
+    is left out.  After each call the stream's workspace
+    (``work()``) must be zero again.  Then one call under ``torch.profiler``
+    must show one kernel on the card, the narrow one.  Returns the cases."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(7)
+
+    def check(what, keys, vals, g):
+        ones = torch.ones_like(vals)
+        if not torch.equal(fn(keys, ones, g), segagg_ref(keys, ones, g)):
+            raise AssertionError(f"segagg_narrow {what}: counts differ")
+        got, want = fn(keys, vals, g).double(), segagg_ref(keys, vals.double(), g)
+        if not torch.allclose(got, want, rtol=FLOAT_RTOL, atol=FLOAT_RTOL):
+            raise AssertionError(f"segagg_narrow {what}: float sums differ")
+        if work().any():
+            raise AssertionError(f"segagg_narrow {what}: workspace not left zero")
+        return ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+
+    cases = 0
+    worst = 0.0
+    for g in NARROW_GROUPS:
+        for v in (v for v in (1, 3) if fits(g, v)):
+            for n in (rows, rows + 3):
+                keys = wild_keys(n + 4, g, gen).cuda()
+                vals = torch.rand((n + 4, v), generator=gen).cuda()
+                layouts = [(0, 0), (1, 1)] + ([(1, 0)] if v == 1 else [])
+                for ko, vo in layouts:
+                    worst = max(worst, check(f"G={g} V={v} N={n} rows from {ko}/{vo}",
+                                             keys[ko:ko + n], vals[vo:vo + n], g))
+                    cases += 1
+        log(f"  parity segagg_narrow         G={g:>9} V={'1, 3' if fits(g, 3) else '1'}, "
+            f"N={rows}, {rows + 3}, "
+            f"aligned, offset 1, keys and values apart: counts equal, workspace zero")
+    for g in (1, 5, 33):
+        for v in (1, 3):
+            for n in (1, 2, 3, 5, 7):
+                for off in range(4):
+                    keys = wild_keys(n + 4, g, gen).cuda()
+                    vals = torch.rand((n + 4, v), generator=gen).cuda()
+                    worst = max(worst, check(f"G={g} V={v} N={n} from row {off}",
+                                             keys[off:off + n], vals[off:off + n], g))
+                    cases += 1
+    keys = wild_keys(rows, 5, gen).cuda()
+    vals = torch.rand((rows, 1), generator=gen).cuda()
+    fn(keys, vals, 5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(keys, vals, 5)
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if len(on_card) != 1 or "segagg_narrow" not in on_card[0]:
+        raise AssertionError(f"segagg_narrow: one call ran {on_card} on the card")
+    log(f"  parity segagg_narrow         {cases} cases (N 1-7 too): counts equal, float rel "
+        f"err {worst:.3e}; one call = one kernel on the card ({on_card[0][:60]})")
+    return cases
 
 
 def zipf_parity(kernels, segagg_ref, zipf_keys, rows: int, g: int) -> None:
@@ -2851,7 +2931,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.segagg import ops, tuning
     from repro_torch.kernels.segagg.ref import segagg_ref, zipf_keys
     from repro_torch.kernels.segagg.segagg import (
-        scatter_plan_for, segagg_narrow_cuda, segagg_scatter_atomic_cuda, segagg_scatter_cuda)
+        narrow_work, scatter_plan_for, segagg_narrow_cuda, segagg_scatter_atomic_cuda,
+        segagg_scatter_cuda)
     from repro_torch.serve import analytics
     from repro_torch.serve.analytics import (
         AnalyticsRuntimeExecutor, concat_files, measure_cost_model, run_batched, run_plan,
@@ -2918,6 +2999,8 @@ def main(argv=None) -> int:
                    ("segagg_scatter", segagg_scatter_cuda, (1, 5) + wide),
                    ("segagg_scatter_atomic", segagg_scatter_atomic_cuda, (5,) + wide)],
                   segagg_ref, PARITY_FILES * sc.lineitems_per_file)
+    narrow_parity(segagg_narrow_cuda, lambda: narrow_work(torch.device("cuda", 0)),
+                  tuning.narrow_fits, segagg_ref, PARITY_FILES * sc.lineitems_per_file)
     zipf_parity([("segagg_scatter", segagg_scatter_cuda),
                  ("segagg_scatter_atomic", segagg_scatter_atomic_cuda)],
                 segagg_ref, zipf_keys, PARITY_FILES * sc.lineitems_per_file, sc.num_suppkeys)

@@ -36,14 +36,29 @@
 //   (output), at 3.35 TB/s.
 //
 // * segagg_narrow replaces _segagg_matmul_kernel (segagg.py:48), the one-hot
-//   MXU contraction used for narrow G.  Each block walks a strided range of
-//   elements and accumulates into a (G, V) f32 table in shared memory (at most
-//   48 KB, checked by the caller); at the end each block adds its table into
-//   the output with one global atomicAdd per non-zero (g, v).  When G*V is at
-//   most 32 every thread first sums its own elements in registers, one per
-//   (g, v) slot, and each warp combines its lanes by shuffle reduction before
-//   one shared atomic per slot: CQ1 and TPC-Q6 (G = 1) would otherwise
-//   serialise 32 ways on one shared address.  Bound: the same bytes.
+//   MXU contraction used for narrow G.  Bound: the same bytes, and with
+//   G*V <= 12,288 the output is nothing beside the rows, so it streams keys
+//   and values at the card's copy rate or it loses.  Its first design issued
+//   one 4-byte load of a key and one of a value per thread and step: about
+//   8 KB in flight an SM, where covering HBM's ~700 ns at 3.35 TB/s over 132
+//   SMs needs ~18 KB, so it was latency-bound (35% of its bound at CQ2's 8.7M
+//   rows).  Now, when V = 1 and keys and values sit at the same offset from a
+//   16-byte boundary (a batch slice starting at any row), each thread loads
+//   kNarrowUnroll int4/float4 quad pairs (128 bytes) before it adds any, and
+//   the rows before the first boundary and after the last quad go through
+//   the element path inside the same kernel, as do V > 1 and keys and values
+//   at different offsets (kNarrowUnroll elements loaded ahead).  The grid is
+//   what the card holds at once, and fewer blocks for few rows, so each
+//   thread takes at least 2 * kNarrowUnroll quads.  Pre-combining as before:
+//   for G*V <= 32 every thread sums its elements in registers, one per (g, v)
+//   slot, and each warp combines its lanes by shuffle before one shared atomic
+//   per slot; above, a (G, V) f32 table per block in shared memory (at most
+//   48 KB, checked by the caller).  One launch a call: each block adds its
+//   non-zero table entries into a (G, V) f32 accumulator in global memory
+//   (L2) that is zero between calls, takes a ticket, and the last block to
+//   take one copies the accumulator into the output, zeroes it and resets
+//   the ticket.  So the output needs no zeroing launch; the accumulator and
+//   ticket (the caller's workspace) belong to one stream.
 //
 // All kernels mask the ragged edge themselves (no padding of N, G or V) and
 // drop keys outside [0, G), negative ones included.  Additions happen in an
@@ -55,6 +70,8 @@
 // own error) right after the launch (0 on success); it never synchronises and
 // allocates nothing.
 
+#include <algorithm>
+
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,7 +82,19 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSmScatter = 8;
-constexpr int kBlocksPerSmNarrow = 4;
+constexpr int kNarrowThreads = 256;
+// Measured on the H100 (scripts/torch_segagg_narrow.py --variants, which
+// builds other values): 2, 4 or 8 quads ahead tie; 1 block an SM loses.
+#ifndef NARROW_BLOCKS_PER_SM
+#define NARROW_BLOCKS_PER_SM 4
+#endif
+#ifndef NARROW_UNROLL
+#define NARROW_UNROLL 4
+#endif
+constexpr int kNarrowBlocksPerSm = NARROW_BLOCKS_PER_SM;  // 1,024 threads an SM at most
+constexpr int kNarrowUnroll = NARROW_UNROLL;  // quads (or elements) loaded before any is added
+constexpr int kNarrowMinUnits = 2 * kNarrowUnroll;  // a thread's fewest quads (or elements)
+constexpr int kNarrowMaxTable = 12288;   // floats of the workspace's accumulator (48 KB)
 constexpr int kClusterThreads = 1024;  // one block an SM: its table takes the shared memory
 constexpr int kChunk = 8;              // floats of a table chunk: one 32-byte sector
 constexpr int kMaxClusterBlocks = 16;  // the non-portable cluster size Hopper allows
@@ -74,12 +103,15 @@ constexpr int kMail = 2;               // of a thread's 4 elements a round, thos
 constexpr int kAhead = 1;              // quads loaded ahead of the current one
 
 int num_sms() {
+  static int cached[64] = {};  // by device: asked once
   int dev = 0;
-  int sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess) {
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (cached[dev] == 0) {
+    int sms = 132;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cached[dev] = sms;
   }
-  return sms;
+  return cached[dev];
 }
 
 int grid_for(int64_t elements, int blocks_per_sm) {
@@ -422,64 +454,161 @@ cudaError_t launch_cluster(const int32_t* keys, const float* values, float* out,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// kSlots > 0: register accumulation for G*V <= kSlots; kSlots == 0: shared
-// atomics per element.
+// A thread's share of the narrow sum: kSlots > 0 keeps one register a (g, v)
+// slot (G*V <= kSlots); kSlots == 0 adds into the block's shared table.
 template <int kSlots>
-__global__ void __launch_bounds__(kThreads)
+struct NarrowSum {
+  float acc[kSlots > 0 ? kSlots : 1];
+  float* table;
+  int32_t g, v;
+
+  __device__ __forceinline__ void add(int32_t k, int32_t col, float x) {
+    if (k < 0 || k >= g) return;
+    const int32_t slot = k * v + col;
+    if constexpr (kSlots > 0) {
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) acc[s] += (slot == s) ? x : 0.f;
+    } else {
+      atomicAdd(table + slot, x);
+    }
+  }
+
+  __device__ __forceinline__ void add4(int4 k, float4 x) {
+    add(k.x, 0, x.x);
+    add(k.y, 0, x.y);
+    add(k.z, 0, x.z);
+    add(k.w, 0, x.w);
+  }
+};
+
+// head >= 0: the vector path (v == 1; keys + head and values + head 16-byte
+// aligned): rows [0, head) and the rows after the last quad by the element
+// path, the quads between as int4/float4.  head < 0: every element by the
+// element path.  work: kNarrowMaxTable floats, then a uint32 ticket, all zero
+// on entry and left so.
+template <int kSlots>
+__global__ void __launch_bounds__(kNarrowThreads)
 segagg_narrow_kernel(const int32_t* __restrict__ keys, const float* __restrict__ values,
-                     float* __restrict__ out, int64_t n, int32_t v, int32_t g) {
-  extern __shared__ float table[];  // (g, v) f32
+                     float* __restrict__ out, float* __restrict__ work, int64_t n, int32_t v,
+                     int32_t g, int32_t head) {
+  extern __shared__ float4 narrow_smem4[];  // no static shared: 48 KB of table fit
+  float* table = reinterpret_cast<float*>(narrow_smem4);
   const int32_t gv = g * v;
-  for (int32_t i = threadIdx.x; i < gv; i += blockDim.x) table[i] = 0.f;
+  const int32_t slots = kSlots > 0 ? kSlots : gv;
+  for (int32_t i = threadIdx.x; i < slots; i += blockDim.x) table[i] = 0.f;
   __syncthreads();
 
-  const int64_t total = n * v;
+  NarrowSum<kSlots> sum;
+#pragma unroll
+  for (int s = 0; s < (kSlots > 0 ? kSlots : 1); ++s) sum.acc[s] = 0.f;
+  sum.table = table;
+  sum.g = g;
+  sum.v = v;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if constexpr (kSlots > 0) {
-    float acc[kSlots];
+  if (head >= 0) {
+    const int64_t quads = (n - head) / 4;
+    const int64_t tail = head + 4 * quads;
+    if (first < head) sum.add(__ldg(keys + first), 0, __ldg(values + first));
+    if (first < n - tail) sum.add(__ldg(keys + tail + first), 0, __ldg(values + tail + first));
+    const int4* keys4 = reinterpret_cast<const int4*>(keys + head);
+    const float4* values4 = reinterpret_cast<const float4*>(values + head);
+    int64_t q = first;
+    for (; q + (kNarrowUnroll - 1) * stride < quads; q += kNarrowUnroll * stride) {
+      int4 kq[kNarrowUnroll];
+      float4 xq[kNarrowUnroll];
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) acc[s] = 0.f;
-    for (int64_t e = first; e < total; e += stride) {
+      for (int u = 0; u < kNarrowUnroll; ++u) {
+        kq[u] = __ldg(keys4 + q + u * stride);
+        xq[u] = __ldg(values4 + q + u * stride);
+      }
+#pragma unroll
+      for (int u = 0; u < kNarrowUnroll; ++u) sum.add4(kq[u], xq[u]);
+    }
+    for (; q < quads; q += stride) sum.add4(__ldg(keys4 + q), __ldg(values4 + q));
+  } else {
+    const int64_t total = n * v;
+    int64_t e = first;
+    for (; e + (kNarrowUnroll - 1) * stride < total; e += kNarrowUnroll * stride) {
+      int32_t k[kNarrowUnroll], col[kNarrowUnroll];
+      float x[kNarrowUnroll];
+#pragma unroll
+      for (int u = 0; u < kNarrowUnroll; ++u) {
+        int64_t row;
+        split_element(e + u * stride, v, &row, &col[u]);
+        k[u] = __ldg(keys + row);
+        x[u] = __ldg(values + e + u * stride);
+      }
+#pragma unroll
+      for (int u = 0; u < kNarrowUnroll; ++u) sum.add(k[u], col[u], x[u]);
+    }
+    for (; e < total; e += stride) {
       int64_t row;
       int32_t col;
       split_element(e, v, &row, &col);
-      const int32_t k = __ldg(keys + row);
-      const int32_t slot = (k >= 0 && k < g) ? k * v + col : -1;
-      const float x = __ldg(values + e);
-#pragma unroll
-      for (int s = 0; s < kSlots; ++s) acc[s] += (slot == s) ? x : 0.f;
+      sum.add(__ldg(keys + row), col, __ldg(values + e));
     }
+  }
+  if constexpr (kSlots > 0) {
     const int lane = threadIdx.x & 31;
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
-      float x = acc[s];
+      float x = sum.acc[s];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
       if (lane == 0 && s < gv) atomicAdd(table + s, x);
     }
-  } else {
-    for (int64_t e = first; e < total; e += stride) {
-      int64_t row;
-      int32_t col;
-      split_element(e, v, &row, &col);
-      const int32_t k = __ldg(keys + row);
-      if (k >= 0 && k < g) atomicAdd(table + k * v + col, __ldg(values + e));
-    }
   }
   __syncthreads();
-  for (int32_t i = threadIdx.x; i < gv; i += blockDim.x) {
-    const float x = table[i];
-    if (x != 0.f) atomicAdd(out + i, x);
+
+  // The block's table into the accumulator in L2 (16-byte vector atomics,
+  // all-zero quads skipped), then the ticket.
+  const int32_t quads = gv / 4;
+  for (int32_t i = threadIdx.x; i < quads; i += blockDim.x) {
+    const float4 t = narrow_smem4[i];
+    if (any_nonzero(t)) atomicAdd(reinterpret_cast<float4*>(work) + i, t);
   }
+  for (int32_t i = 4 * quads + threadIdx.x; i < gv; i += blockDim.x) {
+    if (table[i] != 0.f) atomicAdd(work + i, table[i]);
+  }
+  __threadfence();
+  __syncthreads();
+  uint32_t* ticket = reinterpret_cast<uint32_t*>(work + kNarrowMaxTable);
+  const bool last =
+      __syncthreads_or(threadIdx.x == 0 && atomicAdd(ticket, 1u) == gridDim.x - 1);
+  if (!last) return;
+  __threadfence();  // every other block's adds, seen before they are read
+  for (int32_t i = threadIdx.x; i < gv; i += blockDim.x) {
+    out[i] = __ldcg(work + i);
+    work[i] = 0.f;
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
 }
 
 template <int kSlots>
-void launch_narrow(const int32_t* keys, const float* values, float* out, int64_t n,
-                   int32_t v, int32_t g, cudaStream_t stream) {
-  const size_t smem = (size_t)g * v * sizeof(float);
-  segagg_narrow_kernel<kSlots><<<grid_for(n * v, kBlocksPerSmNarrow), kThreads, smem,
-                                 stream>>>(keys, values, out, n, v, g);
+cudaError_t launch_narrow(const int32_t* keys, const float* values, float* out,
+                          float* work, int64_t n, int32_t v, int32_t g, cudaStream_t stream) {
+  const size_t smem = (size_t)(kSlots > 0 ? kSlots : g * v) * sizeof(float);
+  // The vector path needs keys and values at one offset from a 16-byte
+  // boundary: rows before it (head, 0-3 of them) take the element path.
+  const uintptr_t ka = (uintptr_t)keys % 16, xa = (uintptr_t)values % 16;
+  int32_t head = -1;
+  if (v == 1 && ka == xa) head = (int32_t)std::min<int64_t>((16 - ka) % 16 / 4, n);
+  const int64_t units = head >= 0 ? (n - head) / 4 : n * v;
+  // Blocks the card holds at once, asked once for each table size.
+  static int cached_per_sm[(kSlots > 0 ? kSlots : kNarrowMaxTable) + 1] = {};
+  int& per_sm = cached_per_sm[smem / sizeof(float)];
+  if (per_sm == 0) {
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, segagg_narrow_kernel<kSlots>, kNarrowThreads, smem);
+    if (err != cudaSuccess) return err;
+  }
+  int64_t blocks = (int64_t)num_sms() * std::min(std::max(per_sm, 1), kNarrowBlocksPerSm);
+  const int64_t per_block = (int64_t)kNarrowThreads * kNarrowMinUnits;
+  blocks = std::min(blocks, std::max<int64_t>((units + per_block - 1) / per_block, 1));
+  segagg_narrow_kernel<kSlots><<<(unsigned)blocks, kNarrowThreads, smem, stream>>>(
+      keys, values, out, work, n, v, g, head);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -545,22 +674,28 @@ extern "C" int segagg_scatter_smem_optin(int32_t* bytes) {
   return (int)err;
 }
 
+// work: kNarrowMaxTable (12,288) zero floats, then a zero uint32 ticket; the
+// kernel leaves them zero.  Calls that share a workspace must be ordered (one
+// stream).  The output needs no zeroing: the last block writes all of it.
 extern "C" int segagg_narrow(const void* keys, const void* values, void* out, int64_t n,
-                             int32_t v, int32_t g, void* stream) {
+                             int32_t v, int32_t g, void* work, void* stream) {
   if (n <= 0 || v <= 0 || g <= 0) return 0;
   const int32_t gv = g * v;
+  if (gv > kNarrowMaxTable || work == nullptr) return (int)cudaErrorInvalidValue;
   const int32_t* k = (const int32_t*)keys;
   const float* x = (const float*)values;
   float* o = (float*)out;
+  float* w = (float*)work;
   cudaStream_t s = (cudaStream_t)stream;
-  if (gv <= 1) launch_narrow<1>(k, x, o, n, v, g, s);
-  else if (gv <= 2) launch_narrow<2>(k, x, o, n, v, g, s);
-  else if (gv <= 4) launch_narrow<4>(k, x, o, n, v, g, s);
-  else if (gv <= 8) launch_narrow<8>(k, x, o, n, v, g, s);
-  else if (gv <= 16) launch_narrow<16>(k, x, o, n, v, g, s);
-  else if (gv <= 32) launch_narrow<32>(k, x, o, n, v, g, s);
-  else launch_narrow<0>(k, x, o, n, v, g, s);
-  return (int)cudaGetLastError();
+  cudaError_t err;
+  if (gv <= 1) err = launch_narrow<1>(k, x, o, w, n, v, g, s);
+  else if (gv <= 2) err = launch_narrow<2>(k, x, o, w, n, v, g, s);
+  else if (gv <= 4) err = launch_narrow<4>(k, x, o, w, n, v, g, s);
+  else if (gv <= 8) err = launch_narrow<8>(k, x, o, w, n, v, g, s);
+  else if (gv <= 16) err = launch_narrow<16>(k, x, o, w, n, v, g, s);
+  else if (gv <= 32) err = launch_narrow<32>(k, x, o, w, n, v, g, s);
+  else err = launch_narrow<0>(k, x, o, w, n, v, g, s);
+  return (int)err;
 }
 
 extern "C" const char* segagg_error_string(int code) {

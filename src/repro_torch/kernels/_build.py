@@ -45,7 +45,8 @@ LIBRARIES: Dict[str, tuple] = {
         "segagg_scatter_clusters": (_I32, _I32, _I32P),
         # &smem_bytes
         "segagg_scatter_smem_optin": (_I32P,),
-        "segagg_narrow": (_PTR, _PTR, _PTR, _I64, _I32, _I32, _PTR),
+        # keys, values, out, n, v, g, work, stream
+        "segagg_narrow": (_PTR, _PTR, _PTR, _I64, _I32, _I32, _PTR, _PTR),
     }),
     "flash_attention": ("flash_attention.cu", {
         # q, k, v, o, strides[12], batch, sq, sk, heads, kv_heads, d, scale,

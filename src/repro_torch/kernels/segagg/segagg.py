@@ -15,16 +15,22 @@
   in L2; skewed keys contend on its atomics.  The wide route of
   ``segagg_scatter_cuda``, and the yardstick it is timed against.
 * ``segagg_narrow_cuda`` replaces ``_segagg_matmul_kernel``
-  (``repro/kernels/segagg/segagg.py:48``): a per-block (G, V) table in
-  shared memory (at most ``NARROW_TABLE_BYTES``), with register and warp
-  pre-combining when G*V <= 32.  Bounded by the same bytes.
+  (``repro/kernels/segagg/segagg.py:48``): keys and values streamed as
+  16-byte quads, several in flight a thread, into register slots with warp
+  pre-combining when G*V <= 32, else a per-block (G, V) table in shared
+  memory (at most ``NARROW_TABLE_BYTES``); the blocks' tables meet in a
+  zeroed accumulator of the stream's workspace (``narrow_work``), which
+  the last block copies into the output and zeroes again.  Bounded by the
+  same bytes.  One launch a call: its output is not zeroed first.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates the
-zeroed output, launches on the current stream, raises on a launch error and
-counts its launches in ``.launches`` (a plain int, reset by the caller).
+output (the scatter kernels' zeroed), launches on the current stream,
+raises on a launch error and counts its launches in ``.launches`` (a plain
+int, reset by the caller).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict, Optional, Tuple
 
@@ -37,7 +43,7 @@ from .tuning import NARROW_TABLE_BYTES
 
 def _check(keys: torch.Tensor, values: torch.Tensor, num_groups: int,
            what: str) -> None:
-    if keys.device.type != "cuda" or values.device != keys.device:
+    if not (keys.is_cuda and values.is_cuda and keys.get_device() == values.get_device()):
         raise ValueError(f"{what}: keys and values must be on one CUDA device "
                          f"(got {keys.device} and {values.device})")
     if keys.dtype != torch.int32 or values.dtype != torch.float32:
@@ -52,15 +58,24 @@ def _check(keys: torch.Tensor, values: torch.Tensor, num_groups: int,
         raise ValueError(f"{what}: needs num_groups > 0 and V > 0")
 
 
+def _stream(index: int) -> int:
+    """The current stream of card ``index``, as a raw ``cudaStream_t``."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def _launch(fn_name: str, keys: torch.Tensor, values: torch.Tensor,
-            out: torch.Tensor, *extra: int) -> None:
+            out: torch.Tensor, *extra: int, stream: Optional[int] = None) -> None:
+    """Calls launcher ``fn_name`` on the current stream of the values' card
+    (``stream``, if the caller has it), made the current card for the call
+    where it is not."""
     lib = _build.load("segagg")
     n, v = values.shape
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    index = values.get_device()
+    switch = index != torch._C._cuda_getDevice()
+    with torch.cuda.device(index) if switch else contextlib.nullcontext():
         code = getattr(lib, fn_name)(keys.data_ptr(), values.data_ptr(),
                                      out.data_ptr(), n, v, out.shape[0], *extra,
-                                     stream)
+                                     _stream(index) if stream is None else stream)
     _build.check("segagg", code, fn_name)
 
 
@@ -151,19 +166,42 @@ def segagg_scatter_atomic_cuda(keys: torch.Tensor, values: torch.Tensor,
     return out
 
 
+# (device index, stream) -> the narrow kernel's workspace on that stream
+_narrow_work: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def narrow_work(device: torch.device, stream: Optional[int] = None) -> torch.Tensor:
+    """The narrow kernel's workspace on ``device``'s current stream (or raw
+    ``stream``): a ``NARROW_TABLE_BYTES`` f32 accumulator and a uint32
+    ticket (int32 words here), zero between calls (each call's last block
+    leaves them so).  One a stream, so calls that share it are ordered; made
+    (one fill) at a stream's first call."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, _stream(index) if stream is None else stream)
+    work = _narrow_work.get(key)
+    if work is None:  # once a stream
+        work = _narrow_work[key] = torch.zeros(NARROW_TABLE_BYTES // 4 + 4, dtype=torch.int32,
+                                               device=torch.device("cuda", index))
+    return work
+
+
 def segagg_narrow_cuda(keys: torch.Tensor, values: torch.Tensor,
                        num_groups: int) -> torch.Tensor:
-    """As ``segagg_scatter_cuda`` through per-block shared-memory tables;
-    needs ``num_groups * V * 4 <= NARROW_TABLE_BYTES``."""
+    """As ``segagg_scatter_cuda`` through register slots or per-block
+    shared-memory tables, in one launch; needs ``num_groups * V * 4 <=
+    NARROW_TABLE_BYTES``."""
     _check(keys, values, num_groups, "segagg_narrow")
     if num_groups * values.shape[1] * 4 > NARROW_TABLE_BYTES:
         raise ValueError(
             f"segagg_narrow: a ({num_groups}, {values.shape[1]}) f32 table "
             f"exceeds {NARROW_TABLE_BYTES} bytes of shared memory; use scatter")
-    out = _zeros(values, num_groups)
-    if values.shape[0]:
-        _launch("segagg_narrow", keys, values, out)
-        segagg_narrow_cuda.launches += 1
+    if not values.shape[0]:
+        return _zeros(values, num_groups)
+    out = values.new_empty((num_groups, values.shape[1]))
+    stream = _stream(values.get_device())
+    work = narrow_work(values.device, stream)
+    _launch("segagg_narrow", keys, values, out, work.data_ptr(), stream=stream)
+    segagg_narrow_cuda.launches += 1
     return out
 
 

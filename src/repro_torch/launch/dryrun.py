@@ -7,9 +7,13 @@ model=8) meshes of ``launch/mesh.py``, the cell's production program
 process group of 256 (512) ranks (``torch.testing._internal.distributed
 .fake_pg``: every collective returns at once) and ``FakeTensorMode``: each
 tensor has a shape, a dtype and a device but no memory.  The run is rank
-0's.  A dispatch mode below DTensor sees every op on the local shards
-(DTensor returns to it as local ops and functional collectives) and
-records, per card:
+0's.  A serving cell whose rows divide "data" but not "pod" x "data" runs
+on the multi mesh's pod-local submesh (``steps.serving_mesh``), and its
+record's ``program_mesh`` says so; ``fallback_events`` counts the
+``sharding_fallback`` events sent while the cell is built and run.  A
+dispatch mode below DTensor sees every op on the local shards (DTensor
+returns to it as local ops and functional collectives) and records, per
+card:
 
 * flops: ``FlopCounterMode``'s formulas (its registry), and for a kernel's
   custom op the kernel's own ``flops_bytes`` (``kernels.register_cost``);
@@ -62,6 +66,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..dist.context import mesh_axes
 from ..dist.roofline import Roofline
+from ..dist.sharding import on_fallback
 from ..kernels import COSTS
 from ..models.base import ARCH_IDS, SHAPES, ShapeCell, cell_supported, get_config
 from ..models.config import ModelConfig
@@ -244,6 +249,17 @@ def fake_world(size: int):
         dist.destroy_process_group()
 
 
+@contextlib.contextmanager
+def _fallbacks():
+    """The ``sharding_fallback`` events sent inside the block, in a list."""
+    got = []
+    unsubscribe = on_fallback(got.append)
+    try:
+        yield got
+    finally:
+        unsubscribe()
+
+
 def _fake_args(prog, device: str):
     """The program's arguments as DTensors with fake local shards of their
     placements (a leaf without placements: a fake plain tensor, or the
@@ -293,12 +309,12 @@ def run_cell(arch: Union[str, ModelConfig], shape: Union[str, ShapeCell],
 
     dropped, moe_ffn.dropped = moe_ffn.dropped, 0  # no fake tensor outlives the run
     t0 = time.time()
-    with fake_world(nchips):
+    with fake_world(nchips), _fallbacks() as fallbacks:
         mesh = (make_production_mesh(multi_pod=multi_pod, device_type=device)
                 if mesh_shape is None else
                 init_device_mesh(device, tuple(shape_.values()), mesh_dim_names=tuple(shape_)))
         prog = build_cell_program(cfg, cell, mesh)
-        counter = _CellCounter(mesh)
+        counter = _CellCounter(prog.mesh)  # a serving program's pod-local submesh
         with FakeTensorMode():
             args = _fake_args(prog, device)
             arg_bytes = counter.track(_tensors(args))
@@ -332,6 +348,8 @@ def run_cell(arch: Union[str, ModelConfig], shape: Union[str, ShapeCell],
         **head,
         "status": "ok",
         "chips": nchips,
+        "program_mesh": mesh_axes(prog.mesh),
+        "fallback_events": len(fallbacks),
         "kind": cell.kind,
         "lower_s": round(t_trace, 2),
         "compile_s": 0.0,

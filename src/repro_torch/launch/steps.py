@@ -18,6 +18,12 @@ replicated), so the model runs on DTensors: parameters FSDP on "data" and
 tensor-parallel on "model", batches on the data-parallel axes, the parts
 without a sharding rule on local shards (``dist.context.local_region``).
 The dry run (``launch/dryrun.py``) runs the same step on fake tensors.
+
+A serving program whose rows divide "data" but not "pod" x "data" runs on
+the pod-local submesh (``serving_mesh``): each pod runs the single-pod
+program on its own copy of the rows, "pod" only replicates, and the rows
+split over "data" where the whole mesh would replicate them.  The plan
+itself (``dist/sharding.py``) is not changed: the choice is the program's.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from ..dist.context import is_dtensor, mesh_context, to_placements
+from ..dist.context import is_dtensor, mesh_axes, mesh_context, to_placements
 from ..dist.sharding import (batch_spec, cache_pspecs, input_pspecs,
                              param_shardings)
 from ..models import lm
@@ -192,10 +198,26 @@ def build_train_program(cfg: ModelConfig, cell: ShapeCell, mesh,
     )
 
 
+def serving_mesh(mesh, rows: int):
+    """The mesh a serving program of ``rows`` rows runs on: ``mesh``, or,
+    where the rows divide "data" but not "pod" x "data", the pod-local
+    submesh of its other dims (``mesh["data", "model"]``, this rank's pod).
+    There each pod runs the single-pod program on its own copy of the rows,
+    which split over "data" (no ``sharding_fallback``) where the whole mesh
+    would replicate them on every card."""
+    axes = mesh_axes(mesh)
+    if "pod" not in axes or "data" not in axes:
+        return mesh
+    if rows % (axes["pod"] * axes["data"]) == 0 or rows % axes["data"]:
+        return mesh
+    return mesh[tuple(n for n in axes if n != "pod")]
+
+
 def build_prefill_program(cfg: ModelConfig, cell: ShapeCell, mesh) -> CellProgram:
     """The prompt of ``cell`` into a ``cell.seq_len`` cache: (logits, cache,
     cache_len), the cache laid out by ``cache_pspecs``; whisper through
-    ``encdec_prefill``."""
+    ``encdec_prefill``.  Runs on ``serving_mesh(mesh, cell.global_batch)``."""
+    mesh = serving_mesh(mesh, cell.global_batch)
     specs = model_specs(cfg)
     in_structs = input_specs(cfg, cell)
     cache_structs = lm.cache_shape_specs(cfg, cell.global_batch, cell.seq_len)
@@ -223,7 +245,10 @@ def build_prefill_program(cfg: ModelConfig, cell: ShapeCell, mesh) -> CellProgra
 
 def build_decode_program(cfg: ModelConfig, cell: ShapeCell, mesh) -> CellProgram:
     """serve_step: one new token against a ``cell.seq_len``-deep cache,
-    updated in place; returns (logits, cache)."""
+    updated in place; returns (logits, cache).  Runs on
+    ``serving_mesh(mesh, cell.global_batch)``, as the prefill that made the
+    cache."""
+    mesh = serving_mesh(mesh, cell.global_batch)
     specs = model_specs(cfg)
     B = cell.global_batch
     cache_structs = lm.cache_shape_specs(cfg, B, cell.seq_len)

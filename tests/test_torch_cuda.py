@@ -15,6 +15,7 @@ from repro_torch.kernels.segagg import ops, tuning
 from repro_torch.kernels.segagg.ref import segagg_ref, zipf_keys
 from repro_torch.kernels.segagg.segagg import (
     NARROW_TABLE_BYTES,
+    narrow_work,
     scatter_caps,
     scatter_plan_for,
     segagg_narrow_cuda,
@@ -156,6 +157,89 @@ class TestScatterOnCard:
         segagg_scatter_cuda(k, x, 1_500_000)
         assert segagg_scatter_cuda.launches == cluster + 1
         assert segagg_scatter_atomic_cuda.launches == atomic + 1
+
+
+def _narrow_inputs(n, g, v, seed, cuda, first=0):
+    """Rows ``first`` .. ``first + n`` of longer keys (uniform in [0, g), 1%
+    of them outside on either side, negative ones included) and |values|."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, g, n + 4).astype(np.int32)
+    bad = rng.random(n + 4) < 0.01
+    keys[bad] = rng.choice([-1, -(g + 1), g, g + 7, -(2**31), 2**31 - 1], bad.sum())
+    vals = np.abs(rng.standard_normal((n + 4, v))).astype(np.float32)
+    k, x = torch.from_numpy(keys).to(cuda), torch.from_numpy(vals).to(cuda)
+    return k[first:first + n], x[first:first + n]
+
+
+def _check_narrow(k, x, g):
+    ones = torch.ones_like(x)
+    assert torch.equal(segagg_narrow_cuda(k, ones, g), segagg_ref(k, ones, g))
+    torch.testing.assert_close(segagg_narrow_cuda(k, x, g).double(),
+                               segagg_ref(k, x.double(), g), rtol=1e-4, atol=1e-4)
+    assert not narrow_work(k.device).any()  # the last block leaves it zero
+
+
+@pytest.mark.cuda
+class TestNarrowOnCard:
+    """The narrow kernel's paths against the plain version (counts by
+    ``torch.equal``, |values| sums within 1e-4): register slots (G*V <= 32)
+    and the shared table up to ``NARROW_TABLE_BYTES``; the vector path from
+    a 16-byte boundary or from row 1 (three head rows), the element path at
+    V = 3 and for keys and values at different offsets; ragged and tiny N."""
+
+    @pytest.mark.parametrize("g, v", [(g, v) for g in (1, 5, 32, 33, 2048, 12288)
+                                      for v in (1, 3) if g * v * 4 <= NARROW_TABLE_BYTES])
+    @pytest.mark.parametrize("first", [0, 1])
+    def test_matches_plain_version(self, cuda, g, v, first):
+        k, x = _narrow_inputs(1_000_003, g, v, seed=g + v + first, cuda=cuda, first=first)
+        _check_narrow(k, x, g)
+
+    @pytest.mark.parametrize("g", [1, 5, 33])
+    def test_keys_and_values_at_different_offsets(self, cuda, g):
+        k, _ = _narrow_inputs(700_001, g, 1, seed=g, cuda=cuda, first=1)
+        _, x = _narrow_inputs(700_001, g, 1, seed=g + 1, cuda=cuda)
+        assert k.data_ptr() % 16 != x.data_ptr() % 16
+        _check_narrow(k, x, g)
+
+    @pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7])
+    @pytest.mark.parametrize("first", [0, 1, 2, 3])
+    def test_tiny_inputs(self, cuda, n, first):
+        for g, v in ((1, 1), (5, 1), (5, 3), (33, 1)):
+            k, x = _narrow_inputs(n, g, v, seed=n + first, cuda=cuda, first=first)
+            _check_narrow(k, x, g)
+
+    def test_one_launch_a_call(self, cuda):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        k, x = _narrow_inputs(100_003, 5, 1, seed=8, cuda=cuda)
+        segagg_narrow_cuda(k, x, 5)  # the stream's workspace exists
+        torch.cuda.synchronize()
+        before = segagg_narrow_cuda.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            segagg_narrow_cuda(k, x, 5)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert len(names) == 1 and "segagg_narrow" in names[0], names
+        assert segagg_narrow_cuda.launches == before + 1
+
+    def test_two_streams_keep_their_own_workspace(self, cuda):
+        k, x = _narrow_inputs(2_000_003, 2048, 1, seed=6, cuda=cuda)
+        want = segagg_ref(k, x.double(), 2048)
+        streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+        outs = []
+        torch.cuda.synchronize()
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append([segagg_narrow_cuda(k, x, 2048) for _ in range(3)])
+        torch.cuda.synchronize()
+        works = []
+        for s in streams:
+            with torch.cuda.stream(s):
+                works.append(narrow_work(cuda))
+        assert works[0].data_ptr() != works[1].data_ptr()
+        for got in (o for row in outs for o in row):
+            torch.testing.assert_close(got.double(), want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
