@@ -83,16 +83,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSmScatter = 8;
 constexpr int kNarrowThreads = 256;
-// Measured on the H100 (scripts/torch_segagg_narrow.py --variants, which
-// builds other values): 2, 4 or 8 quads ahead tie; 1 block an SM loses.
-#ifndef NARROW_BLOCKS_PER_SM
-#define NARROW_BLOCKS_PER_SM 4
-#endif
-#ifndef NARROW_UNROLL
-#define NARROW_UNROLL 4
-#endif
-constexpr int kNarrowBlocksPerSm = NARROW_BLOCKS_PER_SM;  // 1,024 threads an SM at most
-constexpr int kNarrowUnroll = NARROW_UNROLL;  // quads (or elements) loaded before any is added
+// Measured on the H100: 2, 4 or 8 quads ahead tie; 1 block an SM loses.
+constexpr int kNarrowBlocksPerSm = 4;  // 1,024 threads an SM at most
+constexpr int kNarrowUnroll = 4;       // quads (or elements) loaded before any is added
 constexpr int kNarrowMinUnits = 2 * kNarrowUnroll;  // a thread's fewest quads (or elements)
 constexpr int kNarrowMaxTable = 12288;   // floats of the workspace's accumulator (48 KB)
 constexpr int kClusterThreads = 1024;  // one block an SM: its table takes the shared memory

@@ -25,7 +25,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import _build, register_cost
+from .. import _build, is_fake, register_cost
 
 MAX_HEAD_DIM = 256
 
@@ -96,6 +96,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rounded to bf16, soft-capped, masked); a row that sees no key gets
     ``log(1e-20)``.  The launch is the op ``repro_torch::flash_attention_fwd``
     (CUDA only; its fake gives the shapes)."""
+    if q.device.type == "cpu" and not is_fake(q):  # no CPU kernel: refuse as a launch would
+        _check(q, k, v)
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset {q_offset} must be >= 0")
     kv_len = None

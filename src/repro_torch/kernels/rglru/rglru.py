@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _build, register_cost
+from .. import _build, is_fake, register_cost
 
 DTYPES = (torch.bfloat16, torch.float32)
 CHUNK = 128  # the kernels' chunk: one carry a chunk
@@ -85,6 +85,8 @@ def rglru_cuda(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
     f32 state entering each chunk, (B, ceil(S / CHUNK), N) (serving passes
     a null pointer: nothing more is written).  The launch is the op
     ``repro_torch::rglru_scan`` (CUDA only; its fake gives the shapes)."""
+    if x.device.type == "cpu" and not is_fake(x):  # no CPU kernel: refuse as a launch would
+        _check(x, r, i, a_param, h0)
     y, h_last, carries = torch.ops.repro_torch.rglru_scan(x, r, i, a_param, h0,
                                                           bool(return_carries))
     return (y, h_last, carries) if return_carries else (y, h_last)

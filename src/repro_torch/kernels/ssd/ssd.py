@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _build, register_cost
+from .. import _build, is_fake, register_cost
 
 DTYPES = (torch.bfloat16, torch.float32)
 CHUNK = 128      # the kernel's chunk length
@@ -75,6 +75,8 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
     entering each ``CHUNK``-step chunk, (B, H, chunks, N, P) (serving
     passes a null pointer: nothing more is written).  The launch is the op
     ``repro_torch::ssd_fwd`` (CUDA only; its fake gives the shapes)."""
+    if x.device.type == "cpu" and not is_fake(x):  # no CPU kernel: refuse as a launch would
+        _check(x, dt, A, Bm, Cm, D, h0)
     y, h_last, states = torch.ops.repro_torch.ssd_fwd(x, dt, A, Bm, Cm, D, h0,
                                                       bool(return_states))
     return (y, h_last, states) if return_states else (y, h_last)
