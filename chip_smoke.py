@@ -424,13 +424,17 @@ RG_TRAIN_UNITS = 1
 RG_TRAIN_BATCH, RG_TRAIN_SEQ = 2, SERVE_SEQ
 SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 8, 2048
 # 20a: the RG-LRU backward kernel against rglru_bwd_ref (sequential, f32) at
-# recurrentgemma's training shape and a ragged one with h0 and dh_last:
-# (B, S, N, with h0 and dh_last).  Relative L2 error of each gradient: in
+# recurrentgemma's training shape (timed), a ragged one with h0 and dh_last
+# (N 80: the element path), S below one chunk, and rows off a 16-byte
+# boundary (contiguous views at storage offset 1: the element path at N
+# 4,096): (B, S, N, with h0 and dh_last, storage offset).  Relative L2
+# error of each gradient: in
 # f32 1e-4 (the CPU tests' tolerance against the JAX package's autodiff;
 # the two differ in summation order, expf and fused multiply-adds); in bf16
 # dx, dr and di are rounded once to bf16 (relative L2 ~1e-3): 1e-2; d
 # a_param and dh0 stay f32: 1e-4.
-RGLRU_BWD_SHAPES = ((RG_TRAIN_BATCH, RG_TRAIN_SEQ, 4096, False), (2, 1000, 80, True))
+RGLRU_BWD_SHAPES = ((RG_TRAIN_BATCH, RG_TRAIN_SEQ, 4096, False, 0), (2, 1000, 80, True, 0),
+                    (2, 127, 4096, True, 0), (2, 1000, 4096, True, 1))
 RGLRU_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # 20b: the SSD's states against the plain version's (SSD_H_RTOL and
 # SSD_H_ATOL), and ssd_bwd fed the f32 kernel's states against autograd
@@ -2023,6 +2027,17 @@ def training_path(args, counters, bf16_peak: float) -> tuple:
 
 # -- phase 20 ----------------------------------------------------------------
 
+def at_offset(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts ``offset`` elements into its
+    storage (``t`` itself at 0)."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def rglru_train_parity(rglru_cuda, rglru_bwd_cuda, rglru_ref, rglru_bwd_ref, fwd_fb,
                        bwd_fb) -> dict:
     """20a: at each of ``RGLRU_BWD_SHAPES``, bf16 and f32, the forward with
@@ -2032,15 +2047,20 @@ def rglru_train_parity(rglru_cuda, rglru_bwd_cuda, rglru_ref, rglru_bwd_ref, fwd
     bf16, the backward's time beside its byte bound and the plain
     version's, and the forward's with and without carries.  Returns the
     backward's kernel record."""
+    from repro_torch.kernels.rglru.rglru import bwd_resources
+
+    resources = {t: bwd_resources(t) for t in (torch.bfloat16, torch.float32)}
+    log("    backward kernel: " + ", ".join(f"{str(t)[6:]} {regs} registers, {blocks} blocks "
+                                          f"an SM" for t, (regs, blocks) in resources.items()))
     rec = {}
-    for B, S, N, ends in RGLRU_BWD_SHAPES:
+    for B, S, N, ends, offset in RGLRU_BWD_SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(20 + S + N)
         f = lambda *shape: torch.randn(shape, device="cuda", generator=gen)  # noqa: E731
         x32, r32, i32 = f(B, S, N), torch.sigmoid(f(B, S, N)), torch.sigmoid(f(B, S, N))
         a_param, dy32 = f(N), f(B, S, N)
         h0, dh_last = (f(B, N), f(B, N)) if ends else (None, None)
         for dtype in (torch.bfloat16, torch.float32):
-            x, r, i, dy = (t.to(dtype) for t in (x32, r32, i32, dy32))
+            x, r, i, dy = (at_offset(t.to(dtype), offset) for t in (x32, r32, i32, dy32))
             y, h_last = rglru_cuda(x, r, i, a_param, h0)
             y2, h_last2, carries = rglru_cuda(x, r, i, a_param, h0, return_carries=True)
             same = torch.equal(y, y2) and torch.equal(h_last, h_last2)
@@ -2056,7 +2076,9 @@ def rglru_train_parity(rglru_cuda, rglru_bwd_cuda, rglru_ref, rglru_bwd_ref, fwd
                           for g, w in zip(got, want))
             finite = all(torch.isfinite(g).all() for g in got)
             log(f"  rglru B={B} S={S} N={N} {str(dtype)[6:]}"
-                f"{', h0 and dh_last' if ends else ''}: forward with and without carries "
+                f"{', h0 and dh_last' if ends else ''}"
+                f"{f', storage offset {offset}' if offset else ''}: forward with and without "
+                f"carries "
                 f"{'bit-equal' if same else 'DIFFERENT'}, carries max abs err {c_err:.3e} "
                 f"(limit {STATE_TOL}); backward rel L2 "
                 + ", ".join(f"{n} {rels[n]:.3e} ({tols[n]})" for n in names)
@@ -2064,8 +2086,9 @@ def rglru_train_parity(rglru_cuda, rglru_bwd_cuda, rglru_ref, rglru_bwd_ref, fwd
             if not (same and c_err <= STATE_TOL and finite
                     and all(rels[n] <= tols[n] for n in names)):
                 raise AssertionError(f"the RG-LRU backward kernel disagrees with "
-                                     f"rglru_bwd_ref at B={B} S={S} N={N} {dtype}")
-            if ends or dtype != torch.bfloat16:
+                                     f"rglru_bwd_ref at B={B} S={S} N={N} {dtype}, "
+                                     f"storage offset {offset}")
+            if (B, S, N) != RGLRU_BWD_SHAPES[0][:3] or dtype != torch.bfloat16:
                 continue
             b_ms, b_by = bound(*bwd_fb(B, S, N, 2), "float32")
             rec = {"shape": f"B={B} S={S} N={N} bf16", "max_abs_err": abs_err,
@@ -2078,7 +2101,9 @@ def rglru_train_parity(rglru_cuda, rglru_bwd_cuda, rglru_ref, rglru_bwd_ref, fwd
                    "fwd_carries_ms": cuda_ms(lambda: rglru_cuda(x, r, i, a_param,
                                                                 return_carries=True),
                                              reps=KERNEL_REPS),
-                   "fwd_bound_ms": bound(*fwd_fb(B, S, N, 2), "bfloat16")[0]}
+                   "fwd_bound_ms": bound(*fwd_fb(B, S, N, 2), "bfloat16")[0],
+                   "registers": resources[torch.bfloat16][0],
+                   "blocks_per_sm": resources[torch.bfloat16][1]}
             log(f"    backward {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, bound "
                 f"{b_ms:.4f} by {b_by} ({b_ms / rec['ms']:.1%} of it reached); forward "
                 f"{rec['fwd_ms']:.4f} ms, with carries {rec['fwd_carries_ms']:.4f} (bound "

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""The serving launches of the LM kernels and the analytics path's narrow
-GROUP-BY kernel in several checkouts, on one CUDA card: flash attention, the
-RG-LRU scan, the SSD and ``segagg_narrow``.
+"""The serving launches of the LM kernels, the RG-LRU backward and the
+analytics path's narrow GROUP-BY kernel in several checkouts, on one CUDA
+card: flash attention, the RG-LRU scan, the SSD, ``rglru_scan_bwd`` and
+``segagg_narrow``.
 
     python3 scripts/torch_flash_ab.py build/parent . . build/parent \
-        --labels parent change1 change2 parent2 [--kernels narrow]
+        --labels parent change1 change2 parent2 [--kernels narrow rglru_bwd]
 
 Each checkout is timed in a process of its own, one after the other (in
 the order given: parent, change, change, parent compares two versions in
@@ -32,6 +33,17 @@ zeroed output.  Each result is first held against ``segagg_ref`` (counts
 exact, sums within 1e-4).  Beside them: the byte bound (4N + 4NV + 4GV
 bytes at 3.35 TB/s) and the host's time to issue one wrapper call (200
 calls at CQ2's shape on the host clock, none synchronised).
+
+RG-LRU backward (``rglru_bwd_cuda``, wrapper included: its allocations
+and the sum of the d a_param partials) at recurrentgemma-9b's training
+shape (B 2, S 4,096, N 4,096, bf16, no h0 or dh_last) and a ragged one (B
+2, S 1,000, N 80, bf16, with h0 and dh_last), from the carries of that
+checkout's forward.  Each result is first held against ``rglru_bwd_ref``
+to ``chip_smoke.py`` phase 20a's tolerances (relative L2: dx, dr and di
+1e-2, d a_param and dh0 1e-4).  Beside them: the byte bound (14 bytes an
+element and the f32 carries, partials and ends, at 3.35 TB/s) and, where
+the checkout exports it, the kernel's registers and blocks an SM.  CUDA
+events, mean of 20 launches after two warm-ups, three rounds.
 
 ``--kernels`` picks the families (default all).  Prints one JSON line a
 checkout, the card's name and power limit in it, and exits non-zero if any
@@ -62,7 +74,11 @@ NARROW_SHAPES = (("TPC-Q6-like", 34_957_000, 1, "zero", 0),
                  ("CQ2", 8_748_300, 5, "uniform", 0),
                  ("G=2048 at CQ2's N", 8_748_300, 2048, "uniform", 0),
                  ("TPC-Q6-like from row 1", 34_957_000, 1, "zero", 1))
-KERNELS = ("flash", "rglru", "ssd", "narrow")
+# (label, B, S, N, with h0 and dh_last)
+RGLRU_BWD_SHAPES = (("rglru_bwd training B=2", 2, 4096, 4096, False),
+                    ("rglru_bwd ragged", 2, 1000, 80, True))
+RGLRU_BWD_TOL = 1e-2  # dx, dr, di in bf16; d a_param and dh0 1e-4
+KERNELS = ("flash", "rglru", "ssd", "rglru_bwd", "narrow")
 REPS, ROUNDS = 20, 3
 NARROW_REPS = 5
 HOST_CALLS = 200
@@ -115,8 +131,14 @@ def worker(root: str, kernels) -> dict:
             D = torch.randn(H, device="cuda", generator=gen)
             calls.append((label, lambda x=x, dt=dt, A=A, Bh=Bh, Ch=Ch, D=D:
                           ssd_cuda(x, dt, A, Bh, Ch, D), REPS, 2))
+    parts = []  # each family's records by key (bounds, errors), merged below
+    if "rglru_bwd" in kernels:
+        parts.append(rglru_bwd_calls(gen, calls))
     if "narrow" in kernels:
-        out.update(narrow_calls(gen, calls, library))
+        parts.append(narrow_calls(gen, calls, library))
+    for part in parts:
+        for key, record in part.items():
+            out.setdefault(key, {}).update(record)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     times = {label: [] for label, *_ in calls + library}
     for group in (calls, library):
@@ -133,6 +155,44 @@ def worker(root: str, kernels) -> dict:
     if "narrow" in kernels:
         out["host_us_a_call"] = narrow_host_us(calls)
     out["ms"] = times
+    out["median_ms"] = {label: sorted(t)[len(t) // 2] for label, t in times.items()}
+    return out
+
+
+def rglru_bwd_calls(gen, calls) -> dict:
+    """Adds the RG-LRU backward's calls at ``RGLRU_BWD_SHAPES``, each result
+    first held against ``rglru_bwd_ref``; returns their byte bounds and the
+    kernel's resources where the checkout reports them."""
+    import torch
+
+    from repro_torch.kernels.rglru import rglru as rg
+    from repro_torch.kernels.rglru.ref import rglru_bwd_ref
+
+    def rel_l2(got, want):
+        return ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
+
+    bound, errors = {}, {}
+    for label, B, S, N, ends in RGLRU_BWD_SHAPES:
+        f = lambda *shape: torch.randn(shape, device="cuda", generator=gen)  # noqa: E731
+        x, dy = f(B, S, N).bfloat16(), f(B, S, N).bfloat16()
+        r, i = torch.sigmoid(f(B, S, N)).bfloat16(), torch.sigmoid(f(B, S, N)).bfloat16()
+        a, (h0, dh_last) = f(N), ((f(B, N), f(B, N)) if ends else (None, None))
+        carries = rg.rglru_cuda(x, r, i, a, h0, return_carries=True)[2]
+        got = rg.rglru_bwd_cuda(x, r, i, a, carries, dy, dh_last)
+        want = rglru_bwd_ref(x, r, i, a, h0, dy, dh_last)
+        errs = {n: rel_l2(g, w) for n, g, w in zip(("dx", "dr", "di", "da_param", "dh0"),
+                                                   got, want)}
+        if any(e > (RGLRU_BWD_TOL if n in ("dx", "dr", "di") else 1e-4)
+               for n, e in errs.items()):
+            raise AssertionError(f"{label}: the kernel differs from rglru_bwd_ref: {errs}")
+        errors[label] = errs
+        calls.append((label, lambda x=x, r=r, i=i, a=a, c=carries, dy=dy, dh=dh_last:
+                      rg.rglru_bwd_cuda(x, r, i, a, c, dy, dh), REPS, 2))
+        bound[label] = rg.bwd_flops_bytes(B, S, N, 2)[1] / HBM_BYTES_PER_S * 1e3
+    out = {"bound_ms": bound, "rel_l2": errors}
+    if hasattr(rg, "bwd_resources"):
+        out["registers_blocks_per_sm"] = {str(t)[6:]: rg.bwd_resources(t)
+                                          for t in (torch.bfloat16, torch.float32)}
     return out
 
 

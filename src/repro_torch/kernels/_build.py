@@ -64,6 +64,8 @@ LIBRARIES: Dict[str, tuple] = {
         # da_part, batch, seq, width, is_bf16, stream
         "rglru_scan_bwd": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                            _PTR, _PTR, _I32, _I32, _I32, _I32, _PTR),
+        # is_bf16, &registers, &blocks_per_sm
+        "rglru_bwd_resources": (_I32, _I32P, _I32P),
     }),
     # The earlier designs of the two kernels above (the flash one without
     # q_offset and kv_len): the yardsticks that chip_smoke.py times the

@@ -173,7 +173,9 @@ def rglru_bwd_chunked_ref(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
     is the carry from the chunk after combined with the sub-segments after
     it (P e_in + e_first), then g_t = dy_t + e_{t+1} from e_in.  d a_param
     is summed per (b, chunk) over the sub-segments in order, then over
-    (b, chunk).  Same results as ``rglru_bwd_ref``."""
+    (b, chunk).  The gate terms are formed as ``gate_terms`` forms them;
+    the kernel forms a^2 as a a and 1 / beta with one reciprocal square
+    root, a few f32 ulps apart.  Same results as ``rglru_bwd_ref``."""
     B, S, N = x.shape
     chunk = steps * segments
     chunks = -(-S // chunk)

@@ -17,6 +17,7 @@ calls it, it is the yardstick ``chip_smoke.py`` times.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -177,6 +178,20 @@ def _(x, r, i, a_param, carries, dy, dh_last):
 
 
 rglru_bwd_cuda.launches = 0
+
+
+def bwd_resources(dtype: torch.dtype) -> Tuple[int, int]:
+    """(registers a thread, blocks an SM) of the backward kernel for x's
+    ``dtype`` on the current card, as its build gives them (for the
+    record; no launch)."""
+    if dtype not in DTYPES:
+        raise TypeError(f"rglru_bwd: dtype must be one of {DTYPES} (got {dtype})")
+    registers, blocks = ctypes.c_int32(0), ctypes.c_int32(0)
+    code = _build.load("rglru").rglru_bwd_resources(int(dtype == torch.bfloat16),
+                                                   ctypes.byref(registers),
+                                                   ctypes.byref(blocks))
+    _build.check("rglru", code, "rglru_bwd_resources")
+    return registers.value, blocks.value
 
 
 def rglru_serial_cuda(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,

@@ -858,6 +858,57 @@ class TestTrainOnCard:
             assert torch.isfinite(g).all(), name
             assert _rel_l2(g, w) < tol, (name, _rel_l2(g, w))
 
+    # The redesigned kernel's edges: S below one chunk (1, 127) and an exact
+    # multiple of it (256); rows off a 16-byte boundary (contiguous views at
+    # storage offset 1: the element path, not the cp.async ring); B 3 at
+    # N 4,096 (384 blocks, more than two an SM); dh_last without h0.
+    @pytest.mark.parametrize("B, S, N, with_h0, with_dh, offset", [
+        (2, 1, 64, True, True, 0), (2, 127, 96, False, True, 0), (1, 256, 128, True, False, 0),
+        (2, 300, 64, True, True, 1), (3, 384, 4096, False, False, 0),
+        (2, 200, 96, False, True, 0)])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_rglru_bwd_edges_match_plain_version(self, cuda, B, S, N, with_h0, with_dh, offset,
+                                                 dtype):
+        rng = np.random.default_rng(S + N + offset)
+        f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)  # noqa: E731
+
+        def placed(t):  # a contiguous copy ``offset`` elements into its storage
+            buf = torch.empty(t.numel() + offset, dtype=dtype, device=cuda)
+            view = buf[offset:].view(t.shape)
+            view.copy_(t)
+            return view
+
+        x, r, i, dy = (placed(t) for t in (f(B, S, N), torch.sigmoid(f(B, S, N)),
+                                            torch.sigmoid(f(B, S, N)), f(B, S, N)))
+        assert all(t.is_contiguous() and t.storage_offset() == offset for t in (x, r, i, dy))
+        a_param = f(N)
+        h0, dh_last = (f(B, N) if with_h0 else None), (f(B, N) if with_dh else None)
+        _, _, carries = rglru_cuda(x, r, i, a_param, h0, return_carries=True)
+        before = rglru_bwd_cuda.launches
+        got = rglru_bwd_cuda(x, r, i, a_param, carries, dy, dh_last)
+        assert rglru_bwd_cuda.launches == before + 1
+        want = rglru_bwd_ref(x, r, i, a_param, h0, dy, dh_last)
+        for name, g, w in zip(("dx", "dr", "di", "da_param", "dh0"), got, want):
+            tol = RGLRU_BWD_TOL[dtype] if name in ("dx", "dr", "di") else 1e-4
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert torch.isfinite(g).all(), name
+            assert _rel_l2(g, w) < tol, (name, _rel_l2(g, w))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_rglru_bwd_is_bit_equal_across_calls(self, cuda, dtype):
+        """No atomics: d a_param is summed over warps, chunks and rows in a
+        fixed order, so two calls on the same inputs agree bit for bit."""
+        rng = np.random.default_rng(28)
+        f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)  # noqa: E731
+        x, r, i, dy = f(2, 1000, 4096).to(dtype), torch.sigmoid(f(2, 1000, 4096)).to(dtype), \
+            torch.sigmoid(f(2, 1000, 4096)).to(dtype), f(2, 1000, 4096).to(dtype)
+        a_param, h0, dh_last = f(4096), f(2, 4096), f(2, 4096)
+        _, _, carries = rglru_cuda(x, r, i, a_param, h0, return_carries=True)
+        first = rglru_bwd_cuda(x, r, i, a_param, carries, dy, dh_last)
+        second = rglru_bwd_cuda(x, r, i, a_param, carries, dy, dh_last)
+        for name, g, h in zip(("dx", "dr", "di", "da_param", "dh0"), first, second):
+            assert torch.equal(g, h), name
+
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_null_carries_and_states_give_bit_equal_serving_outputs(self, cuda, dtype):
         """Serving passes null carries and states: the outputs are bit-equal
