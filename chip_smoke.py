@@ -260,11 +260,25 @@ exits 2 with one line on stderr that says which):
    predicted peak beside 21a's measured one (fail below 0.75 of it); 21d,
    yi-6b ``train_4k`` on the single production mesh (data 32 x model 8).
 
+22. the port across cards (after phase 21, the main path, part 10):
+   ``scripts/torch_four_cards.py`` in a process group of its own, which
+   starts its ranks as ``torch.distributed.run`` does (``make_host_mesh``
+   joins them through ``env://``, one card a rank): with four cards visible
+   ``--world 4``, its parts (a)-(d) (the analytics mesh over
+   ``DeviceMesh(4)``, the train program on (4, 1) and (1, 4), the prefill
+   and decode programs there, internvl2-76b prefilled at 80 layers on (1,
+   4)); with fewer, ``--world 1``: one rank through the same rendezvous,
+   ``init_params_sharded`` against ``init_params`` and 21a's train program
+   (wq and wk divided by 16, as in 19b) at (1, 1) for 2 steps against
+   ``train_step`` within 2e-2, its peak against the dry run's both ways
+   (0.75), and a line that names the parts not run.  A failure there fails
+   the smoke.
+
 Phases 12-15 count their launches apart from phases 4-5 (phase 6's counts)
 and the serving paths; the result line carries them under
 ``launches_by_phase`` (flash's ``launches`` is phases 9, 16, 18, 19 (19c
-and 19d), 20 (20e) and 21 (the programs' runs in 21a and 21c) together;
-``rglru_bwd`` is 20e's).
+and 19d), 20 (20e), 21 (the programs' runs in 21a and 21c) and 22 (its
+programs' runs on every rank) together; ``rglru_bwd`` is 20e's).
 
 Each parity line prints the largest absolute error and its worst ratio to
 the ``torch.allclose`` limit ``atol + rtol |want|`` (the check passes up to
@@ -387,6 +401,7 @@ SHARDED_REL_L2 = 2e-2       # 21a's gate where a leaf is not bit-equal
 SHARDED_SERVE = ((SERVE_ARCH, 1), (SSM_ARCH, 8))   # 21c: (arch, units)
 SHARDED_BATCH, SHARDED_SEQ = 2, SERVE_SEQ
 PEAK_FLOOR = 0.75           # 21b: predicted / measured peak at least this
+FOUR_CARDS_TIMEOUT = 900    # phase 22: seconds for scripts/torch_four_cards.py
 # 19a: the kernel's lse against the f32 reference's (the same f32 logits
 # summed in another order) and dq, dk, dv against flash_bwd fed the f32
 # reference's output and lse (bf16 gradients, and delta = rowsum(dO O) from
@@ -2520,6 +2535,51 @@ def sharded_path(args, counters) -> dict:
     return launched
 
 
+# -- phase 22 ----------------------------------------------------------------
+
+def four_cards_path() -> dict:
+    """Phase 22: ``scripts/torch_four_cards.py`` in a process group of its
+    own, at ``--world 4`` where four cards are visible, else at ``--world
+    1``; its output is logged, a failure fails the smoke.  Returns the
+    launches of its programs' runs by kernel, summed over its ranks."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                          "torch_four_cards.py")
+    world = 4 if torch.cuda.device_count() >= 4 else 1
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[22] the port across cards: scripts/torch_four_cards.py --world {world}")
+    if world == 1:
+        log(f"  not run: the four-card parts ((a) the analytics mesh over DeviceMesh(4), (b) "
+            f"at (4, 1) and (1, 4), (c), (d) internvl2-76b on (1, 4)): torch sees "
+            f"{torch.cuda.device_count()} card(s); --world 1 runs the env:// rendezvous, "
+            f"the leaf-wise init and (b) at (1, 1)")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, script, "--world", str(world)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=FOUR_CARDS_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)  # the script and its ranks
+        proc.communicate()
+        raise AssertionError(f"phase 22 did not finish within {FOUR_CARDS_TIMEOUT} s")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    lines = out.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"  | {line}")
+    if proc.returncode != 0:
+        log(f"  | {lines[-1] if lines else ''}")
+        raise AssertionError(f"phase 22: scripts/torch_four_cards.py --world {world} exited "
+                             f"{proc.returncode}")
+    summary = json.loads(lines[-1])["four_cards"]
+    log(f"  phase 22: every gate met at --world {world} in {time.perf_counter() - t0:.1f} s; "
+        f"launches {summary['launches']}")
+    return summary["launches"]
+
+
 # -- phase 14 ----------------------------------------------------------------
 
 def admission_path(args, cfg, ex, cm, engine, core, counters) -> dict:
@@ -3521,6 +3581,11 @@ def main(argv=None) -> int:
     for k, n in sharded_path(args, counters).items():
         launches[k] = launches.get(k, 0) + n
         by_phase.setdefault(k, {})["21"] = n
+
+    # 22. the port across cards, in its own ranks
+    for k, n in four_cards_path().items():
+        launches[k] = launches.get(k, 0) + n
+        by_phase.setdefault(k, {})["22"] = n
 
     replaces = {"segagg_narrow": "src/repro/kernels/segagg/segagg.py:48",
                 "segagg_scatter": "src/repro/kernels/segagg/segagg.py:75",

@@ -1,0 +1,1115 @@
+#!/usr/bin/env python3
+"""The port across the cards of one host: the analytics mesh on four cards,
+the train, prefill and decode programs on (4, 1) and (1, 4) NCCL meshes, and
+internvl2-76b prefilled at full size on (1, 4).
+
+    python3 scripts/torch_four_cards.py --world 4    # four cards: parts (a)-(d)
+    python3 scripts/torch_four_cards.py --world 1    # one card: the rendezvous,
+                                                     # the init and part (b) at (1, 1)
+
+The script is its own launcher: it starts ``--world`` ranks of itself
+(``--worker``), each with the environment ``torch.distributed.run`` gives
+its ranks (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, a free
+``MASTER_PORT``), so each rank joins the group through ``make_host_mesh``'s
+``env://`` rendezvous on the card ``LOCAL_RANK`` names.  Without CUDA, or
+with fewer cards than ``--world``, it exits 2 with one line on stderr; a
+failed rank fails the run (the others are killed), and the run never falls
+back to fewer cards or to the CPU.
+
+Parts, each gated (every gate is checked, the run goes on, and an unmet
+gate exits 1 at its end):
+
+(a) (launcher process, four cards) the analytics main path at the paper's
+    scale (4,500 files per stream): for CQ3, CQ4, CQ2 and TPC-Q6-like, a
+    ``Planner("single")`` plan under phase 4's deadline (``wind_end + 0.6
+    cost(n)``) on a cost model measured on the first card at phase 4's
+    batch sizes, ``run_plan`` over ``DeviceMesh(["cuda:0"])`` and
+    ``DeviceMesh(4)``, then ``MeshAnalyticsBackend`` under ``llf-dynamic``
+    over one card and over ``DeviceMesh(4)`` (``shard_across=4``,
+    ``ShardedCostModel(model, 4)``).
+    Every aggregate equals the float64 host one-shot (counts exact, float
+    sums within ``FLOAT_RTOL``), and over four cards shard groups are fused.
+    Readings: walls, dispatch seconds, launches by route and by card.
+(b) the train program (``build_train_program``) for yi-6b at full width and
+    8 of 32 layers, B 4 x S 2,048, ``TRAIN_STEPS`` AdamW steps, on a (4, 1)
+    and a (1, 4) mesh, the state drawn leaf by leaf into its shards
+    (``init_params_sharded``, every leaf's ``full_tensor()`` bit-equal to
+    ``init_params``), then each ``wq`` and ``wk`` divided by ``TEMPER`` (the
+    smoke's phase 19b: on the seeded init one card's own ``train_step``
+    with its batch in 4 microbatches parts from ``train_step`` by up to 1.7
+    relative L2 after the second step, ``scripts/torch_train_floor.py``, so
+    no state comparison could tell a fault from the init's chaos).  Rank 0 gathers the state to the host,
+    frees it, then runs ``train_step`` on its one card, and beside it
+    ``train_step`` with the batch in as many microbatches as the mesh has
+    data ranks (the floor: summation order alone): the loss and every leaf
+    within ``REL_L2`` relative L2, or within ``NOISE_RATIO`` x the floor's
+    distance where that is larger.  Each rank launches the flash kernel 16
+    times a step and no plain version on the card.  The peak a card is
+    held against the dry run's (``launch/dryrun.py`` ``run_cell(...,
+    mesh_shape=...)``, in the launcher): at least ``PEAK_FLOOR`` of it, and
+    it at least ``PEAK_FLOOR`` of the measured one.  Readings: ms a step,
+    NCCL kernels' device ms by kind on the mesh's one axis of size 4
+    (``torch.profiler`` on rank 0, one more step), the idle share.
+(c) the prefill and decode programs for recurrentgemma-9b at one (rglru,
+    rglru, attn) unit and mamba2-370m at 8 layers, B 4 x S 4,096, on the
+    same two meshes: logits, every cache leaf and one decode step's logits
+    within ``REL_L2`` of the unsharded port on the rank's card, each kernel
+    launched as often as the unsharded port launches it, no plain version
+    on the card; gated on the copy with ``wq`` and ``wk`` divided by
+    ``TEMPER`` (mamba2 has none), the seeded init's distances a reading.
+    Bit-equality and the ``sharding_fallback`` events are readings.
+(d) internvl2-76b through ``build_prefill_program`` on (1, 4), B 2 x S
+    4,096 (3,840 tokens after the config's 256 stub patches): at 2 layers of
+    full width, the leaf-wise init bit-equal to ``init_params`` and the
+    logits within ``REL_L2`` of the unsharded port on one card (the
+    tempered copy gated, the seeded init a reading, as in (c)); at all 80
+    layers (70.55B parameters, seeded through ``init_params_sharded``),
+    logits finite, 80 flash launches a rank, a peak a card under 80 GB and
+    at least ``PEAK_FLOOR`` of the dry run's.  Readings: init s, prefill ms
+    (the first call, then one more), tokens/s, the NCCL share of device
+    time.
+
+At ``--world 1`` (one card, as ``chip_smoke.py``'s phase 22 runs it) the
+rank joins a one-rank group through the same rendezvous, and part (b) runs
+at (1, 1) for 2 steps; a line says which four-card parts were not run and
+why.  ``--parts`` picks parts at ``--world 1`` only (b, c and d2, part (d)
+at 2 layers), for debugging on one card.  ``--cpu`` rehearses parts (b)-(d)
+on gloo ranks on the CPU at the configs' reduced widths (2 yi-6b layers,
+sequences of 32, internvl2-76b at 3 layers; no peak or launch gate), as a
+four-card change is tried before it takes the cards:
+
+    OMP_NUM_THREADS=2 python3 scripts/torch_four_cards.py --world 4 --cpu
+
+The last line of standard output is a JSON object ``{"four_cards": ...}``:
+the world size, the card, the parts run and skipped, each part's readings
+and the launches of the programs' runs by kernel.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import gc
+import json
+import os
+import re
+import shutil
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
+
+SEED = 22
+REL_L2 = 2e-2               # the 2-rank CPU tests' rule (tests/test_torch_steps.py)
+NOISE_RATIO = 2.0           # chip_smoke.py's rule: or twice a one-card pair's distance
+TEMPER = 16.0               # (b): wq and wk divided by this (chip_smoke.py phase 19b)
+FLOAT_RTOL = 1e-4           # chip_smoke.py's float-sum rule
+PEAK_FLOOR = 0.75           # chip_smoke.py phase 21b's rule, both ways here
+HBM_LIMIT = 80e9            # bytes of one H100's HBM3
+ANALYTICS_FILES = 4500      # the paper's window
+ANALYTICS_QUERIES = ("CQ3", "CQ4", "CQ2", "TPC-Q6-like")
+CALIBRATION_FILES = (1, 4, 16, 64, 256, 1024, 2048, 3072)   # chip_smoke.py phase 4's
+TRAIN_ARCH, TRAIN_UNITS, TRAIN_BATCH, TRAIN_SEQ = "yi_6b", 8, 4, 2048
+TRAIN_STEPS = {1: 2, 4: 3}  # by world size
+SERVE = (("recurrentgemma_9b", 1), ("mamba2_370m", 8))   # (arch, units)
+SERVE_BATCH, SERVE_SEQ = 4, 4096
+VLM_ARCH, VLM_GATE_UNITS, VLM_BATCH, VLM_SEQ = "internvl2_76b", 2, 2, 4096
+VLM_UNITS = None            # None: the config's depth (80)
+REDUCED = False             # the configs' reduced widths (--cpu)
+RANK_TIMEOUT = 1500         # seconds for all ranks together
+PARTS = {1: ("b",), 4: ("a", "b", "c", "d")}
+
+
+FAILED: list = []           # the gates this process found unmet
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def gate(ok: bool, what: str) -> bool:
+    """Record an unmet gate (the run goes on, so that one run reads every
+    part, and exits 1 at its end)."""
+    if not ok:
+        FAILED.append(what)
+        log(f"  GATE FAILED: {what}")
+    return ok
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float().to(got.device)
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+def full(t):
+    """A DTensor's full value; anything else as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def tempered(params: dict) -> dict:
+    """``params`` with each ``wq`` and ``wk`` divided by ``TEMPER``: yi's
+    seeded scores (rms ~360) are nearly one-hot, ~1.4 after."""
+    return {k: (v.float() / TEMPER).to(v.dtype) if k.endswith(("/wq", "/wk")) else v
+            for k, v in params.items()}
+
+
+def smi_line() -> str:
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=30)
+        return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "nvidia-smi: none"
+    except (OSError, subprocess.SubprocessError) as exc:
+        return f"nvidia-smi: {exc!r}"
+
+
+def config(arch: str, units=None):
+    """``arch`` at its published widths (the reduced ones under
+    ``REDUCED``), cut to ``units`` units of its first segment's pattern."""
+    from repro_torch.models.base import get_config
+    from repro_torch.models.config import Segment
+
+    cfg = get_config(arch)
+    if REDUCED:
+        cfg = cfg.reduced()
+    if units is None:
+        units = get_config(arch).segments[0].num_units
+    return dataclasses.replace(cfg, segments=(Segment(cfg.segments[0].pattern, units),))
+
+
+def rehearse() -> None:
+    """``--cpu``'s sizes: the configs' reduced widths, short sequences, a
+    few layers."""
+    global REDUCED, TRAIN_UNITS, TRAIN_SEQ, SERVE, SERVE_SEQ, VLM_SEQ, VLM_UNITS
+    REDUCED, TRAIN_UNITS, TRAIN_SEQ = True, 2, 32
+    SERVE, SERVE_SEQ = (("recurrentgemma_9b", 1), ("mamba2_370m", 2)), 32
+    VLM_SEQ, VLM_UNITS = 16, 3
+
+
+def meshes(world: int) -> list:
+    """The (data, model) shapes a part runs on."""
+    return [(1, 1)] if world == 1 else [(world, 1), (1, world)]
+
+
+def axis_of(shape) -> str:
+    return "model" if shape[1] > 1 else "data" if shape[0] > 1 else "none"
+
+
+# -- counts ---------------------------------------------------------------------
+
+class Counters:
+    """The LM kernels' launches (their wrappers' ``.launches``) and the
+    plain versions' calls on CUDA tensors, over one run."""
+
+    def __init__(self):
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+        from repro_torch.kernels.rglru import ops as rg_ops
+        from repro_torch.kernels.rglru.rglru import rglru_bwd_cuda, rglru_cuda
+        from repro_torch.kernels.ssd import ops as ssd_ops
+        from repro_torch.kernels.ssd.ssd import ssd_cuda
+
+        self.kernels = {"flash_attention": flash_attention_cuda, "rglru": rglru_cuda,
+                        "ssd": ssd_cuda, "rglru_bwd": rglru_bwd_cuda}
+        self.plain_cuda = 0
+        for mod, attr in ((fa_ops, "chunked_attention_ref"), (rg_ops, "rglru_ref"),
+                          (rg_ops, "rglru_bwd_ref"), (ssd_ops, "ssd_chunked_ref")):
+            setattr(mod, attr, self._counted(getattr(mod, attr)))
+
+    def _counted(self, plain):
+        def call(t, *a, **kw):
+            self.plain_cuda += t.is_cuda
+            return plain(t, *a, **kw)
+        return call
+
+    def reset(self) -> None:
+        for k in self.kernels.values():
+            k.launches = 0
+        self.plain_cuda = 0
+
+    def read(self) -> dict:
+        return {**{n: k.launches for n, k in self.kernels.items()},
+                "plain_on_cuda": self.plain_cuda}
+
+
+@contextlib.contextmanager
+def fallbacks():
+    """The ``sharding_fallback`` events sent inside the block."""
+    from repro_torch.dist.sharding import on_fallback
+
+    got = []
+    unsubscribe = on_fallback(got.append)
+    try:
+        yield got
+    finally:
+        unsubscribe()
+
+
+def device_profile(fn, on: bool):
+    """``fn()`` under ``torch.profiler`` when ``on`` (rank 0 on the card):
+    host wall ms, device-busy ms (the union of kernel intervals), idle share
+    and NCCL kernels' device ms by collective; None when off or when the
+    profiler saw no device kernel."""
+    if not on:
+        fn()
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, nccl = [], {}
+    for e in prof.events():  # kernels only: the "nccl:*" annotations span them
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False) \
+                or ":" in e.name.split("(")[0]:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        if e.name.lower().startswith("nccl"):
+            m = re.match(r"nccl(?:Dev)?Kernel_([A-Za-z]+)", e.name)
+            kind = m.group(1) if m else e.name.split("(")[0]
+            nccl[kind] = nccl.get(kind, 0.0) + (end - start) / 1e3
+    if not spans:
+        return None
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy = (busy + cur_e - cur_s) / 1e3
+    kernel_ms = sum(e - s for s, e in spans) / 1e3
+    return {"wall_ms": wall * 1e3, "busy_ms": busy, "idle_share": 1 - busy / (wall * 1e3),
+            "kernel_ms": kernel_ms, "nccl_ms": nccl, "nccl_total_ms": sum(nccl.values()),
+            "nccl_share_of_kernel_ms": sum(nccl.values()) / kernel_ms}
+
+
+def memory_mark(dev) -> int:
+    if dev.type != "cuda":
+        return 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated(dev)
+
+
+def peak_since(dev, before: int):
+    return None if dev.type != "cuda" else torch.cuda.max_memory_allocated(dev) - before
+
+
+def reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+# -- part (a): the analytics mesh, in the launcher ------------------------------
+
+def analytics_part(world: int) -> dict:
+    from repro_torch import core
+    from repro_torch.data.tpch import PAPER_QUERIES, StreamScale, stream_files
+    from repro_torch.dist import DeviceMesh
+    from repro_torch.kernels.segagg import ops
+    from repro_torch.kernels.segagg.segagg import (segagg_narrow_cuda,
+                                                   segagg_scatter_atomic_cuda,
+                                                   segagg_scatter_cuda)
+    from repro_torch.serve.analytics import MeshAnalyticsBackend, measure_cost_model, run_plan
+
+    sc = StreamScale(1.0)
+    n = ANALYTICS_FILES
+    t0 = time.perf_counter()
+    streams = {"orders": [], "lineitem": []}
+    times = []
+    for t, orders, lineitem in stream_files(SEED, n, sc):
+        streams["orders"].append(orders)
+        streams["lineitem"].append(lineitem)
+        times.append(t)
+    arrival = core.TraceArrival(timestamps=tuple(times))
+    by_id = {aq.query_id: aq for aq in PAPER_QUERIES}
+    log(f"[a] {n} files per stream made in {time.perf_counter() - t0:.1f} s")
+
+    kernels = {"segagg_narrow": segagg_narrow_cuda, "segagg_scatter": segagg_scatter_cuda,
+               "segagg_scatter_atomic": segagg_scatter_atomic_cuda}
+    by_card, plain_cuda = {}, [0]
+    real_segagg, real_ref = ops.segagg, ops.segagg_ref
+
+    def counted_segagg(keys, values, num_groups, **kw):
+        before = {k: f.launches for k, f in kernels.items()}
+        out = real_segagg(keys, values, num_groups, **kw)
+        card = f"cuda:{values.get_device()}" if values.is_cuda else "cpu"
+        row = by_card.setdefault(card, dict.fromkeys(kernels, 0))
+        for k, f in kernels.items():
+            row[k] += f.launches - before[k]
+        return out
+
+    def counted_ref(keys, values, num_groups):
+        plain_cuda[0] += values.is_cuda
+        return real_ref(keys, values, num_groups)
+
+    ops.segagg, ops.segagg_ref = counted_segagg, counted_ref
+    out, totals = {}, dict.fromkeys(kernels, 0)
+    try:
+        one, four = DeviceMesh(["cuda:0"]), DeviceMesh(world)
+        for qid in ANALYTICS_QUERIES:
+            aq = by_id[qid]
+            files = streams[aq.stream]
+            want = host_oneshot(aq, files, aq.num_groups(sc))
+            cm = measure_cost_model(aq, files, sc, batch_sizes=CALIBRATION_FILES,
+                                    device="cuda")
+            deadline = arrival.wind_end + 0.6 * cm.cost(n)
+            q = core.Query(qid, arrival.wind_start, arrival.wind_end, deadline, n, cm, arrival)
+            plan = core.Planner(policy="single").schedule(q)
+            rec = {"plan_files": list(plan.sch_tuples)}
+            for label, mesh in (("run_plan_1", one), ("run_plan_4", four)):
+                by_card.clear()
+                t0 = time.perf_counter()
+                got, blog, _ = run_plan(aq, files, plan, sc, mesh=mesh)
+                wall = time.perf_counter() - t0
+                rec[label] = {"wall_s": wall, "batches": len(blog),
+                              "check": check_result(qid, got, want),
+                              "launches_by_card": {c: dict(r) for c, r in by_card.items()}}
+            for ways, mesh in ((1, one), (world, four)):
+                by_card.clear()
+                wb = MeshAnalyticsBackend({qid: (aq, files)}, sc, mesh)
+                model = core.ShardedCostModel(cm, ways) if ways > 1 else cm
+                qq = core.Query(qid, arrival.wind_start, arrival.wind_end, deadline, n, model,
+                                arrival)
+                t0 = time.perf_counter()
+                trace = core.run(core.get_policy("llf-dynamic", shard_across=ways), [qq],
+                                 core.ExecutorPool(worker_backend=wb))
+                wall = time.perf_counter() - t0
+                o = trace.outcome(qid)
+                gate(o.complete, f"(a) {qid}: the run over {ways} card(s) did not complete")
+                batches = [e for e in trace.executions if e.kind == "batch"]
+                calls = len({(e.start, e.end) for e in batches})
+                gate(ways == 1 or calls < len(batches),
+                     f"(a) {qid}: no shard group was fused over {ways} cards")
+                rec[f"backend_{ways}"] = {
+                    "wall_s": wall, "dispatch_s": sum(wb.wall_seconds.values()),
+                    "batches": len(batches), "mesh_calls": calls,
+                    "check": check_result(qid, wb.results[qid], want),
+                    "met_deadline": o.completion_time <= o.deadline,
+                    "launches_by_card": {c: dict(r) for c, r in by_card.items()}}
+            r1, r4 = rec["backend_1"], rec[f"backend_{world}"]
+            log(f"  (a) {qid:12s} run_plan {rec['run_plan_1']['wall_s']:.3f} s on one card, "
+                f"{rec['run_plan_4']['wall_s']:.3f} s on {world} ({rec['run_plan_4']['check']}); "
+                f"MeshAnalyticsBackend wall {r1['wall_s']:.3f} / {r4['wall_s']:.3f} s, "
+                f"dispatch {r1['dispatch_s']:.3f} / {r4['dispatch_s']:.3f} s, "
+                f"{r4['batches']} batches in {r4['mesh_calls']} mesh calls ({r4['check']}); "
+                f"launches over {world} cards {r4['launches_by_card']}")
+            gate(len(rec["run_plan_4"]["launches_by_card"]) == world,
+                 f"(a) {qid}: run_plan launched on "
+                 f"{sorted(rec['run_plan_4']['launches_by_card'])}")
+            out[qid] = rec
+            for run in rec.values():
+                for row in (run["launches_by_card"].values() if isinstance(run, dict) else ()):
+                    for k, c in row.items():
+                        totals[k] += c
+    finally:
+        ops.segagg, ops.segagg_ref = real_segagg, real_ref
+    gate(not plain_cuda[0], f"(a) the plain version ran on CUDA tensors {plain_cuda[0]} times")
+    out["launches"] = totals
+    return out
+
+
+def host_oneshot(aq, files, num_groups: int) -> np.ndarray:
+    """The whole window aggregated at once on the host in float64."""
+    keys = np.concatenate([np.asarray(aq.key_fn(f)) for f in files])
+    vals = np.concatenate([np.asarray(aq.value_fn(f), np.float64) for f in files])
+    out = np.zeros((num_groups, vals.shape[1]), np.float64)
+    for j in range(vals.shape[1]):
+        np.add.at(out[:, j], keys, vals[:, j])
+    return out
+
+
+def check_result(qid: str, got: np.ndarray, want: np.ndarray) -> str:
+    """``got`` against the host one-shot: counts exact, a float sum within
+    ``FLOAT_RTOL``; the verdict."""
+    if not gate(got.shape == want.shape and bool(np.isfinite(got).all()),
+                f"(a) {qid}: result shape {got.shape}, want {want.shape}"):
+        return "wrong shape"
+    if qid == "TPC-Q6-like":  # a float sum
+        gate(np.allclose(got, want, rtol=FLOAT_RTOL, atol=0.0),
+             f"(a) {qid}: {got.ravel()} vs host {want.ravel()}")
+        return f"rel err {np.abs(got - want).max() / np.abs(want).max():.2e}"
+    exact = gate(np.array_equal(got.astype(np.float64), want),
+                 f"(a) {qid}: counts differ from the host one-shot")
+    return "counts exact" if exact else "counts DIFFER"
+
+
+# -- the dry run's predictions, in the launcher ---------------------------------
+
+def predictions(world: int, parts) -> dict:
+    """``run_cell``'s peak a card for each program cell of the run."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.base import ShapeCell
+
+    out = {}
+    if "b" in parts:
+        cfg = config(TRAIN_ARCH, TRAIN_UNITS)
+        for shape in meshes(world):
+            rec = dryrun.run_cell(cfg, ShapeCell("b", "train", TRAIN_SEQ, TRAIN_BATCH),
+                                  mesh_shape={"data": shape[0], "model": shape[1]})
+            out[f"b{shape}"] = rec["memory"]["peak_bytes_per_chip"]
+    if "d" in parts:
+        rec = dryrun.run_cell(config(VLM_ARCH, VLM_UNITS),
+                              ShapeCell("d", "prefill", VLM_SEQ, VLM_BATCH),
+                              mesh_shape={"data": 1, "model": world})
+        out[f"d(1, {world})"] = rec["memory"]["peak_bytes_per_chip"]
+    return out
+
+
+# -- the ranks --------------------------------------------------------------------
+
+def train_part(dev, world: int, rank: int, counters: Counters) -> dict:
+    """Part (b) on each mesh of ``meshes(world)``; rank 0 holds the program's
+    gathered state against ``train_step`` on its own card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.models.base import ShapeCell
+    from repro_torch.models.params import init_params, init_params_sharded
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+
+    cfg = config(TRAIN_ARCH, TRAIN_UNITS)
+    nsteps = TRAIN_STEPS.get(world, 3)
+    cell = ShapeCell("b", "train", TRAIN_SEQ, TRAIN_BATCH)
+    adamw = AdamWConfig()
+    specs = steps.model_specs(cfg)
+    data = synthetic_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+               for _ in range(nsteps)]
+    want_flash = 2 * cfg.num_layers * nsteps if dev.type == "cuda" else 0
+    out, kept = {}, {}
+    for shape in meshes(world):
+        name = str(shape)
+        mesh = make_host_mesh(model_parallel=shape[1], device=dev.type)
+        with fallbacks() as events:
+            prog = steps.build_train_program(cfg, cell, mesh, adamw=adamw)
+            before = memory_mark(dev)
+            t0 = time.perf_counter()
+            params = init_params_sharded(specs, SEED, mesh, prog.in_placements[0].params)
+            sync(dev)
+            t_init = time.perf_counter() - t0
+            want = init_params(specs, SEED, device=dev)
+            unequal = [k for k in want if not torch.equal(full(params[k]), want[k])]
+            del want
+            gate(not unequal, f"(b) {name}: the leaf-wise init departs from init_params "
+                              f"in {unequal[:5]}")
+            state = init_state(tempered(params))
+            del params
+            state, = prog.distribute(state)
+            reset_peak(dev)
+            counters.reset()
+            walls, losses = [], []
+            for batch in batches:
+                sync(dev)
+                t0 = time.perf_counter()
+                state, metrics = prog.run(state, batch)
+                losses.append(full(metrics["loss"]).item())
+                walls.append(time.perf_counter() - t0)
+            got = counters.read()
+            peak = peak_since(dev, before)
+        gate(not got["plain_on_cuda"] and got["flash_attention"] == want_flash,
+             f"(b) {name} rank {rank}: launches {got} (want {want_flash} flash, no plain "
+             f"version on the card)")
+        # the state to the host, leaf by leaf; rank 0 keeps it
+        kept[name] = {}
+        for p in ("params", "m", "v"):
+            for k, v in getattr(state, p).items():
+                leaf = full(v)
+                if rank == 0:  # a copy: the profiled step below updates the state in place
+                    kept[name][f"{p}/{k}"] = leaf.to("cpu", copy=True)
+                del leaf
+        prof = device_profile(lambda: full(prog.run(state, batches[0])[1]["loss"]),
+                              rank == 0 and dev.type == "cuda")
+        del state, metrics
+        memory_mark(dev)
+        ms = 1e3 * sum(walls[1:]) / max(len(walls) - 1, 1)
+        out[name] = {"losses": losses, "first_ms": walls[0] * 1e3, "ms_per_step": ms,
+                     "peak_bytes": peak, "init_s": t_init, "launches": got,
+                     "fallback_events": events, "profile": prof,
+                     "nccl_axis": axis_of(shape)}
+        log(f"  (b) rank {rank} {name}: losses {[round(x, 5) for x in losses]}, first step "
+            f"{walls[0] * 1e3:.1f} ms, then {ms:.1f} ms a step; peak "
+            f"{(peak or 0) / 2 ** 30:.2f} GiB; init {t_init:.2f} s; launches {got}; "
+            f"fallback events {len(events)}")
+        if prof is not None:
+            log(f"  (b) rank 0 {name} one more step profiled: {prof['wall_ms']:.1f} ms wall, "
+                f"busy {prof['busy_ms']:.1f} ms (idle {prof['idle_share']:.1%}), NCCL on "
+                f"'{axis_of(shape)}' {prof['nccl_total_ms']:.2f} ms {prof['nccl_ms']}")
+    if rank == 0:  # train_step on this one card, the programs' state freed
+        out.update(reference_steps(cfg, specs, batches, adamw, kept, out, dev))
+        del kept
+        memory_mark(dev)
+    dist.barrier()
+    return out
+
+
+def reference_steps(cfg, specs, batches, adamw, kept: dict, runs: dict, dev) -> dict:
+    """Rank 0's one-card references for part (b): ``train_step`` from the
+    same tempered init, and beside it ``train_step`` with the batch in as
+    many microbatches as a mesh has data ranks (its gradients summed in that
+    grouping: the floor of what summation order alone moves, a leaf at a
+    time).  Each kept program state is gated leaf by leaf: within
+    ``REL_L2``, or within ``NOISE_RATIO`` x the floor where that is larger;
+    the loss likewise."""
+    from repro_torch.launch import steps
+    from repro_torch.models.params import init_params
+    from repro_torch.train.optimizer import init_state
+
+    groups = sorted({int(name.strip("()").split(",")[0]) for name in kept} - {1})
+    cfgs = {1: cfg, **{dp: dataclasses.replace(cfg, train_microbatches=dp) for dp in groups}}
+    states = {dp: init_state(tempered(init_params(specs, SEED, device=dev))) for dp in cfgs}
+    losses = {dp: [] for dp in cfgs}
+    walls = []
+    for batch in batches:
+        for dp, c in cfgs.items():
+            sync(dev)
+            t0 = time.perf_counter()
+            states[dp], metrics = steps.train_step(c, states[dp], batch, adamw)
+            losses[dp].append(metrics["loss"].item())
+            if dp == 1:
+                walls.append(time.perf_counter() - t0)
+        del metrics
+    flat = {dp: {f"{p}/{k}": v for p in ("params", "m", "v")
+                 for k, v in getattr(st, p).items()} for dp, st in states.items()}
+    ref = flat[1]
+    floors = {dp: {k: rel_l2(flat[dp][k], ref[k]) for k in ref} for dp in groups}
+    loss_floor = {dp: max(abs(a - b) / abs(b) for a, b in zip(losses[dp], losses[1]))
+                  for dp in groups}
+    out = {"train_step": {"losses": losses[1],
+                          "ms_per_step": 1e3 * sum(walls[1:]) / max(len(walls) - 1, 1)},
+           "floors": {str(dp): {"losses": losses[dp], "loss_rel_err": loss_floor[dp],
+                                "worst": max(floors[dp].items(), key=lambda kv: kv[1]),
+                                "above_rel_l2": sum(e > REL_L2 for e in floors[dp].values())}
+                      for dp in groups}}
+    for dp in groups:
+        log(f"  (b) one-card floor, train_step with {dp} microbatches against 1: losses "
+            f"{[round(x, 6) for x in losses[dp]]}, {out['floors'][str(dp)]['above_rel_l2']} "
+            f"of {len(ref)} leaves above {REL_L2}, worst {out['floors'][str(dp)]['worst']}")
+    for name, leaves in kept.items():
+        dp = int(name.strip("()").split(",")[0])
+        floor = floors.get(dp, dict.fromkeys(ref, 0.0))
+        errs = {k: rel_l2(leaves[k], ref[k]) for k in ref}
+        limits = {k: max(REL_L2, NOISE_RATIO * floor[k]) for k in ref}
+        beyond = {k: (errs[k], limits[k]) for k in ref if errs[k] > limits[k]}
+        worst = max(errs.items(), key=lambda kv: kv[1])
+        same = sum(torch.equal(ref[k], leaves[k].to(ref[k].device)) for k in ref)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(runs[name]["losses"], losses[1]))
+        loss_limit = max(REL_L2, NOISE_RATIO * loss_floor.get(dp, 0.0))
+        runs[name].update(worst_leaf=worst, bit_equal_leaves=same, leaves=len(ref),
+                          within_rel_l2=sum(e <= REL_L2 for e in errs.values()),
+                          beyond_limit=beyond, loss_rel_err=loss_err)
+        log(f"  (b) {name} against train_step on one card (losses "
+            f"{[round(x, 5) for x in losses[1]]}): {same} of {len(ref)} leaves bit-equal, "
+            f"{runs[name]['within_rel_l2']} within {REL_L2}, worst {worst[0]} at "
+            f"{worst[1]:.3e}; loss {loss_err:.3e}")
+        gate(not beyond and loss_err <= loss_limit,
+             f"(b) {name}: the program departs from train_step beyond the limit "
+             f"({REL_L2}, or {NOISE_RATIO} x the {dp}-microbatch floor): {beyond}, loss "
+             f"{loss_err:.3e} (limit {loss_limit:.3e})")
+    return out
+
+
+def variants(specs) -> list:
+    """(name, weights transform) of a part's runs: the seeded init, and for a
+    model with attention the tempered copy after it, the one gated."""
+    runs = [("seeded", lambda p: p)]
+    if any(k.endswith("/wq") for k in specs):
+        runs.append(("tempered", tempered))
+    return runs
+
+
+def serve_part(dev, world: int, rank: int, counters: Counters) -> dict:
+    """Part (c): the prefill and decode programs against the unsharded port
+    on this rank's card, for each of ``variants``; the last is gated, the
+    seeded init's distances (nearly one-hot attention) are readings."""
+    from repro_torch.launch import steps
+
+    out = {}
+    for arch, units in SERVE:
+        cfg = config(arch, units)
+        specs = steps.model_specs(cfg)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_SEQ), device=dev,
+                               generator=gen, dtype=torch.int32)
+        nxt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, 1), device=dev,
+                            generator=gen, dtype=torch.int32)
+        runs = variants(specs)
+        out[cfg.name] = {
+            label: serve_variant(cfg, specs, transform, tokens, nxt, dev, world, rank,
+                                 counters, gated=(label == runs[-1][0]), label=label)
+            for label, transform in runs}
+    return out
+
+
+def serve_variant(cfg, specs, transform, tokens, nxt, dev, world, rank, counters,
+                  gated: bool, label: str) -> dict:
+    """One set of weights of part (c) on each mesh of ``meshes(world)``."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.base import ShapeCell
+    from repro_torch.models.params import init_params, init_params_sharded
+
+    memory_mark(dev)
+    params = transform(init_params(specs, SEED, device=dev))
+    counters.reset()
+    want_logits, want_cache, clen = lm.prefill(cfg, params, tokens, SERVE_SEQ)
+    want_launch = counters.read()
+    counters.reset()
+    want_step, _ = lm.decode_step(cfg, params, {k: v.clone() for k, v in want_cache.items()},
+                                  clen, nxt)
+    want_dec = counters.read()
+    del params
+    rec = {}
+    kernels = ("flash_attention", "rglru", "ssd")
+    for shape in meshes(world):
+        name = str(shape)
+        mesh = make_host_mesh(model_parallel=shape[1], device=dev.type)
+        with fallbacks() as events:
+            pprog = steps.build_prefill_program(
+                cfg, ShapeCell("c", "prefill", SERVE_SEQ, SERVE_BATCH), mesh)
+            dprog = steps.build_decode_program(
+                cfg, ShapeCell("c", "decode", SERVE_SEQ, SERVE_BATCH), mesh)
+            params = transform(init_params_sharded(specs, SEED, pprog.mesh,
+                                                   pprog.in_placements[0]))
+            counters.reset()
+            sync(dev)
+            t0 = time.perf_counter()
+            logits, cache, pclen = pprog.run(params, {"tokens": tokens})
+            logits = full(logits)
+            sync(dev)
+            t_prefill = time.perf_counter() - t0
+            got = counters.read()
+            errs = {"logits": rel_l2(logits, want_logits)}
+            same = torch.equal(logits, want_logits) and int(pclen) == int(clen)
+            for k, v in want_cache.items():
+                leaf = full(cache[k])
+                errs[k] = rel_l2(leaf, v)
+                same = same and torch.equal(leaf, v)
+            counters.reset()
+            sync(dev)
+            t0 = time.perf_counter()
+            step_logits, _ = dprog.run(params, cache, pclen, nxt)
+            step_logits = full(step_logits)
+            sync(dev)
+            t_decode = time.perf_counter() - t0
+            dec = counters.read()
+            errs["decode_logits"] = rel_l2(step_logits, want_step)
+            same_step = torch.equal(step_logits, want_step)
+        worst = max(errs.items(), key=lambda kv: kv[1])
+        finite = bool(torch.isfinite(logits).all() and torch.isfinite(step_logits).all())
+        rec[name] = {"prefill_bit_equal": same, "decode_bit_equal": same_step,
+                     "worst": worst, "logits_rel_l2": errs["logits"],
+                     "decode_rel_l2": errs["decode_logits"], "launches": got,
+                     "unsharded_launches": want_launch, "decode_launches": dec,
+                     "prefill_ms": t_prefill * 1e3, "decode_ms": t_decode * 1e3,
+                     "fallback_events": events}
+        log(f"  (c) rank {rank} {cfg.name} at {cfg.num_layers} layers, {label}, on {name}: "
+            f"prefill bit-equal {same}, decode bit-equal {same_step}, worst {worst[0]} at "
+            f"{worst[1]:.3e} (logits {errs['logits']:.3e}, decode "
+            f"{errs['decode_logits']:.3e}); launches {got} (unsharded {want_launch}), "
+            f"decode {dec}; prefill {t_prefill * 1e3:.1f} ms, decode "
+            f"{t_decode * 1e3:.1f} ms (first calls); fallback events "
+            f"{[e.get('detail') for e in events]}")
+        gate(finite, f"(c) {cfg.name} {label} {name}: non-finite logits")
+        if gated:
+            gate(worst[1] <= REL_L2,
+                 f"(c) {cfg.name} {label} {name}: {worst} beyond {REL_L2}")
+        gate(dev.type != "cuda" or not (
+            any(got[k] != want_launch[k] for k in kernels)
+            or any(dec[k] != want_dec[k] for k in kernels)
+            or got["plain_on_cuda"] or dec["plain_on_cuda"]
+            or not any(got[k] for k in kernels)),
+            f"(c) {cfg.name} {label} {name} rank {rank}: launches {got}, decode {dec}; the "
+            f"unsharded port {want_launch}, {want_dec}")
+        del params, cache, logits, step_logits
+    return rec
+
+
+def vlm_part(dev, world: int, rank: int, counters: Counters, full_depth: bool) -> dict:
+    """Part (d): internvl2-76b on (1, world), first at 2 layers against the
+    unsharded port, then at full depth."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.base import ShapeCell
+    from repro_torch.models.params import init_params, init_params_sharded, num_params
+
+    mesh = make_host_mesh(model_parallel=world, device=dev.type)
+    cell = ShapeCell("d", "prefill", VLM_SEQ, VLM_BATCH)
+    cfg2 = config(VLM_ARCH, VLM_GATE_UNITS)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(0, cfg2.vocab_size, (VLM_BATCH, VLM_SEQ - cfg2.num_patches),
+                           device=dev, generator=gen, dtype=torch.int32)
+    patches = (0.02 * torch.randn((VLM_BATCH, cfg2.num_patches, cfg2.d_model), device=dev,
+                                  generator=gen)).to(torch.bfloat16)
+    batch = {"tokens": tokens, "patches": patches}
+    out = {}
+
+    # at 2 layers: the init, then the logits against the unsharded port for
+    # each of ``variants`` (the last gated)
+    memory_mark(dev)
+    specs = steps.model_specs(cfg2)
+    prog = steps.build_prefill_program(cfg2, cell, mesh)
+    params = init_params_sharded(specs, SEED, prog.mesh, prog.in_placements[0])
+    want = init_params(specs, SEED, device=dev)
+    unequal = [k for k in want if not torch.equal(full(params[k]), want[k])]
+    gate(not unequal, f"(d) the leaf-wise init departs from init_params in {unequal[:5]}")
+    out["init_bit_equal_leaves"] = len(want) - len(unequal)
+    runs = variants(specs)
+    for label, transform in runs:
+        with fallbacks() as events:
+            counters.reset()
+            logits, _, _ = prog.run(transform(params), batch)
+            logits = full(logits)
+            got = counters.read()
+        counters.reset()
+        want_logits, _, _ = lm.prefill(cfg2, transform(want), tokens, VLM_SEQ,
+                                       patches=patches)
+        want_launch = counters.read()
+        err = rel_l2(logits, want_logits)
+        same = torch.equal(logits, want_logits)
+        out[label] = {"layers": cfg2.num_layers, "logits_rel_l2": err, "bit_equal": same,
+                      "launches": got, "unsharded_launches": want_launch,
+                      "fallback_events": events}
+        log(f"  (d) rank {rank} {cfg2.name} at {cfg2.num_layers} layers, {label}, on (1, "
+            f"{world}): {out['init_bit_equal_leaves']} of {len(want)} leaves bit-equal to "
+            f"init_params; logits relative L2 {err:.3e} (bit-equal {same}); launches {got} "
+            f"(unsharded {want_launch})")
+        gate(bool(torch.isfinite(logits).all()), f"(d) {label}: non-finite logits")
+        if label == runs[-1][0]:
+            gate(err <= REL_L2, f"(d) at {cfg2.num_layers} layers, {label}: logits {err:.3e} "
+                                f"from the unsharded port (limit {REL_L2})")
+        gate(dev.type != "cuda" or (got["flash_attention"] == want_launch["flash_attention"]
+                                    and not got["plain_on_cuda"]),
+             f"(d) at {cfg2.num_layers} layers rank {rank}: launches {got}")
+        del logits, want_logits
+    del params, want
+    if not full_depth:
+        return out
+
+    # at full depth
+    cfg = config(VLM_ARCH, VLM_UNITS)
+    specs = steps.model_specs(cfg)
+    before = memory_mark(dev)
+    with fallbacks() as events:
+        prog = steps.build_prefill_program(cfg, cell, mesh)
+        sync(dev)
+        t0 = time.perf_counter()
+        params = init_params_sharded(specs, SEED, prog.mesh, prog.in_placements[0])
+        sync(dev)
+        t_init = time.perf_counter() - t0
+        reset_peak(dev)
+        walls, launches = [], []
+        for _ in range(2):
+            counters.reset()
+            sync(dev)
+            t0 = time.perf_counter()
+            logits, cache, _ = prog.run(params, batch)
+            logits = full(logits)
+            sync(dev)
+            walls.append(time.perf_counter() - t0)
+            launches.append(counters.read())
+            finite = bool(torch.isfinite(logits).all())
+            del logits, cache
+        peak = peak_since(dev, before)
+        prof = device_profile(lambda: prog.run(params, batch),
+                              rank == 0 and dev.type == "cuda")
+    del params
+    memory_mark(dev)
+    want_flash = cfg.num_layers if dev.type == "cuda" else 0
+    tokens_per_s = VLM_BATCH * VLM_SEQ / walls[1]
+    out["full"] = {"layers": cfg.num_layers, "params": num_params(specs), "init_s": t_init,
+                   "first_ms": walls[0] * 1e3, "prefill_ms": walls[1] * 1e3,
+                   "tokens_per_s": tokens_per_s, "peak_bytes": peak, "launches": launches,
+                   "finite": finite, "profile": prof, "fallback_events": events}
+    log(f"  (d) rank {rank} {cfg.name} at {cfg.num_layers} layers on (1, {world}), "
+        f"{num_params(specs):,} parameters: init {t_init:.2f} s, prefill "
+        f"{walls[0] * 1e3:.1f} ms first, then {walls[1] * 1e3:.1f} ms ({tokens_per_s:.1f} "
+        f"tokens/s); peak {(peak or 0) / 2 ** 30:.2f} GiB; launches {launches[-1]}; finite "
+        f"{finite}")
+    if prof is not None:
+        log(f"  (d) rank 0 profiled prefill: {prof['wall_ms']:.1f} ms wall, busy "
+            f"{prof['busy_ms']:.1f} ms (idle {prof['idle_share']:.1%}), NCCL "
+            f"{prof['nccl_total_ms']:.2f} ms {prof['nccl_ms']} = "
+            f"{prof['nccl_share_of_kernel_ms']:.1%} of kernel time")
+    gate(finite, f"(d) at {cfg.num_layers} layers: non-finite logits")
+    gate(not any(r["flash_attention"] != want_flash or r["plain_on_cuda"] for r in launches),
+         f"(d) at {cfg.num_layers} layers rank {rank}: launches {launches} (want "
+         f"{want_flash} flash a call)")
+    return out
+
+
+def worker(args) -> int:
+    """One rank: joins the launcher's group and runs the ranks' parts."""
+    sys.path.insert(0, SRC)
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    device = "cpu" if args.cpu else None
+    t0 = time.perf_counter()
+    make_host_mesh(device=device)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = (torch.device("cuda", torch.cuda.current_device()) if device is None
+           else torch.device("cpu"))
+    rendezvous = {"rank": rank, "world": world, "backend": dist.get_backend(),
+                  "device": str(dev), "local_rank": int(os.environ["LOCAL_RANK"]),
+                  "seconds": time.perf_counter() - t0}
+    if world != int(os.environ["WORLD_SIZE"]) or rank != int(os.environ["RANK"]) or (
+            dev.type == "cuda" and dev.index != rendezvous["local_rank"]):
+        raise AssertionError(f"the rendezvous gave {rendezvous}")
+    log(f"  rank {rank}: joined {world} rank(s) through env:// on {dev} "
+        f"({rendezvous['backend']}) in {rendezvous['seconds']:.2f} s")
+    counters = Counters()
+    parts = args.parts.split(",")
+    out = {"rendezvous": rendezvous}
+    if "b" in parts:
+        out["b"] = train_part(dev, world, rank, counters)
+    if "c" in parts:
+        out["c"] = serve_part(dev, world, rank, counters)
+    if "d" in parts or "d2" in parts:
+        out["d"] = vlm_part(dev, world, rank, counters, full_depth="d" in parts)
+    out["failed"] = FAILED
+    with open(os.path.join(args.out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f, default=str)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+# -- the launcher -------------------------------------------------------------------
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(world: int, parts, out_dir: str, extra=()) -> list:
+    """``world`` ranks of this script, started as ``torch.distributed.run``
+    starts them; each rank's log is printed; a rank that fails ends them
+    all.  Returns each rank's results."""
+    port = str(free_port())
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+        logf = open(os.path.join(out_dir, f"rank{r}.log"), "w")
+        logs.append(logf)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker", "--world", str(world),
+             "--parts", ",".join(parts), "--out-dir", out_dir, *extra],
+            env=env, stdout=logf, stderr=subprocess.STDOUT))
+    t0, failed = time.perf_counter(), None
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+                break
+            if time.perf_counter() - t0 > RANK_TIMEOUT:
+                failed = f"the ranks did not finish within {RANK_TIMEOUT} s"
+                break
+            time.sleep(0.5)
+        else:
+            bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+            if bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+            text = f.read()
+        if failed or r == 0:
+            for line in text.splitlines()[-400 if failed else None:]:
+                log(f"[rank {r}] {line}")
+    if failed:
+        raise AssertionError(f"the ranks failed: {failed}")
+    results = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def check_peaks(results: list, predicted: dict) -> dict:
+    """Each rank's measured peak against the dry run's prediction: at least
+    ``PEAK_FLOOR`` of it and it at least ``PEAK_FLOOR`` of the measured one;
+    part (d)'s also under ``HBM_LIMIT``."""
+    out = {}
+    for key, pred in predicted.items():
+        part, shape = key[0], key[1:]
+        if part == "b":
+            peaks = [r["b"][shape]["peak_bytes"] for r in results]
+        else:
+            peaks = [r["d"]["full"]["peak_bytes"] for r in results]
+        ratios = [p / pred for p in peaks]
+        out[key] = {"predicted": pred, "measured": peaks, "measured_over_predicted": ratios}
+        log(f"  peak a card {key}: measured {[round(p / 2 ** 30, 2) for p in peaks]} GiB, "
+            f"the dry run {pred / 2 ** 30:.2f} GiB, measured / predicted "
+            f"{[round(x, 4) for x in ratios]}")
+        gate(min(ratios) >= PEAK_FLOOR and pred >= PEAK_FLOOR * max(peaks),
+             f"{key}: measured peaks {peaks} against the dry run's {pred}")
+        gate(part != "d" or max(peaks) < HBM_LIMIT,
+             f"{key}: a peak {max(peaks)} bytes reaches {HBM_LIMIT}")
+    return out
+
+
+def launched(results: list) -> dict:
+    """Launches by kernel of the programs' runs on every rank (the unsharded
+    references' not counted)."""
+    total = {}
+
+    def add(row):
+        for k, n in row.items():
+            if k != "plain_on_cuda":
+                total[k] = total.get(k, 0) + n
+
+    for r in results:
+        for rec in r.get("b", {}).values():
+            if "launches" in rec:  # a mesh's run (not rank 0's one-card references)
+                add(rec["launches"])
+        for arch in r.get("c", {}).values():
+            for rec in arch.values():
+                for m in rec.values():
+                    add(m["launches"])
+                    add(m["decode_launches"])
+        if "d" in r:
+            for label in ("seeded", "tempered"):
+                add(r["d"][label]["launches"])
+            for row in r["d"].get("full", {}).get("launches", []):
+                add(row)
+    return total
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--world", type=int, default=4, choices=(1, 4),
+                    help="cards (ranks): 4, parts (a)-(d); 1, part (b) at (1, 1)")
+    ap.add_argument("--parts", default=None,
+                    help="at --world 1 only: a comma list of b, c and d2")
+    ap.add_argument("--cpu", action="store_true",
+                    help="a rehearsal of the ranks' parts on gloo ranks on the CPU at the "
+                         "configs' reduced widths (not the cell: no card, no timing gate)")
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--out-dir", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+
+    if args.cpu:
+        rehearse()
+    elif not torch.cuda.is_available():
+        print("torch_four_cards: no CUDA device; the run needs the cards", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print(f"torch_four_cards: no {os.path.join(SRC, 'repro_torch')}: run the script "
+              f"from a checkout of the repository", file=sys.stderr)
+        return 2
+    if args.worker:
+        return worker(args)
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if not args.cpu and visible < args.world:
+        print(f"torch_four_cards: --world {args.world} needs {args.world} CUDA devices; "
+              f"torch sees {visible}", file=sys.stderr)
+        return 2
+    if args.parts is None:
+        parts = ("b", "c", "d") if args.cpu else PARTS[args.world]
+    elif args.world != 1:
+        print("torch_four_cards: --parts is for --world 1; --world 4 runs every part",
+              file=sys.stderr)
+        return 2
+    else:
+        parts = tuple(args.parts.split(","))
+        if not set(parts) <= {"b", "c", "d2"}:
+            print(f"torch_four_cards: --parts takes b, c and d2, got {args.parts}",
+                  file=sys.stderr)
+            return 2
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels import _build
+
+    t_start = time.perf_counter()
+    name = "cpu (rehearsal)" if args.cpu else torch.cuda.get_device_name(0)
+    smi = "" if args.cpu else smi_line()
+    log(f"[four cards] torch {torch.__version__} (CUDA {torch.version.cuda}), {visible} x "
+        f"{name}; --world {args.world}, parts {list(parts)}")
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    skipped = sorted(set(PARTS[4]) - {p[0] for p in parts})
+    if skipped:
+        log(f"[four cards] not run: parts {skipped} (--world {args.world}: "
+            f"{'the run asked for one card' if visible >= 4 else f'{visible} card(s) visible'}; "
+            f"the four-card parts need --world 4 and four cards)")
+    summary = {"world": args.world, "device": name, "smi": smi, "parts": list(parts),
+               "skipped": skipped}
+    if not args.cpu:
+        t0 = time.perf_counter()
+        _build.build_all()
+        log(f"[four cards] kernels built in {time.perf_counter() - t0:.1f} s")
+    if "a" in parts:
+        t0 = time.perf_counter()
+        summary["a"] = analytics_part(args.world)
+        summary["launches"] = dict(summary["a"]["launches"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[a] {time.perf_counter() - t0:.1f} s")
+    predicted = {}
+    if not args.cpu:
+        t0 = time.perf_counter()
+        predicted = predictions(args.world, parts)
+        log(f"[four cards] dry-run predictions {predicted} in "
+            f"{time.perf_counter() - t0:.1f} s")
+    rank_parts = [p for p in parts if p != "a"]
+    if rank_parts:
+        out_dir = tempfile.mkdtemp(prefix="four_cards_")
+        try:
+            t0 = time.perf_counter()
+            results = launch_ranks(args.world, rank_parts, out_dir,
+                                   ("--cpu",) if args.cpu else ())
+            log(f"[four cards] ranks done in {time.perf_counter() - t0:.1f} s")
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        for r in results:
+            FAILED.extend(f for f in r["failed"] if f not in FAILED)
+        summary["peaks"] = check_peaks(results, predicted)
+        summary["ranks"] = results
+        summary.setdefault("launches", {}).update(launched(results))
+    summary["seconds"] = time.perf_counter() - t_start
+    summary["failed"] = FAILED
+    if FAILED:
+        log(f"[four cards] {len(FAILED)} gate(s) unmet in {summary['seconds']:.1f} s: {FAILED}")
+    else:
+        log(f"[four cards] every gate met in {summary['seconds']:.1f} s")
+    log(json.dumps({"four_cards": summary}, default=str))
+    return 1 if FAILED else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,6 +12,8 @@ covers the ranks that exist.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
@@ -45,15 +47,31 @@ def make_production_mesh(*, multi_pod: bool = False,
 
 def make_host_mesh(model_parallel: int = 1, device: DeviceLike = None) -> DeviceMesh:
     """A (data, model) mesh over the ranks of the default process group, on
-    the card unless ``device`` names the CPU.  With no process group, a
-    one-rank group is made in this process (NCCL on the card, gloo on the
-    CPU), so a single-process run needs no launcher."""
+    the card unless ``device`` names the CPU.  With no process group:
+
+    * under a launcher (``RANK`` and ``WORLD_SIZE`` in the environment, as
+      ``torch.distributed.run`` sets them), this process joins the
+      launcher's group (``init_method="env://"``) on the card ``LOCAL_RANK``
+      names; a failed rendezvous raises;
+    * otherwise a one-rank group is made in this process, so a
+      single-process run needs no launcher.
+
+    NCCL on the card, gloo on the CPU."""
     dev = resolve_device(device)
     if not dist.is_initialized():
-        if dev.type == "cuda":
-            torch.cuda.set_device(torch.cuda.current_device() if dev.index is None else dev)
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                                store=dist.HashStore(), rank=0, world_size=1)
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            kw = {}
+            if dev.type == "cuda":
+                card = dev if dev.index is not None else torch.device(
+                    "cuda", int(os.environ.get("LOCAL_RANK", "0")))
+                torch.cuda.set_device(card)
+                kw["device_id"] = card
+            dist.init_process_group(backend, init_method="env://", **kw)
+        else:
+            if dev.type == "cuda":
+                torch.cuda.set_device(torch.cuda.current_device() if dev.index is None else dev)
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
     n = dist.get_world_size()
     mp = max(1, min(model_parallel, n))
     return init_device_mesh(dev.type, (n // mp, mp), mesh_dim_names=("data", "model"))

@@ -3,11 +3,17 @@ PyTorch), on the card unless ``--device cpu``:
 
     python -m repro_torch.launch.train --arch yi_6b --steps 50
 
-Steps run through ``build_train_program`` on ``make_host_mesh``'s mesh (a
-one-rank group in this process when none exists; the ranks of the group
-under a launcher), as the reference's trainer runs its jitted program on
-its host mesh; the state is a set of DTensors, and checkpoints are written
-from full tensors.
+Steps run through ``build_train_program`` on ``make_host_mesh``'s (data,
+model = 1) mesh, as the reference's trainer runs its jitted program on its
+host mesh: a one-rank group in this process when no launcher started it,
+else the launcher's ranks, one card each:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --full --arch yi_6b
+
+The state is a set of DTensors, drawn leaf by leaf into its shards
+(``init_params_sharded``); every rank feeds the same seeded batch; only
+rank 0 prints and writes checkpoints, from full tensors that every rank
+gathers leaf by leaf; ``--resume`` reads the newest one on every rank.
 
 Synthetic LM data (the reference's stream, the same arrays for the same
 seed), mixed-precision AdamW, remat, checkpoints and restart (crash-safe;
@@ -28,10 +34,11 @@ from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..models.base import ShapeCell, get_config
-from ..models.params import init_params, num_params
+from ..models.params import init_params_sharded, num_params
 from ..train.checkpoint import latest_valid, restore_checkpoint, save_checkpoint
 from ..train.optimizer import AdamWConfig, TrainState, init_state
 from .mesh import make_host_mesh
@@ -81,10 +88,18 @@ def _full(t: torch.Tensor) -> torch.Tensor:
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
-def _flat(state: TrainState) -> Dict[str, torch.Tensor]:
-    return {**{f"params/{k}": _full(v) for k, v in state.params.items()},
-            **{f"m/{k}": _full(v) for k, v in state.m.items()},
-            **{f"v/{k}": _full(v) for k, v in state.v.items()}}
+def _flat(state: TrainState, keep: bool = True) -> Dict[str, torch.Tensor]:
+    """The state's leaves as full tensors on the host, gathered one at a
+    time (every rank takes part in each gather; ``keep=False``: none is
+    kept, for the ranks that write nothing)."""
+    out = {}
+    for p in ("params", "m", "v"):
+        for k, v in getattr(state, p).items():
+            full = _full(v)
+            if keep:
+                out[f"{p}/{k}"] = full.cpu()
+            del full
+    return out
 
 
 def _unflat(flat: Dict[str, torch.Tensor], step: int) -> TrainState:
@@ -114,28 +129,33 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    mesh = make_host_mesh(model_parallel=1, device=dev)
+    if dev.type == "cuda":  # the card make_host_mesh chose for this rank
+        dev = torch.device("cuda", torch.cuda.current_device())
+    lead = dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = widened(cfg)
     specs = model_specs(cfg)
-    print(f"arch={cfg.name} params={num_params(specs)/1e6:.1f}M device={dev}")
+    say(f"arch={cfg.name} params={num_params(specs)/1e6:.1f}M device={dev} "
+        f"ranks={dist.get_world_size()}")
     adamw = AdamWConfig(lr=args.lr, warmup_steps=20)
+    prog = build_train_program(cfg, ShapeCell("example", "train", args.seq, args.batch),
+                               mesh, adamw=adamw)
 
     start_step, state = 0, None
     if args.resume:
         ckpt = latest_valid(args.ckpt_dir)
         if ckpt is not None:
-            start_step, flat, _ = restore_checkpoint(ckpt, device=dev)
+            start_step, flat, _ = restore_checkpoint(ckpt, device="cpu")
             state = _unflat(flat, start_step)
-            print(f"resumed from {ckpt} at step {start_step}")
+            say(f"resumed from {ckpt} at step {start_step}")
         else:
-            print("no valid checkpoint found; cold start")
+            say("no valid checkpoint found; cold start")
     if state is None:
-        state = init_state(init_params(specs, seed=0, device=dev))
-    mesh = make_host_mesh(model_parallel=1, device=dev)
-    prog = build_train_program(cfg, ShapeCell("example", "train", args.seq, args.batch),
-                               mesh, adamw=adamw)
-    state, = prog.distribute(state)
+        state = init_state(init_params_sharded(specs, 0, mesh, prog.in_placements[0].params))
+    state, = prog.distribute(state)  # a host leaf to the card, one at a time
 
     data = synthetic_batches(cfg, args.batch, args.seq)
     losses, checkpoints = [], []
@@ -146,23 +166,27 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         loss = float(_full(metrics["loss"]))  # waits for the step
         dt = time.perf_counter() - t0
         if dt > args.c_max:
-            print(f"[straggler] step {i} took {dt:.1f}s > C_max "
-                  f"{args.c_max}s — would re-dispatch on a pod")
+            say(f"[straggler] step {i} took {dt:.1f}s > C_max "
+                f"{args.c_max}s — would re-dispatch on a pod")
         losses.append(loss)
         if i % 10 == 0 or i == args.steps - 1:
-            print(f"step {i:4d} loss {loss:.4f} "
-                  f"gnorm {float(_full(metrics['grad_norm'])):.3f} ({dt*1e3:.0f} ms)")
+            say(f"step {i:4d} loss {loss:.4f} "
+                f"gnorm {float(_full(metrics['grad_norm'])):.3f} ({dt*1e3:.0f} ms)")
         if (i + 1) % args.ckpt_every == 0 or i == args.steps - 1:
-            path = save_checkpoint(args.ckpt_dir, i + 1, _flat(state),
-                                   extra={"loss": loss})
-            checkpoints.append(path)
-            print(f"checkpoint -> {path}")
+            flat = _flat(state, keep=lead)
+            if lead:
+                path = save_checkpoint(args.ckpt_dir, i + 1, flat, extra={"loss": loss})
+                checkpoints.append(path)
+                say(f"checkpoint -> {path}")
+            del flat
     if losses:
         first, last = losses[0], losses[-1]
-        print(f"loss {first:.4f} -> {last:.4f} "
-              f"({'improved' if last < first else 'NOT improved'})")
+        say(f"loss {first:.4f} -> {last:.4f} "
+            f"({'improved' if last < first else 'NOT improved'})")
     return {"start_step": start_step, "losses": losses, "checkpoints": checkpoints}
 
 
 if __name__ == "__main__":
     main()
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -70,7 +70,9 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     were (gathered where DTensor split rows that x keeps whole), its
     gradient's rows likewise: so the rows fold back into x's leading dims
     even when those do not divide by the split (a batch that stays
-    replicated), and no flattened split is a strided one."""
+    replicated), and no flattened split is a strided one.  Where K is
+    split (a row-parallel product), ``_contracted`` sums the partial
+    products in f32."""
     if not hasattr(x, "placements"):
         return x @ w
     from torch.distributed.tensor import Replicate, Shard
@@ -79,10 +81,78 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                   else Replicate() for p in x.placements)
     xf = x.redistribute(x.device_mesh, whole).flatten(0, -2)
     rows = xf.placements
-    y = xf.redistribute(xf.device_mesh, rows) @ w
+    y = _contracted(xf, w)
     keep = tuple(p if p.is_shard(0) else Replicate() if q.is_shard(0) else q
                  for p, q in zip(rows, y.placements))
     return y.redistribute(y.device_mesh, keep).unflatten(0, x.shape[:-1])
+
+
+def _contracted(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for DTensors x (M, K) and w (K, N).  Where a mesh dim splits
+    x's K (w split there too, or replicated and taken in the same slices),
+    each rank's partial product is formed in f32, the partials are added in
+    f32 and the sum rounded once to x's dtype, as one card's product
+    accumulates and rounds it (DTensor's own product rounds each partial to
+    bf16 and adds them in bf16; ``tests/test_torch_ranks.py`` holds a
+    (1, 2) prefill bit-equal to one card's on the CPU).  Any other layout
+    is DTensor's ``x @ w``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..dist.context import local_region
+
+    if not hasattr(w, "placements"):
+        return x @ w
+    out, w_in = [], []
+    for p, q in zip(x.placements, w.placements):
+        if p.is_shard(1) and (q.is_shard(0) or q.is_replicate()):
+            out.append(Partial())
+            w_in.append(Shard(0))
+        elif p.is_replicate() and q.is_replicate():
+            out.append(Replicate())
+            w_in.append(q)
+        elif p.is_shard(0) and q.is_replicate():
+            out.append(Shard(0))
+            w_in.append(q)
+        elif p.is_replicate() and q.is_shard(1):
+            out.append(Shard(1))
+            w_in.append(q)
+        else:
+            return x @ w  # a layout DTensor redistributes first
+    if not any(p.is_partial() for p in out):
+        return x @ w
+    y = local_region(_mm_f32, (x, w), (x.placements, tuple(w_in)), tuple(out))
+    done = tuple(Replicate() if p.is_partial() else p for p in out)
+    return y.redistribute(y.device_mesh, done).to(x.dtype)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``a @ b`` of bf16 matrices on the card with an f32 result (the tensor
+    cores' f32 accumulator, ``out_dtype``); the gradients are the bf16
+    products a plain ``a @ b`` forms."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return (g @ b.T if ctx.needs_input_grad[0] else None,
+                a.T @ g if ctx.needs_input_grad[1] else None)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with an f32 result, the products summed in f32: bf16 on the
+    card (and fake tensors, which stand for the card's in the dry run)
+    through ``_MatmulF32``, elsewhere widened to f32 first (exact for
+    bf16)."""
+    from ..kernels import is_fake
+
+    if (a.is_cuda or is_fake(a)) and a.dtype == b.dtype == torch.bfloat16:
+        return _MatmulF32.apply(a, b)
+    return a.float() @ b.float()
 
 
 def gated_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -483,7 +483,10 @@ def _lookup(tokens: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``w[tokens]``.  On DTensors the lookup runs on the local shards: a
     shard of a vocab-split table looks up the tokens in its range, gives 0
     for the others, and the shards' rows are added (DTensor's own rule for
-    this keeps a mask that not every version carries through)."""
+    this keeps a mask that not every version carries through) at once, an
+    exact sum: a residual stream left pending (``Partial``) would take each
+    block's output split over the shards and rounded in bf16 on every add,
+    and be summed again at every norm."""
     mesh = dtensor_mesh(tokens, w)
     if mesh is None:
         return F.embedding(tokens.long(), w)
@@ -497,7 +500,8 @@ def _lookup(tokens: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return torch.where(inside[..., None], rows, 0.0)
 
     out = tuple(Partial() if i in split else p for i, p in enumerate(pt))
-    return local_region(lookup, (tokens, w), (pt, w.placements), out)
+    rows = local_region(lookup, (tokens, w), (pt, w.placements), out)
+    return rows.redistribute(mesh, pt) if split else rows
 
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:

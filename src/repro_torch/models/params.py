@@ -2,10 +2,11 @@
 
 Each model family builds a flat ``{path: ParamSpec}`` table once (the JAX
 package's keys, ``seg{i}/l{j}/<block>/<leaf>``); ``init_params`` draws real
-tensors from it on the target device, and ``params_from_numpy`` carries the
-JAX package's parameters across one key to one key.  ``axes`` are the
-logical axis names of the reference (kept as data for a later sharding
-slice).
+tensors from it on the target device (``init_params_sharded``: the same
+values as DTensors, each rank drawing leaf by leaf and keeping its shard),
+and ``params_from_numpy`` carries the JAX package's parameters across one
+key to one key.  ``axes`` are the logical axis names of the reference
+(``dist/sharding.py`` turns them into placements).
 """
 from __future__ import annotations
 
@@ -71,13 +72,83 @@ def _init_leaf(gen: torch.Generator, spec: ParamSpec,
     return x.mul_(scale).to(spec.dtype)
 
 
+# A leaf with a "layers" axis whose f32 draw exceeds this is drawn one unit
+# at a time: internvl2-76b's (80, 8192, 28672) MLP weights take 70 GiB in
+# f32, which no card holds.  Every leaf of the other configs is smaller
+# (olmoe-1b-7b's experts, 8 GiB, the largest drawn on one card), so their
+# draws are as they were.
+SLICED_DRAW_BYTES = 16 * 2 ** 30
+
+
+def _unit_slices(spec: ParamSpec) -> Optional[ParamSpec]:
+    """The spec of one unit of ``spec`` when it is drawn unit by unit, else
+    None."""
+    if not spec.axes or spec.axes[0] != "layers" or \
+            4 * int(np.prod(spec.shape)) <= SLICED_DRAW_BYTES:
+        return None
+    fan = None if spec.fan_in_axis is None else spec.fan_in_axis - 1
+    return dataclasses.replace(spec, shape=spec.shape[1:], axes=spec.axes[1:],
+                               fan_in_axis=fan)
+
+
+def _draw(gen: torch.Generator, spec: ParamSpec, device: torch.device) -> torch.Tensor:
+    unit = _unit_slices(spec)
+    if unit is None:
+        return _init_leaf(gen, spec, device)
+    return torch.stack([_init_leaf(gen, unit, device) for _ in range(spec.shape[0])])
+
+
 def init_params(specs: Specs, seed: int = 0, device: DeviceLike = None) -> Params:
     """Real tensors for every spec, drawn in sorted key order from one
     ``torch.Generator`` seeded with ``seed`` on the target device (the
-    numbers differ from ``jax.random``'s; the rules are the same)."""
+    numbers differ from ``jax.random``'s; the rules are the same), a leaf
+    past ``SLICED_DRAW_BYTES`` unit by unit."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return {k: _init_leaf(gen, s, dev) for k, s in sorted(specs.items())}
+    return {k: _draw(gen, s, dev) for k, s in sorted(specs.items())}
+
+
+def init_params_sharded(specs: Specs, seed: int, mesh,
+                        placements: Mapping[str, tuple]) -> Params:
+    """``init_params`` laid out on ``mesh``: a DTensor a spec with
+    ``placements[key]``, each rank holding only its own shard.  Every rank
+    draws every leaf (or unit of a leaf, as ``init_params`` does) whole, in
+    ``init_params``'s order from one generator seeded with ``seed`` on its
+    own card (the CPU on a gloo mesh), keeps its shard and frees the draw
+    before the next, so the values are ``init_params``'s bit for bit and no
+    card holds more than the shards and one draw.  No collective runs."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    dev = torch.device(mesh.device_type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out: Params = {}
+    for k, s in sorted(specs.items()):
+        unit, pl = _unit_slices(s), tuple(placements[k])
+        if unit is None:
+            local = _shard(_init_leaf(gen, s, dev), mesh, pl)
+        else:  # the layers axis is never split: a unit's placements are dims - 1
+            if any(p.is_shard(0) for p in pl):
+                raise ValueError(f"{k}: a leaf drawn unit by unit is split on its layers axis")
+            upl = tuple(Shard(p.dim - 1) if p.is_shard() else p for p in pl)
+            local = torch.stack([_shard(_init_leaf(gen, unit, dev), mesh, upl)
+                                 for _ in range(s.shape[0])])
+        out[k] = DTensor.from_local(local, mesh, pl, run_check=False, shape=s.shape,
+                                    stride=torch.empty(s.shape, device="meta").stride())
+    return out
+
+
+def _shard(full: torch.Tensor, mesh, placements: tuple) -> torch.Tensor:
+    """This rank's shard of ``full`` under ``placements``, in memory of its
+    own (a view would keep the whole draw alive)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    local = distribute_tensor(full, mesh, placements, src_data_rank=None).to_local()
+    if local.untyped_storage().data_ptr() == full.untyped_storage().data_ptr() \
+            and local.numel() < full.numel():
+        local = local.clone()
+    return local
 
 
 def _to_numpy(value) -> np.ndarray:

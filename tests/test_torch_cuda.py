@@ -320,6 +320,68 @@ class TestDeviceMeshOnCard:
         assert torch.equal(got.cpu(), segagg_ref(k, torch.ones((k.shape[0], 1)), 360_000))
 
 
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: the merge across cards "
+                    f"(torch sees {torch.cuda.device_count()})")
+    return cuda
+
+
+@pytest.mark.cuda
+class TestDeviceMeshAcrossCards:
+    """``DeviceMesh(2)``: a shard on each of two cards, on its slot's
+    stream, the partial moved to the first card and merged there, against
+    the one-card op on the first card (counts exact, float sums within
+    1e-4).  Run twice, so a partial freed or reused before the merge read
+    it would show as a wrong sum."""
+
+    @pytest.mark.parametrize("g, kernel", [
+        (5, segagg_narrow_cuda),
+        (360_000, segagg_scatter_cuda),
+        (1_500_000, segagg_scatter_atomic_cuda),
+    ])
+    @pytest.mark.parametrize("n", [1, 1_000_001])
+    def test_segagg_on_two_cards(self, two_cards, g, kernel, n):
+        from repro_torch.dist import DeviceMesh
+
+        mesh = DeviceMesh(2)
+        card0 = torch.device("cuda", 0)
+        keys, vals = _inputs(n, g, 1, seed=g + n)
+        k, x = torch.from_numpy(keys), torch.from_numpy(np.abs(vals))
+        ones = torch.ones_like(x)
+        want = ops.segagg(k.to(card0), ones.to(card0), g)
+        for _ in range(2):
+            before = kernel.launches
+            got = mesh.segagg(keys, np.ones_like(vals), g)
+            assert kernel.launches == before + 2
+            assert got.device == card0
+            assert torch.equal(got, want)
+        for src in (card0, torch.device("cuda", 1)):  # inputs already on a card
+            got = mesh.segagg(k.to(src), x.to(src), g)
+            assert got.device == card0
+            torch.testing.assert_close(got, ops.segagg(k.to(card0), x.to(card0), g),
+                                       rtol=1e-4, atol=1e-4)
+
+    @pytest.mark.parametrize("panes, g", [(6, 5), (6, 360_000)])
+    def test_pane_segagg_on_two_cards(self, two_cards, panes, g):
+        from repro_torch.dist import DeviceMesh
+
+        card0 = torch.device("cuda", 0)
+        keys, vals = _inputs(1_000_001, g, 1, seed=panes + g)
+        pane_ids = np.random.default_rng(g).integers(0, panes, keys.shape[0]).astype(np.int32)
+        k, x, p = (torch.from_numpy(keys), torch.from_numpy(np.abs(vals)),
+                   torch.from_numpy(pane_ids))
+        got = DeviceMesh(2).pane_segagg(keys, np.ones_like(vals), pane_ids, panes, g)
+        want = ops.pane_segagg(k.to(card0), torch.ones_like(x).to(card0), p.to(card0),
+                               panes, g)
+        assert got.device == card0 and torch.equal(got, want)
+        got = DeviceMesh(2).pane_segagg(k, x, p, panes, g)
+        torch.testing.assert_close(got, ops.pane_segagg(k.to(card0), x.to(card0),
+                                                        p.to(card0), panes, g),
+                                   rtol=1e-4, atol=1e-4)
+
+
 # -- flash attention and RG-LRU ----------------------------------------------
 
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
