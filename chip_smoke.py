@@ -47,7 +47,13 @@ exits 2 with one line on stderr that says which):
    CQ4 the cluster design forced to two key ranges beside the route taken,
    and at CQ3's shape both again under Zipf keys (parity gated, times a
    reading); then the narrow/scatter crossover table behind
-   ``tuning.MATMUL_MAX_G``;
+   ``tuning.matmul_max_g("cuda")``, and the dispatch at the tuned table's
+   boundary: the table in force (``tuned_blocks.json`` or the defaults),
+   the route each paper query takes at its largest batch beside the
+   untuned route, and ``ops.segagg`` at ``matmul_max_g`` and one past it,
+   by the table's choice and with each forced formulation, counts exact
+   against the plain version and each call through the kernel expected
+   (a forced ``"matmul"`` that does not fit must raise and launch nothing);
 8. LM kernel parity: the flash-attention kernel (causal or not, window,
    soft-cap, GQA and MQA, ragged S, D in {64, 128, 256}; then prefill
    continuations, Sq < Sk with ``q_offset = Sk - Sq``, causal with and
@@ -703,6 +709,80 @@ def kernel_times(name: str, fn, keys, vals, g: int, exact: bool, segagg_ref,
         "bound_by": bound_by,
         "library_ms": cuda_ms(library),
     }
+
+
+ROUTE_KERNEL = {"narrow": "segagg_narrow", "cluster": "segagg_scatter",
+                "atomic": "segagg_scatter_atomic"}
+
+
+def segagg_route(tuning, scatter_plan_for, n: int, g: int, form=None, untuned=False) -> str:
+    """``narrow``, ``cluster`` or ``atomic``: the route of an (n, g, V = 1)
+    call by the table in force (or, ``untuned``, by the compiled-in
+    defaults), or with formulation ``form`` forced."""
+    if untuned:
+        if g <= tuning.DEFAULT_MATMUL_MAX_G and tuning.narrow_fits(g, 1):
+            return "narrow"
+        return scatter_plan_for(g, 1, "cuda", n=n, max_ranges=tuning.SCATTER_MAX_RANGES,
+                                sizes=tuning.SCATTER_CLUSTER_SIZES).route
+    if tuning.pick_formulation("cuda", n, g, 1, form) == "narrow":
+        return "narrow"
+    return scatter_plan_for(g, 1, "cuda", n=n).route
+
+
+def tuned_dispatch(ops, tuning, scatter_plan_for, segagg_ref, kernels, queries: dict,
+                   rows: int) -> None:
+    """The dispatch at the tuned table's boundary (phase 7's last lines):
+    the table in force and each paper query's route at its largest batch
+    (``queries``: id -> (rows, G)), then ``ops.segagg`` at ``matmul_max_g``
+    and one past it over ``rows`` uniform keys, by the table's choice and
+    with each forced formulation: counts exact, one launch of the kernel
+    the route names, and a forced ``"matmul"`` whose table does not fit
+    refused with no launch."""
+    path = tuning.TUNED_PATH
+    max_g = tuning.matmul_max_g("cuda")
+    log(f"    dispatch: table {path.relative_to(path.parents[4]) if path.is_file() else 'none'}"
+        f" ({'tuned' if path.is_file() else 'the compiled-in defaults'}); "
+        f"matmul_max_g('cuda') = {max_g}; tuned_blocks('cuda') small-wide "
+        f"{tuning.tuned_blocks('cuda', 26_000, 360_000)}, large-wide "
+        f"{tuning.tuned_blocks('cuda', rows, 360_000)}")
+    for qid, (n, g) in queries.items():
+        log(f"    dispatch: {qid:12s} N={n:>9} G={g:>8} ({tuning.shape_class(n, g)}): "
+            f"{segagg_route(tuning, scatter_plan_for, n, g)} (untuned "
+            f"{segagg_route(tuning, scatter_plan_for, n, g, untuned=True)})")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ones = torch.ones((rows, 1), device="cuda")
+    for g in (max_g, max_g + 1):
+        if g < 1:
+            continue
+        keys = torch.randint(0, g, (rows,), device="cuda", generator=gen, dtype=torch.int32)
+        want = segagg_ref(keys, ones, g)
+        for form in (None, "matmul", "scatter"):
+            before = {k: fn.launches for k, fn in kernels.items()}
+            if form == "matmul" and not tuning.narrow_fits(g, 1):
+                try:
+                    ops.segagg(keys, ones, g, formulation=form)
+                except ValueError as exc:
+                    refused = str(exc)
+                else:
+                    raise AssertionError(f"dispatch G={g}: a forced 'matmul' that does not "
+                                         f"fit ran")
+                if {k: fn.launches for k, fn in kernels.items()} != before:
+                    raise AssertionError(f"dispatch G={g}: a refused call launched")
+                log(f"    dispatch G={g:>6} formulation='matmul': refused ({refused})")
+                continue
+            route = segagg_route(tuning, scatter_plan_for, rows, g, form)
+            if form is None and (route == "narrow") != (g <= max_g):
+                raise AssertionError(f"dispatch G={g}: route {route} against "
+                                     f"matmul_max_g {max_g}")
+            got = ops.segagg(keys, ones, g, formulation=form)
+            launched = {k: fn.launches - before[k] for k, fn in kernels.items()}
+            if launched != {k: int(k == ROUTE_KERNEL[route]) for k in kernels}:
+                raise AssertionError(f"dispatch G={g} formulation={form}: launches "
+                                     f"{launched}, route {route}")
+            if not torch.equal(got, want):
+                raise AssertionError(f"dispatch G={g} formulation={form}: counts differ")
+            log(f"    dispatch G={g:>6} formulation={form!r}: {ROUTE_KERNEL[route]}, "
+                f"N={rows}, counts equal")
 
 
 # -- phase 8 -----------------------------------------------------------------
@@ -3079,7 +3159,8 @@ def main(argv=None) -> int:
     wide = (sc.num_suppkeys, sc.num_partkeys, PANE_GROUPS)
     for g in (1, 5) + wide:
         for v in (1, 3):
-            log(f"    G={g:>9} V={v}: scatter plan {scatter_plan_for(g, v, 'cuda')}")
+            plan = scatter_plan_for(g, v, 'cuda', n=PARITY_FILES * sc.lineitems_per_file)
+            log(f"    G={g:>9} V={v}: scatter plan {plan}")
     kernel_parity([("segagg_narrow", segagg_narrow_cuda, (1, 5)),
                    ("segagg_scatter", segagg_scatter_cuda, (1, 5) + wide),
                    ("segagg_scatter_atomic", segagg_scatter_atomic_cuda, (5,) + wide)],
@@ -3228,8 +3309,9 @@ def main(argv=None) -> int:
         keys, vals = torch.from_numpy(keys_np).cuda(), torch.from_numpy(vals_np).cuda()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        form = tuning.pick_formulation(g, vals.shape[1])
-        plan = scatter_plan_for(g, vals.shape[1], "cuda") if form == "scatter" else None
+        form = tuning.pick_formulation("cuda", keys.shape[0], g, vals.shape[1])
+        plan = (scatter_plan_for(g, vals.shape[1], "cuda", n=keys.shape[0])
+                if form == "scatter" else None)
         kname, fn = fns["narrow" if plan is None else plan.route]
         out = ops.segagg(keys, vals, g)
         torch.cuda.synchronize()
@@ -3251,7 +3333,7 @@ def main(argv=None) -> int:
                      f"({r['old_ms'] / r['ms']:.2f}x); plan {r['plan']}")
         elif kname == "segagg_scatter_atomic":
             # the cluster design forced to the key ranges this table needs
-            forced = scatter_plan_for(g, vals.shape[1], "cuda", max_ranges=4)
+            forced = scatter_plan_for(g, vals.shape[1], "cuda", n=keys.shape[0], max_ranges=4)
             got = segagg_scatter_cuda(keys, vals, g, plan=forced)
             if not torch.equal(got, segagg_ref(keys, vals, g)):
                 raise AssertionError(f"{qid}: forced cluster plan: counts differ")
@@ -3301,7 +3383,10 @@ def main(argv=None) -> int:
             crossing = g
         crossings.append(crossing)
     log(f"    narrow wins up to G={min(crossings)} (per N: {crossings}); "
-        f"tuning.MATMUL_MAX_G = {tuning.MATMUL_MAX_G}")
+        f"tuning.matmul_max_g('cuda') = {tuning.matmul_max_g('cuda')}")
+    tuned_dispatch(ops, tuning, scatter_plan_for, segagg_ref, seg_kernels,
+                   {aq.query_id: (largest[aq.query_id], aq.num_groups(sc))
+                    for aq in PAPER_QUERIES}, PARITY_FILES * sc.lineitems_per_file)
 
     # 12. pane-shared scans on the same stream; counts from the first
     # run_shared_jobs to the last

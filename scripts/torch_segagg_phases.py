@@ -267,10 +267,10 @@ def main() -> int:
             vals = torch.ones((n, 1), device="cuda")
             out = torch.zeros((g, 1), device="cuda")
             bound = 4.0 * (2 * n + g) / HBM_BYTES_PER_S * 1e3
-            plan = scatter_plan_for(g, 1, device)
+            plan = scatter_plan_for(g, 1, device, n=n)
             plans = {}
             if plan.route == "atomic":
-                plan = scatter_plan_for(g, 1, device, max_ranges=2)
+                plan = scatter_plan_for(g, 1, device, n=n, max_ranges=2)
                 print(f"{qid} N={n} G={g} V=1, bound {bound:.4f} ms (bytes at 3.35 TB/s); "
                       f"plan: the global-atomic kernel; cluster kernel forced to "
                       f"{shown(plan)}", flush=True)

@@ -3,7 +3,8 @@ pane variant.
 
 Dispatch follows the tensors: a CUDA tensor launches one of the two Hopper
 kernels (``segagg_narrow`` or ``segagg_scatter``, chosen by
-``tuning.pick_formulation``) or raises; a CPU tensor takes the plain
+``tuning.pick_formulation`` from the tuned table, or forced by
+``formulation=``) or raises; a CPU tensor takes the plain
 PyTorch version in ``ref.py``.  ``backend=`` accepts ``"auto"`` (the
 default: chosen by the tensor's device) and ``"cuda"`` (raises on a CPU
 tensor).  No backend runs the plain version on a CUDA tensor.
@@ -46,10 +47,14 @@ def resolve_backend(backend: Optional[str], device: torch.device) -> str:
 
 
 def segagg(keys: torch.Tensor, values: torch.Tensor, num_groups: int, *,
-           backend: Optional[str] = None) -> torch.Tensor:
+           backend: Optional[str] = None,
+           formulation: Optional[str] = None) -> torch.Tensor:
     """GROUP-BY partial aggregation: (N,) keys + (N, V) values ->
     (num_groups, V) f32 sums; on the card through the kernel that
-    ``tuning.pick_formulation`` picks for (num_groups, V)."""
+    ``tuning.pick_formulation`` picks for (N, num_groups, V).
+    ``formulation=`` overrides it with the reference's names ("matmul":
+    the narrow kernel, "scatter"); a bad name, or "matmul" for a table the
+    narrow kernel cannot hold, raises on every device."""
     if num_groups <= 0:
         raise ValueError(f"num_groups must be positive, got {num_groups}")
     if values.dim() == 1:
@@ -57,11 +62,13 @@ def segagg(keys: torch.Tensor, values: torch.Tensor, num_groups: int, *,
     if keys.device != values.device:
         raise ValueError(f"keys on {keys.device} but values on {values.device}")
     path = resolve_backend(backend, values.device)
+    form = tuning.pick_formulation("cuda", values.shape[0], num_groups, values.shape[1],
+                                   formulation)
     keys = keys.to(torch.int32).contiguous()
     values = values.to(torch.float32).contiguous()
     if path == "plain":
         return segagg_ref(keys, values, num_groups)
-    if tuning.pick_formulation(num_groups, values.shape[1]) == "narrow":
+    if form == "narrow":
         return segagg_narrow_cuda(keys, values, num_groups)
     return segagg_scatter_cuda(keys, values, num_groups)
 

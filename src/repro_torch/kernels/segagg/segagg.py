@@ -7,8 +7,9 @@
   their group and added there, the other half go to the output by global
   atomics, and each block flushes its part of the table with 16-byte vector
   atomics.  ``tuning.scatter_plan`` picks the cluster size and the key
-  ranges from what the card reports (``scatter_plan_for``); a table that
-  needs more ranges than pay off goes to ``segagg_scatter_atomic_cuda``.
+  ranges from what the card reports and the tuned table
+  (``scatter_plan_for``); a table that needs more ranges than pay off goes
+  to ``segagg_scatter_atomic_cuda``.
   Bounded by bytes (keys + values read, output written once).
 * ``segagg_scatter_atomic_cuda``, the first design of the scatter kernel:
   one global atomicAdd per (row, v) element into a (G, V) output that lives
@@ -118,12 +119,21 @@ def scatter_caps(device: torch.device | str) -> Tuple[int, int]:
     return _caps[index]
 
 
-def scatter_plan_for(num_groups: int, v: int, device: torch.device | str,
-                     max_ranges: int = tuning.SCATTER_MAX_RANGES) -> tuning.ScatterPlan:
-    """``tuning.scatter_plan`` fed by what the card reports
-    (``scatter_caps``)."""
+def scatter_plan_for(num_groups: int, v: int, device: torch.device | str, *, n: int,
+                     max_ranges: Optional[int] = None,
+                     sizes: Optional[Tuple[int, ...]] = None) -> tuning.ScatterPlan:
+    """``tuning.scatter_plan`` of an (n rows, num_groups, v) call, fed by
+    what the card reports (``scatter_caps``) and by the tuned table:
+    ``tuning.tuned_blocks("cuda", n, num_groups)`` gives the cluster size
+    tried first and ``max_ranges``.  An explicit ``max_ranges`` or
+    ``sizes`` wins (a measurement's forced layout)."""
     smem, max_blocks = scatter_caps(device)
-    return tuning.scatter_plan(num_groups, v, max_blocks, smem, max_ranges)
+    cluster, tuned_ranges = tuning.tuned_blocks("cuda", n, num_groups)
+    if sizes is None:
+        sizes = (cluster,) + tuple(c for c in tuning.SCATTER_CLUSTER_SIZES if c != cluster)
+    if max_ranges is None:
+        max_ranges = tuned_ranges
+    return tuning.scatter_plan(num_groups, v, max_blocks, smem, max_ranges, sizes)
 
 
 def _zeros(values: torch.Tensor, num_groups: int) -> torch.Tensor:
@@ -140,7 +150,8 @@ def segagg_scatter_cuda(keys: torch.Tensor, values: torch.Tensor, num_groups: in
     [0, num_groups) are dropped."""
     _check(keys, values, num_groups, "segagg_scatter")
     if plan is None:
-        plan = scatter_plan_for(num_groups, values.shape[1], values.device)
+        plan = scatter_plan_for(num_groups, values.shape[1], values.device,
+                                n=values.shape[0])
     if plan.route == "atomic":
         return segagg_scatter_atomic_cuda(keys, values, num_groups)
     out = _zeros(values, num_groups)

@@ -2,24 +2,35 @@
 
 ``narrow`` (a shared-memory table per block, the counterpart of the JAX
 package's one-hot matmul kernel) serves narrow G; ``scatter`` serves wide G.
-``MATMUL_MAX_G`` is the largest group count still sent to ``narrow``; it is
-measured on the H100 by ``chip_smoke.py`` (its crossover table).  ``narrow``
-also needs its (G, V) f32 table to fit ``NARROW_TABLE_BYTES`` of shared
-memory.  The reference's VMEM guard, which sent wide-G queries to the O(N*G)
-one-hot path on the TPU, has no counterpart here.
+``matmul_max_g(backend)`` is the largest group count still sent to
+``narrow``, and ``tuned_blocks(backend, n, g)`` the scatter plan's launch
+parameters for a shape class.  Both come from ``tuned_blocks.json`` next to
+this module, which ``scripts/torch_hillclimb.py --segagg`` measures on the
+card and writes through ``save``; a missing file or entry falls back to the
+compiled-in defaults (``DEFAULT_MATMUL_MAX_G``, ``SCATTER_CLUSTER_SIZES[0]``
+and ``SCATTER_MAX_RANGES``), so the package works untuned.  The backend key
+of the card is ``"cuda"``.  ``narrow`` also needs its (G, V) f32 table to
+fit ``NARROW_TABLE_BYTES`` of shared memory.  The reference's VMEM guard,
+which sent wide-G queries to the O(N*G) one-hot path on the TPU, has no
+counterpart here.
 
 ``scatter_plan`` lays out a ``scatter`` call: the f32 table of the flat
 (G, V) index is cut into key ranges that each fit the pooled shared memory
-of one thread-block cluster (route ``cluster``), or, past
-``SCATTER_MAX_RANGES`` ranges, the call goes to the global-atomic kernel
-(route ``atomic``), whose (G, V) output lives in L2.  It is a pure function
-of the shape and of what the card reports, so the CPU tests reach every
-branch; it never catches a failed build or launch.
+of one thread-block cluster (route ``cluster``), or, past ``max_ranges``
+ranges, the call goes to the global-atomic kernel (route ``atomic``), whose
+(G, V) output lives in L2.  It is a pure function of the shape and of what
+the card reports, so the CPU tests reach every branch; it never catches a
+failed build or launch.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import functools
+import json
+import pathlib
+from typing import Dict, Optional, Tuple
+
+TUNED_PATH = pathlib.Path(__file__).resolve().parent / "tuned_blocks.json"
 
 # Shared-memory table of the narrow kernel: the default dynamic limit.
 NARROW_TABLE_BYTES = 48 * 1024
@@ -28,14 +39,12 @@ NARROW_TABLE_BYTES = 48 * 1024
 _N_SMALL = 32_768
 _G_NARROW = 1_024
 
-# Largest G sent to the narrow kernel (the reference's XLA crossover was 64).
-# Measured on an H100 SXM (700 W) by chip_smoke.py's crossover table, V = 1,
-# uniform keys: against the cluster-table scatter narrow wins at every G its
-# 48 KB table holds (12,288 groups) at 29.25M rows in every run, and at
-# 1.26M rows in two runs of three (the third lost at 4,096 by 0.007 ms, at
-# 3 launches a timing).  Against the global-atomic scatter it had lost from
-# 4,096 groups at 1.26M rows.
-MATMUL_MAX_G = 12288
+# Largest G sent to the narrow kernel where no table says otherwise: all its
+# 48 KB table holds at V = 1 (the reference's XLA crossover was 64).
+# scripts/torch_hillclimb.py --segagg (H100 SXM, 700 W, V = 1, uniform
+# keys, medians of 25 calls) had narrow ahead of scatter at every such G at
+# 13,000, 1.26M and 29.25M rows.
+DEFAULT_MATMUL_MAX_G = 12288
 
 
 def shape_class(n: int, g: int) -> str:
@@ -50,17 +59,73 @@ def narrow_fits(g: int, v: int) -> bool:
     return g * v * 4 <= NARROW_TABLE_BYTES
 
 
-def pick_formulation(g: int, v: int) -> str:
-    """``narrow`` or ``scatter`` for a (G, V) output."""
-    if g <= MATMUL_MAX_G and narrow_fits(g, v):
+@functools.lru_cache(maxsize=1)
+def _load() -> Dict:
+    try:
+        return json.loads(TUNED_PATH.read_text())
+    except (OSError, ValueError):
+        return {}
+
+
+def reload() -> None:
+    """Drop the cached table (after the hill-climb rewrites the file)."""
+    _load.cache_clear()
+
+
+def tuned_blocks(backend: str, n: int, g: int) -> Tuple[int, int]:
+    """(cluster, max_ranges) of the scatter plan for a call shape, tuned
+    entry or defaults.  They stand where the reference's (block_n, block_g)
+    stand: the cluster size ``scatter_plan`` tries first, and the most key
+    ranges it takes before the global-atomic route."""
+    entry = _load().get("blocks", {}).get(f"{backend}:{shape_class(n, g)}")
+    if entry:
+        return int(entry["cluster"]), int(entry["max_ranges"])
+    return SCATTER_CLUSTER_SIZES[0], SCATTER_MAX_RANGES
+
+
+def matmul_max_g(backend: str) -> int:
+    """Largest group count at which the narrow kernel is still selected
+    (the measured narrow/scatter crossover for ``backend``)."""
+    entry = _load().get("crossover", {}).get(backend)
+    if entry:
+        return int(entry["matmul_max_g"])
+    return DEFAULT_MATMUL_MAX_G
+
+
+def pick_formulation(backend: str, n: int, g: int, v: int,
+                     override: Optional[str] = None) -> str:
+    """``narrow`` or ``scatter`` for one call shape.  ``override`` takes the
+    reference's names: ``"matmul"`` forces the narrow kernel (a table that
+    does not fit its shared memory raises), ``"scatter"`` the scatter."""
+    if override is not None:
+        if override not in ("matmul", "scatter"):
+            raise ValueError(f"unknown segagg formulation: {override!r} "
+                             "(expected 'matmul' or 'scatter')")
+        if override == "scatter":
+            return "scatter"
+        if not narrow_fits(g, v):
+            raise ValueError(
+                f"formulation='matmul': a ({g}, {v}) f32 table exceeds the narrow "
+                f"kernel's {NARROW_TABLE_BYTES} bytes of shared memory")
+        return "narrow"
+    if g <= matmul_max_g(backend) and narrow_fits(g, v):
         return "narrow"
     return "scatter"
+
+
+def save(table: Dict) -> pathlib.Path:
+    """Persist a tuned table (the hill-climb writes through this) and
+    reload."""
+    TUNED_PATH.write_text(json.dumps(table, indent=2, sort_keys=True) + "\n")
+    reload()
+    return TUNED_PATH
 
 
 # Cluster sizes the cluster route takes, in order of preference at equal
 # range counts: 8 is portable; 16 needs the non-portable attribute, which the
 # card may refuse (the caller passes max_cluster_blocks = 8 then).  At CQ3's
-# shape 8 beat 16 (PERF.md, scripts/torch_segagg_phases.py).
+# largest batches 8 beat 16 (PERF.md, scripts/torch_segagg_phases.py); at
+# its one- and two-file batches 16 won (tuned_blocks.json, small-wide).
 SCATTER_CLUSTER_SIZES = (8, 16)
 # Floats of a table chunk (one 32-byte sector); ranges are whole chunks.
 SCATTER_CHUNK = 8

@@ -31,6 +31,16 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture
+def untuned(monkeypatch, tmp_path):
+    """The compiled-in defaults in force (no tuned table), for tests that
+    name the route a shape takes."""
+    monkeypatch.setattr(tuning, "TUNED_PATH", tmp_path / "none.json")
+    tuning.reload()
+    yield
+    tuning.reload()
+
+
 def _inputs(n, g, v, seed, lo=0, hi=None):
     rng = np.random.default_rng(seed)
     keys = rng.integers(lo, g if hi is None else hi, n).astype(np.int32)
@@ -64,7 +74,7 @@ class TestKernelsOnCard:
             segagg_narrow_cuda(k, torch.ones((8, 1), device=cuda), g)
         assert segagg_narrow_cuda.launches == before
 
-    def test_ops_on_card_launches_a_kernel(self, cuda):
+    def test_ops_on_card_launches_a_kernel(self, cuda, untuned):
         keys, vals = _inputs(10_000, 5, 1, seed=2)
         k, x = torch.from_numpy(keys).to(cuda), torch.from_numpy(vals).to(cuda)
         narrow, scatter = segagg_narrow_cuda.launches, segagg_scatter_cuda.launches
@@ -81,8 +91,8 @@ def _scatter_keys(n, g, v, seed, cuda, zipf=False):
         keys = zipf_keys(n, g, seed).numpy()
     else:
         keys = np.random.default_rng(seed).integers(-3, g + 3, n).astype(np.int32)
-    ranges = (scatter_plan_for(g, v, cuda).ranges
-              + scatter_plan_for(g, v, cuda, max_ranges=4).ranges)
+    ranges = (scatter_plan_for(g, v, cuda, n=n).ranges
+              + scatter_plan_for(g, v, cuda, n=n, max_ranges=4).ranges)
     edges = [b // v + d for lo, hi in ranges for b in (lo, hi) for d in (-1, 0, 1)]
     edges += [-(2**31), 2**31 - 1, -1, g, g - 1, 0]
     keys[: len(edges)] = np.clip(edges, -(2**31), 2**31 - 1)
@@ -147,9 +157,9 @@ class TestScatterOnCard:
             got = fn(k, torch.ones((3, 1), device=cuda), 360_000)
             assert got.sum().item() == 2.0 and got[7, 0] == 1.0 and got[359_999, 0] == 1.0
 
-    def test_plan_routes_and_counts(self, cuda):
-        assert scatter_plan_for(360_000, 1, cuda).route == "cluster"
-        assert scatter_plan_for(1_500_000, 1, cuda).route == "atomic"
+    def test_plan_routes_and_counts(self, cuda, untuned):
+        assert scatter_plan_for(360_000, 1, cuda, n=10_000).route == "cluster"
+        assert scatter_plan_for(1_500_000, 1, cuda, n=10_000).route == "atomic"
         keys, vals = _inputs(10_000, 1_500_000, 1, seed=3)
         k, x = torch.from_numpy(keys).to(cuda), torch.from_numpy(vals).to(cuda)
         cluster, atomic = segagg_scatter_cuda.launches, segagg_scatter_atomic_cuda.launches
@@ -243,6 +253,7 @@ class TestNarrowOnCard:
 
 
 @pytest.mark.cuda
+@pytest.mark.usefixtures("untuned")
 class TestPaneSegaggOnCard:
     """``pane_segagg`` (composite keys ``pane * G + group``) on the card
     against its plain version, at composite key spaces that take each
@@ -263,11 +274,11 @@ class TestPaneSegaggOnCard:
         ones = torch.ones_like(vals)
         total = panes * g
         if kernel is segagg_narrow_cuda:
-            assert tuning.pick_formulation(total, 1) == "narrow"
+            assert tuning.pick_formulation("cuda", n, total, 1) == "narrow"
         else:
-            assert tuning.pick_formulation(total, 1) == "scatter"
+            assert tuning.pick_formulation("cuda", n, total, 1) == "scatter"
             route = "cluster" if kernel is segagg_scatter_cuda else "atomic"
-            assert scatter_plan_for(total, 1, cuda).route == route
+            assert scatter_plan_for(total, 1, cuda, n=n).route == route
         before = kernel.launches
         got = ops.pane_segagg(keys, ones, pane_ids, panes, g)
         assert kernel.launches == before + 1
@@ -279,6 +290,67 @@ class TestPaneSegaggOnCard:
 
 
 @pytest.mark.cuda
+class TestTunedDispatchOnCard:
+    """``ops.segagg`` with the table in force (``tuning.TUNED_PATH``): at
+    ``matmul_max_g("cuda")`` it launches the narrow kernel, one past it a
+    scatter kernel; each forced formulation gives the plain version's
+    counts, and a forced ``"matmul"`` that does not fit launches nothing."""
+
+    N = 200_003
+
+    def _keys(self, cuda, g):
+        keys, _ = _inputs(self.N, g, 1, seed=g)
+        return torch.from_numpy(keys).to(cuda), torch.ones((self.N, 1), device=cuda)
+
+    @staticmethod
+    def _launches():
+        return (segagg_narrow_cuda.launches,
+                segagg_scatter_cuda.launches + segagg_scatter_atomic_cuda.launches)
+
+    def test_boundary_launches_narrow_then_scatter(self, cuda):
+        m = tuning.matmul_max_g("cuda")
+        for g, launched in ((m, (1, 0)), (m + 1, (0, 1))):
+            if g < 1:
+                continue
+            k, ones = self._keys(cuda, g)
+            before = self._launches()
+            got = ops.segagg(k, ones, g)
+            assert tuple(a - b for a, b in zip(self._launches(), before)) == launched
+            assert torch.equal(got, segagg_ref(k, ones, g))
+
+    @pytest.mark.parametrize("form, launched", [("matmul", (1, 0)), ("scatter", (0, 1))])
+    @pytest.mark.parametrize("g", [1, 5, 2048, 12288])
+    def test_forced_formulation(self, cuda, form, launched, g):
+        k, ones = self._keys(cuda, g)
+        before = self._launches()
+        got = ops.segagg(k, ones, g, formulation=form)
+        assert tuple(a - b for a, b in zip(self._launches(), before)) == launched
+        assert torch.equal(got, segagg_ref(k, ones, g))
+
+    @pytest.mark.parametrize("n", [13_000, 26_000, 100_003])
+    def test_scatter_takes_the_tuned_plan(self, cuda, n):
+        g = 360_000  # CQ3's groups: small-wide, then large-wide
+        cluster, _ = tuning.tuned_blocks("cuda", n, g)
+        plan = scatter_plan_for(g, 1, cuda, n=n)
+        assert plan.route == "cluster"
+        assert plan.cluster == min(cluster, scatter_caps(cuda)[1])
+        k, ones = self._keys(cuda, g)
+        k, ones = k[:n], ones[:n]
+        before = self._launches()
+        got = ops.segagg(k, ones, g)
+        assert tuple(a - b for a, b in zip(self._launches(), before)) == (0, 1)
+        assert torch.equal(got, segagg_ref(k, ones, g))
+
+    def test_forced_matmul_that_does_not_fit_launches_nothing(self, cuda):
+        k, ones = self._keys(cuda, 12289)
+        before = self._launches()
+        with pytest.raises(ValueError, match="formulation='matmul'"):
+            ops.segagg(k, ones, 12289, formulation="matmul")
+        assert self._launches() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.usefixtures("untuned")
 class TestDeviceMeshOnCard:
     """``DeviceMesh(["cuda:0"] * 2)``: two shards of one card, each on its
     slot's stream, merged on the card; one launch of the route's kernel a
@@ -329,6 +401,7 @@ def two_cards(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.usefixtures("untuned")
 class TestDeviceMeshAcrossCards:
     """``DeviceMesh(2)``: a shard on each of two cards, on its slot's
     stream, the partial moved to the first card and merged there, against

@@ -1,6 +1,7 @@
-"""Import guard of the PyTorch port: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro`` (an ``ast``
-scan of every import statement, relative imports resolved)."""
+"""Import guard of the PyTorch port: no file of ``src/repro_torch``, not
+``chip_smoke.py`` and no ``scripts/torch_*.py`` imports ``jax`` or the JAX
+package ``repro`` (an ``ast`` scan of every import statement, relative
+imports resolved)."""
 import ast
 import pathlib
 
@@ -8,7 +9,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "scripts").glob("torch_*.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -39,6 +41,7 @@ def _forbidden(module: str) -> bool:
 def test_scan_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "chip_smoke.py" in names
+    assert "scripts/torch_hillclimb.py" in names
     assert "src/repro_torch/kernels/segagg/ops.py" in names
     assert "src/repro_torch/serve/analytics.py" in names
     for module in ("serve/engine.py", "models/lm.py", "models/params.py",

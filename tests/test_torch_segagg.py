@@ -139,13 +139,14 @@ class TestPaneSegAggOverflow:
 
 class TestDispatch:
     def test_pick_formulation_both_sides_of_crossover(self):
-        m = tuning.MATMUL_MAX_G
-        assert tuning.pick_formulation(m, 1) == "narrow"
-        assert tuning.pick_formulation(m + 1, 1) == "scatter"
-        assert tuning.pick_formulation(360_000, 1) == "scatter"
-        assert tuning.pick_formulation(1, 1) == "narrow"
+        m = tuning.matmul_max_g("cuda")
+        if m >= 1:
+            assert tuning.pick_formulation("cuda", 2048, m, 1) == "narrow"
+        assert tuning.pick_formulation("cuda", 2048, m + 1, 1) == "scatter"
+        assert tuning.pick_formulation("cuda", 2048, 360_000, 1) == "scatter"
+        assert tuning.pick_formulation("cuda", 2048, 1, 1) == ("narrow" if m >= 1 else "scatter")
         # both sides give the same sums as the reference
-        for g in (m, m + 1):
+        for g in (max(m, 1), m + 1):
             keys, vals = _inputs(2048, g, 1, seed=g)
             want = np.asarray(jsegagg_ref(jnp.asarray(keys), jnp.asarray(vals), g))
             np.testing.assert_allclose(_port(keys, vals, g), want, **F32)
@@ -155,8 +156,9 @@ class TestDispatch:
         assert tuning.narrow_fits(floats, 1) and not tuning.narrow_fits(floats + 1, 1)
         assert tuning.narrow_fits(4, floats // 4) and not tuning.narrow_fits(4, floats // 4 + 1)
         # G under the crossover, but the table does not fit: scatter
-        assert tuning.pick_formulation(4, floats // 4) == "narrow"
-        assert tuning.pick_formulation(4, floats // 4 + 1) == "scatter"
+        backend = "no-such-backend"  # the defaults: G = 4 is under the crossover
+        assert tuning.pick_formulation(backend, 100, 4, floats // 4) == "narrow"
+        assert tuning.pick_formulation(backend, 100, 4, floats // 4 + 1) == "scatter"
 
     def test_shape_class_buckets(self):
         assert tuning.shape_class(1_000, 64) == "small-narrow"
@@ -183,8 +185,8 @@ class TestDispatch:
         keys, vals = torch.zeros(8, dtype=torch.int32), torch.ones((8, 1))
         with pytest.raises(ValueError, match="unknown segagg backend"):
             ops.segagg(keys, vals, 4, backend="interpret")
-        with pytest.raises(TypeError, match="formulation"):
-            ops.segagg(keys, vals, 4, formulation="matmul")  # chosen, never forced
+        with pytest.raises(ValueError, match="unknown segagg formulation"):
+            ops.segagg(keys, vals, 4, formulation="onehot")
         with pytest.raises(ValueError, match="positive"):
             ops.segagg(keys, vals, 0)
 
