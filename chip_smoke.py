@@ -264,7 +264,9 @@ exits 2 with one line on stderr that says which):
    group is destroyed and the dry run (``launch/dryrun.py``, a fake group,
    fake CUDA tensors) traces: 21b, 21a's cell on a (1, 1) mesh, its
    predicted peak beside 21a's measured one (fail below 0.75 of it); 21d,
-   yi-6b ``train_4k`` on the single production mesh (data 32 x model 8).
+   yi-6b ``train_4k`` on the single production mesh (data 32 x model 8),
+   whose peak a card must be below the 16.64 GiB it had with the residual
+   stream's sequence whole between units (``models/lm.py`` ``UNIT_AXES``).
 
 22. the port across cards (after phase 21, the main path, part 10):
    ``scripts/torch_four_cards.py`` in a process group of its own, which
@@ -407,6 +409,10 @@ SHARDED_REL_L2 = 2e-2       # 21a's gate where a leaf is not bit-equal
 SHARDED_SERVE = ((SERVE_ARCH, 1), (SSM_ARCH, 8))   # 21c: (arch, units)
 SHARDED_BATCH, SHARDED_SEQ = 2, SERVE_SEQ
 PEAK_FLOOR = 0.75           # 21b: predicted / measured peak at least this
+# 21d: yi-6b train_4k's peak a card on the single mesh with the residual
+# stream's sequence whole between units (the dry run, derived, not measured:
+# 16.64 GiB); with it split on "model" the peak must stay below this.
+TRAIN_4K_WHOLE_PEAK = 17_861_699_346
 FOUR_CARDS_TIMEOUT = 900    # phase 22: seconds for scripts/torch_four_cards.py
 # 19a: the kernel's lse against the f32 reference's (the same f32 logits
 # summed in another order) and dq, dk, dv against flash_bwd fed the f32
@@ -2608,7 +2614,11 @@ def sharded_path(args, counters) -> dict:
         f"{rec_d['memory']['fits_hbm']}), {r['dominant']}-bound, step {r['step_seconds']:.4f} s "
         f"(compute {r['compute_s']:.4f}, memory {r['memory_s']:.4f}, collective "
         f"{r['collective_s']:.4f}), mfu_bound {rec_d['mfu_bound']:.4f}, {rec_d['lower_s']} s "
-        f"to trace (derived from the published H100 SXM peaks, not measured)")
+        f"to trace (derived from the published H100 SXM peaks, not measured); the "
+        f"sequence whole between units gave {TRAIN_4K_WHOLE_PEAK / 2 ** 30:.2f} GiB")
+    if rec_d["memory"]["peak_bytes_per_chip"] >= TRAIN_4K_WHOLE_PEAK:
+        raise AssertionError(f"21d: peak {rec_d['memory']['peak_bytes_per_chip']} bytes, not "
+                             f"below the {TRAIN_4K_WHOLE_PEAK} of the unsplit sequence")
     log(json.dumps({"sharded": {"train": runs, "serve": serve,
                                 "dryrun_peak": {"predicted": predicted, "measured": measured},
                                 "train_4k": rec_d}}))

@@ -43,6 +43,12 @@ noise margin); ``matmul_max_g`` is the largest G up to which narrow wins
 at every G of the grid and at every row count, never above what
 ``tuning.narrow_fits`` allows.
 
+Beside both, the library call that computes the same counts,
+``torch.zeros((G, 1)).index_add_(0, keys, ones)``, is timed at the same
+shapes the same way (the card's own time at (b)'s representatives, per
+call at (a)'s grid) and its counts held as the kernels' are; it is a
+yardstick and never wins anything.
+
 Prints the card's name and power limit, then one JSON report with every
 median.  Exits non-zero without a card, or if a timed call's counts do not
 match the plain version's.
@@ -269,6 +275,17 @@ def main(argv=None) -> int:
               f"{wrong[-1]['max_rel_err']:.4g}", flush=True)
         return None
 
+    def time_library(n: int, g: int, host_ahead: bool) -> Optional[float]:
+        keys, ones, want = shape(n, g)
+        ms, out = median_ms(lambda: torch.zeros((g, 1), device=device).index_add_(0, keys, ones),
+                            args.reps, host_ahead=host_ahead)
+        if want.max().item() <= EXACT_COUNT or counts_match(out, want):
+            check_counts(out, want, f"index_add_ N={n} G={g}")
+            return ms
+        wrong.append({"n": n, "g": g, "formulation": "index_add_", "ms": ms,
+                      "max_rel_err": counts_error(out, want)})
+        return None
+
     _, largest_cluster = scatter_caps(device)
     table = {"version": 1, "blocks": {}, "crossover": {}}
     report = {"device": torch.cuda.get_device_name(0), "smi": line, "reps": args.reps,
@@ -276,17 +293,21 @@ def main(argv=None) -> int:
     for cls, shapes in REPRESENTATIVES.items():
         (cluster, max_ranges), trials = hillclimb(time_plan, shapes, largest_cluster)
         table["blocks"][f"cuda:{cls}"] = {"cluster": cluster, "max_ranges": max_ranges}
-        report["blocks"][f"cuda:{cls}"] = {"shapes": [list(s) for s in shapes],
-                                           "best": [cluster, max_ranges], "trials": trials}
+        report["blocks"][f"cuda:{cls}"] = {
+            "shapes": [list(s) for s in shapes], "best": [cluster, max_ranges],
+            "trials": trials,
+            "index_add_ms": [time_library(n, g, host_ahead=True) for n, g in shapes]}
         print(f"{cls}: (cluster, max_ranges) = ({cluster}, {max_ranges}) after "
               f"{len(trials)} trials", flush=True)
     tuning.save(table)  # the sweep's scatter takes the tuned plan
     inputs.clear()
 
     max_g, per_rows, medians = crossover_sweep(time_form)
+    library = {n: [{"g": g, "ms": time_library(n, g, host_ahead=False)} for g in GROUPS]
+               for n in ROWS}
     table["crossover"]["cuda"] = {"matmul_max_g": max_g}
     report["crossover"] = {"matmul_max_g": max_g, "per_rows": per_rows,
-                           "medians": medians, "wrong": wrong}
+                           "medians": medians, "index_add_ms": library, "wrong": wrong}
     print(f"narrow wins up to G={max_g} (per row count: {per_rows})", flush=True)
     report["path"] = str(tuning.save(table))
     print(json.dumps(report), flush=True)

@@ -10,10 +10,11 @@ the reference, so that its parameters carry across as a copy:
 
 The reference's ``lax.scan`` over units is a Python loop over the unit
 index.  Its sharding constraints are ``dist.context``'s ``constrain`` and
-``constrain_param`` at the same points (unit boundaries on ("batch",
-"seq_model"), per-unit parameters on their spec, the loss's hidden state
-and vocab-sharded logits): DTensor redistributions inside a
-``launch/steps.py`` program, the identity on plain tensors.  Its remat
+``constrain_param`` at the same points (unit boundaries and the loss's
+hidden state on ("batch", "seq_model"): the sequence split on "model"
+where it divides; per-unit parameters on their spec; vocab-sharded
+logits): DTensor redistributions inside a ``launch/steps.py`` program, the
+identity on plain tensors.  Its remat
 (``jax.checkpoint`` with ``nothing_saveable`` around each unit) is
 ``torch.utils.checkpoint`` around each unit in ``backbone(remat=True)``,
 and around each block of ``xent_loss``.
@@ -62,14 +63,16 @@ Cache = Dict[str, torch.Tensor]
 PORTED_KINDS = ("attn", "moe", "rglru", "ssm", "xattn")
 
 # Logical axes of the residual stream at a unit boundary and of the loss's
-# hidden state.  The reference stores both (batch, "seq_model", None):
-# sequence-parallel on "model".  On
-# DTensors a (batch, sequence)-split activation that a product flattens to
-# (B*S, D) becomes a strided shard, whose redistribution sizes its shards
-# with real index tensors and so cannot run on fake tensors (the dry run);
-# the port keeps the sequence whole at the boundary, which costs the saved
-# unit inputs a factor of the "model" size in memory.
-UNIT_AXES = ("batch", None, None)
+# hidden state, as the reference stores both: sequence-parallel on "model"
+# (where S divides by it, else whole).  Under remat a unit's input is what
+# the backward keeps, so the split cuts it by the "model" size a card.
+# Inside a unit the residual stream and the norms stay split; each block's
+# norm output is gathered back to the whole sequence (``WHOLE_AXES``) for
+# its products, and ``_residual`` lays a block's output out as the stream
+# before adding it, so no product, and no product's gradient, meets a split
+# sequence (a view that flattens one is refused by some versions' DTensor).
+UNIT_AXES = ("batch", "seq_model", None)
+WHOLE_AXES = ("batch", None, None)
 
 
 # ===========================================================================
@@ -213,7 +216,17 @@ def _norm(cfg: ModelConfig, x, p, prefix):
         h = layer_norm(x, p[f"{prefix}/norm"], p[f"{prefix}/norm_bias"])
     else:
         h = rms_norm(x, p[f"{prefix}/norm"])
-    return constrain(h, "batch", None, None)
+    return constrain(h, *WHOLE_AXES)
+
+
+def _residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x + y``, a block's output ``y`` added to the residual stream ``x``.
+    On DTensors y is first laid out as x (a chunk of each rank's rows where
+    x's sequence is split), so y's gradient comes back to its producer laid
+    out as y was."""
+    if is_dtensor(x) and is_dtensor(y) and x.placements != y.placements:
+        y = y.redistribute(x.device_mesh, x.placements)
+    return x + y
 
 
 def _pin(t: torch.Tensor, *logical_axes: Optional[str], heads: int = 0) -> torch.Tensor:
@@ -276,7 +289,7 @@ def _self_attn_block(cfg, p, prefix, x, positions, causal=True):
     h = _norm(cfg, x, p, prefix)
     q, k, v = _qkv(cfg, p, prefix, h, positions)
     o = chunked_attention(q, k, v, _attn_spec(cfg, causal))
-    return x + _attn_out(cfg, p, prefix, o), (k, v)
+    return _residual(x, _attn_out(cfg, p, prefix, o)), (k, v)
 
 
 def _cross_kv(cfg, p, prefix, enc_out):
@@ -303,7 +316,7 @@ def _cross_attn_block(cfg, p, prefix, x, xk, xv, step=False):
         o = decode_attention(q, xk, xv, xk.shape[1], AttnSpec(causal=False))
     else:
         o = chunked_attention(q, xk, xv, AttnSpec(causal=False, chunk=cfg.attn_chunk))
-    return x + _attn_out(cfg, p, prefix, o)
+    return _residual(x, _attn_out(cfg, p, prefix, o))
 
 
 def _mlp_block(cfg, p, prefix, x):
@@ -314,7 +327,7 @@ def _mlp_block(cfg, p, prefix, x):
     else:
         y = mlp(h, p[f"{prefix}/w_up"], p[f"{prefix}/w_down"],
                 p.get(f"{prefix}/b_up"), p.get(f"{prefix}/b_down"), cfg.act)
-    return x + y
+    return _residual(x, y)
 
 
 def _moe_block(cfg, p, prefix, x):
@@ -325,7 +338,7 @@ def _moe_block(cfg, p, prefix, x):
                    group_size=cfg.moe_group_size)
     y, aux = moe_ffn(h, p[f"{prefix}/router"], p[f"{prefix}/w_gate"],
                      p[f"{prefix}/w_up"], p[f"{prefix}/w_down"], spec)
-    return x + y, aux
+    return _residual(x, y), aux
 
 
 def _rglru_block(cfg, p, prefix, x, conv_state=None, h_state=None, step=False):
@@ -345,7 +358,7 @@ def _rglru_block(cfg, p, prefix, x, conv_state=None, h_state=None, step=False):
     else:
         y, h_last = rglru_scan(xb, r, i, p[f"{prefix}/a_param"], h_state)
     y = y * gate
-    return x + matmul(y, p[f"{prefix}/w_out"]), (conv_state, h_last)
+    return _residual(x, matmul(y, p[f"{prefix}/w_out"])), (conv_state, h_last)
 
 
 def _ssm_block(cfg, p, prefix, x, conv_state=None, h_state=None, step=False):
@@ -377,7 +390,7 @@ def _ssm_block(cfg, p, prefix, x, conv_state=None, h_state=None, step=False):
                                 chunk=cfg.ssm_chunk, h0=h_state)
     y = _pin(y.reshape(B_, S, -1), "batch", None, "model", heads=Hs)
     y = rms_norm(y, p[f"{prefix}/gate_norm"]) * F.silu(z)
-    return x + matmul(y, p[f"{prefix}/w_out"]), (conv_state, h_last)
+    return _residual(x, matmul(y, p[f"{prefix}/w_out"])), (conv_state, h_last)
 
 
 # ===========================================================================
@@ -443,6 +456,7 @@ def backbone(cfg: ModelConfig, params: Params, x: torch.Tensor,
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = remat and torch.is_grad_enabled()
     all_specs = build_encdec_specs(cfg) if cfg.encoder_segments else build_specs(cfg)
+    x = constrain(x, *UNIT_AXES)  # so that the first unit's kept input is split too
     for si, seg in enumerate(segs):
         sp = _segment_params(params, si, key_prefix)
         units = _units(sp)
@@ -450,10 +464,10 @@ def backbone(cfg: ModelConfig, params: Params, x: torch.Tensor,
             unit_params = {k: v[u] for k, v in units.items()}
 
             def unit(h, unit_params=unit_params, seg=seg, si=si):
-                # The unit boundary on the data-parallel axes (the reference
-                # also splits the sequence on "model" here: see UNIT_AXES);
-                # per-unit parameter slices (and so their gradients) pinned
-                # to the parameter sharding.
+                # The unit boundary: batch on the data-parallel axes, the
+                # sequence split on "model" (UNIT_AXES); per-unit parameter
+                # slices (and so their gradients) pinned to the parameter
+                # sharding.
                 h = constrain(h, *UNIT_AXES)
                 unit_params = {k: gathered(constrain_param(v, all_specs[k].axes[1:])
                                            if k in all_specs else v)
@@ -529,7 +543,7 @@ def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = backbone(cfg, params, x, positions, remat=remat)
     if cfg.frontend == "vision":
-        x = x[:, batch["patches"].shape[1]:]
+        x = constrain(x, *WHOLE_AXES)[:, batch["patches"].shape[1]:]
     loss, metrics = xent_loss(cfg, params, x, batch["labels"])
     if cfg.num_experts:
         loss = loss + 0.01 * aux
@@ -547,16 +561,26 @@ def xent_loss(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
     recomputes them block by block and never holds the whole (B, S, V)
     logits.  The row max is detached (``stop_gradient``); the label logit is
     a gather (the same value and gradient as the reference's one-hot
-    contraction); labels of -1 are masked.  Returns (mean loss over the
-    unmasked labels, {"xent", "tokens"})."""
+    contraction); labels of -1 are masked.  Where the hidden state's
+    sequence is split (on DTensors, into ``n`` pieces on "model"), block
+    ``i`` takes rows ``i * blk .. (i + 1) * blk`` of each piece
+    (``_piece_rows``), so that what a block's checkpoint keeps is split as
+    the pieces are and no block holds the whole hidden state (the search
+    then runs on a piece's S / n rows); the block gathers its rows for its
+    products.  The loss is a sum over rows, which only their order of
+    summation changes.  Returns (mean loss over the unmasked labels,
+    {"xent", "tokens"})."""
     hidden = constrain(hidden, *UNIT_AXES)
+    labels = constrain(labels, *UNIT_AXES[:2])
     B, S, D = hidden.shape
+    rows = S // _seq_pieces(hidden)
     nb = max(S // block, 1)
-    while S % nb:
+    while rows % nb:
         nb -= 1
-    blk = S // nb
+    blk = rows // nb
 
     def block_loss(h, lab):
+        h, lab = constrain(h, *WHOLE_AXES), constrain(lab, *WHOLE_AXES[:2])
         logits = constrain(unembed(cfg, params, h).float(), "batch", None, "model")
         mask = (lab >= 0).float()
         shifted = logits - logits.amax(dim=-1, keepdim=True).detach()
@@ -568,7 +592,7 @@ def xent_loss(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
     nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(nb):
-        h, lab = hidden[:, i * blk:(i + 1) * blk], labels[:, i * blk:(i + 1) * blk]
+        h, lab = _piece_rows(hidden, i, blk), _piece_rows(labels, i, blk)
         if remat:
             b_nll, b_cnt = torch.utils.checkpoint.checkpoint(block_loss, h, lab,
                                                              use_reentrant=False)
@@ -577,6 +601,26 @@ def xent_loss(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
         nll, cnt = nll + b_nll, cnt + b_cnt
     loss = nll / torch.clamp(cnt, min=1.0)
     return loss, {"xent": loss, "tokens": cnt}
+
+
+def _seq_pieces(t: torch.Tensor) -> int:
+    """The number of pieces dim 1 of ``t`` is split into: 1 for a plain
+    tensor or a DTensor that keeps it whole."""
+    mesh = dtensor_mesh(t)
+    if mesh is None:
+        return 1
+    _, split = shard_start(mesh, t.placements, 1, t.shape[1])
+    return mesh.shape[split[0]] if split else 1
+
+
+def _piece_rows(t: torch.Tensor, i: int, blk: int) -> torch.Tensor:
+    """Rows ``i * blk .. (i + 1) * blk`` of each piece of ``t``'s dim 1: of
+    the whole dim where it is not split, else sliced on the local shards
+    and laid out as ``t`` (a DTensor of ``blk`` rows a piece)."""
+    if _seq_pieces(t) == 1:
+        return t[:, i * blk:(i + 1) * blk]
+    return local_region(lambda local: local[:, i * blk:(i + 1) * blk], (t,), (t.placements,),
+                        t.placements)
 
 
 def _label_logit(shifted: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

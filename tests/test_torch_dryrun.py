@@ -7,8 +7,11 @@ reference's source) with status "ok"; a train cell's traced flops over the
 whole mesh are at least the analytic ``model_flops`` (6 N D, which a step
 with remat and attention exceeds; a prefill computes the logits of its last
 position only, so 2 N D overstates it); a train cell's peak bytes per
-card fall from a (1, 1) mesh to a (2, 1) one; and no process group is left
-behind.  A default group that already exists makes the dry run refuse.
+card fall from a (1, 1) mesh to a (2, 1) one, and on a (1, 2) mesh they are
+lower with the residual stream's sequence split on "model" between units
+(``models/lm.py`` ``UNIT_AXES``) than with it patched back to whole; and no
+process group is left behind.  A default group that already exists makes
+the dry run refuse.
 """
 import ast
 import json
@@ -40,6 +43,13 @@ SCRIPT = textwrap.dedent("""
     for mesh in ({"data": 1, "model": 1}, {"data": 2, "model": 1}):
         key = "peak/" + "x".join(map(str, mesh.values()))
         out[key] = dryrun.run_cell(cfg, ShapeCell("t", "train", 64, 8), mesh_shape=mesh)
+    from repro_torch.models import lm
+    split = lm.UNIT_AXES
+    for name, axes in (("split", split), ("whole", ("batch", None, None))):
+        lm.UNIT_AXES = axes
+        out["seq/" + name] = dryrun.run_cell(cfg, ShapeCell("t", "train", 64, 8),
+                                             mesh_shape={"data": 1, "model": 2})
+    lm.UNIT_AXES = split
     out["group_left"] = dist.is_initialized()
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
     try:
@@ -102,6 +112,12 @@ def test_sharding_lowers_the_peak_per_card(records):
     one, two = records["peak/1x1"], records["peak/2x1"]
     assert two["memory"]["peak_bytes_per_chip"] < one["memory"]["peak_bytes_per_chip"]
     assert one["roofline"]["collective_bytes_per_chip"] == 0
+
+
+def test_sequence_split_lowers_the_peak_per_card(records):
+    split, whole = records["seq/split"], records["seq/whole"]
+    assert split["status"] == whole["status"] == "ok"
+    assert split["memory"]["peak_bytes_per_chip"] < whole["memory"]["peak_bytes_per_chip"]
 
 
 def test_no_group_left_and_refusal(records):
