@@ -96,6 +96,8 @@ exits 2 with one line on stderr that says which):
    also at a continuation shape (olmoe-1b-7b's heads, 512 new queries
    after 4,096 keys, full and ragged valid lengths) and at whisper-medium's
    encoder (1,500 x 1,500) and cross-attention (224 x 1,500) shapes at B 8,
+   and at one (1, 4) rank's heads of mixtral-8x22b's prefill (B 2, S 4,096,
+   12 and 2 heads of 128, causal, window 4,096: SDPA with ``is_causal``),
    each beside its plain version, SDPA and its bound;
 11. the serving path (the main path, part 4) at mamba2-370m's full width
    and depth (368,178,688 bf16 parameters from ``--seed``, 48 SSM layers):
@@ -272,15 +274,18 @@ exits 2 with one line on stderr that says which):
    ``scripts/torch_four_cards.py`` in a process group of its own, which
    starts its ranks as ``torch.distributed.run`` does (``make_host_mesh``
    joins them through ``env://``, one card a rank): with four cards visible
-   ``--world 4``, its parts (a)-(d) (the analytics mesh over
+   ``--world 4``, its parts (a)-(e) (the analytics mesh over
    ``DeviceMesh(4)``, the train program on (4, 1) and (1, 4), the prefill
    and decode programs there, internvl2-76b prefilled at 80 layers on (1,
-   4)); with fewer, ``--world 1``: one rank through the same rendezvous,
-   ``init_params_sharded`` against ``init_params`` and 21a's train program
-   (wq and wk divided by 16, as in 19b) at (1, 1) for 2 steps against
-   ``train_step`` within 2e-2, its peak against the dry run's both ways
-   (0.75), and a line that names the parts not run.  A failure there fails
-   the smoke.
+   4), mixtral-8x22b served at 56 layers on (1, 4)); with fewer, ``--world
+   1``: one rank through the same rendezvous, ``init_params_sharded``
+   against ``init_params`` and 21a's train program (wq and wk divided by
+   16, as in 19b) at (1, 1) for 2 steps against ``train_step`` within
+   2e-2, its peak against the dry run's both ways (0.75); then part (e) at
+   2 layers of full-width mixtral-8x22b on (1, 1): the leaf-wise init, the
+   prefill program's logits and cache and one decode step bit-equal to the
+   unsharded port, the same flash launches; and a line that names the
+   parts not run.  A failure there fails the smoke.
 
 Phases 12-15 count their launches apart from phases 4-5 (phase 6's counts)
 and the serving paths; the result line carries them under
@@ -2640,9 +2645,10 @@ def four_cards_path() -> dict:
     log(f"[22] the port across cards: scripts/torch_four_cards.py --world {world}")
     if world == 1:
         log(f"  not run: the four-card parts ((a) the analytics mesh over DeviceMesh(4), (b) "
-            f"at (4, 1) and (1, 4), (c), (d) internvl2-76b on (1, 4)): torch sees "
-            f"{torch.cuda.device_count()} card(s); --world 1 runs the env:// rendezvous, "
-            f"the leaf-wise init and (b) at (1, 1)")
+            f"at (4, 1) and (1, 4), (c), (d) internvl2-76b on (1, 4), (e) mixtral-8x22b at "
+            f"56 layers on (1, 4)): torch sees {torch.cuda.device_count()} card(s); --world 1 "
+            f"runs the env:// rendezvous, the leaf-wise init, (b) at (1, 1) and (e) at 2 "
+            f"layers on (1, 1)")
     t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, script, "--world", str(world)],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -2853,15 +2859,49 @@ def flash_continuation_times(flash_cuda, flash_plain, flash_f32, flash_fb) -> di
     return out
 
 
-def flash_whisper_times(flash_cuda, flash_plain, flash_f32, flash_fb) -> dict:
-    """The flash kernel at whisper-medium's two prefill shapes at B 8 (16
-    heads of 64, not causal): the encoder's self-attention over its 1,500
-    frames and the cross-attention of a ``WHISPER_PROMPT``-token prompt over
-    them; each against the plain version in f32, its time beside the plain
-    version's on the model's bf16 inputs, ``scaled_dot_product_attention``'s
-    and the bound."""
+def flash_times_at(what: str, fns, q, k, v, causal: bool, window: int = 0) -> dict:
+    """The flash kernel on ``q``, ``k``, ``v`` ((B, S, heads, D), bf16, a
+    window that reaches every key): held against the plain version in f32,
+    its time beside the plain version's on the same inputs,
+    ``scaled_dot_product_attention``'s (``is_causal``: the same function
+    with no mask) and the bound.  ``fns``: the kernel, the plain version,
+    its f32 form and the flops and bytes."""
     import torch.nn.functional as F
 
+    flash_cuda, flash_plain, flash_f32, flash_fb = fns
+    (B, Sq, H, D), (Sk, Hkv) = q.shape, k.shape[1:3]
+    if window and window < Sk:
+        raise ValueError(f"window {window} < {Sk} keys: SDPA would need a mask")
+    err = check_close(f"flash {what} at B={B} Sq={Sq} Sk={Sk}",
+                      flash_cuda(q, k, v, causal, window), flash_f32(q, k, v, causal, window),
+                      BF16_TOL)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=Hkv != H)
+
+    b_ms, b_by = bound(*flash_fb(B, Sq, Sk, H, Hkv, D, causal, window), "bfloat16")
+    r = {"shape": f"B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} D={D} "
+                  f"{'causal' if causal else 'not causal'}"
+                  f"{f', window {window}' if window else ''}",
+         "max_abs_err": err[0],
+         "ms": cuda_ms(lambda: flash_cuda(q, k, v, causal, window), reps=KERNEL_REPS),
+         "plain_ms": cuda_ms(lambda: flash_plain(q, k, v, causal, window), reps=2),
+         "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(sdpa, reps=KERNEL_REPS)}
+    log(f"  flash_attention {what} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f} "
+        f"({r['library_ms'] / r['ms']:.2f}x), "
+        f"bound {b_ms:.4f} by {b_by} ({b_ms / r['ms']:.1%} of it reached); max abs err "
+        f"{shown(err)}")
+    return r
+
+
+def flash_whisper_times(*fns) -> dict:
+    """``flash_times_at`` whisper-medium's two prefill shapes at B 8 (16
+    heads of 64, not causal): the encoder's self-attention over its 1,500
+    frames and the cross-attention of a ``WHISPER_PROMPT``-token prompt over
+    them."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     B, Sk, H, D = 8, 1500, 16, 64
     k = torch.randn((B, Sk, H, D), device="cuda", generator=gen).bfloat16()
@@ -2869,26 +2909,23 @@ def flash_whisper_times(flash_cuda, flash_plain, flash_f32, flash_fb) -> dict:
     out = {}
     for label, Sq in (("encoder", Sk), ("cross", WHISPER_PROMPT)):
         q = torch.randn((B, Sq, H, D), device="cuda", generator=gen).bfloat16()
-        err = check_close(f"flash {label} at B={B} Sq={Sq} Sk={Sk}",
-                          flash_cuda(q, k, v, False), flash_f32(q, k, v, False), BF16_TOL)
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt)
-
-        b_ms, b_by = bound(*flash_fb(B, Sq, Sk, H, H, D, False, 0), "bfloat16")
-        r = {"shape": f"B={B} Sq={Sq} Sk={Sk} H={H} Hkv={H} D={D} not causal",
-             "max_abs_err": err[0],
-             "ms": cuda_ms(lambda: flash_cuda(q, k, v, False), reps=KERNEL_REPS),
-             "plain_ms": cuda_ms(lambda: flash_plain(q, k, v, False), reps=2),
-             "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(sdpa, reps=KERNEL_REPS)}
-        log(f"  flash_attention whisper {label} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f} "
-            f"({r['library_ms'] / r['ms']:.2f}x), "
-            f"bound {b_ms:.4f} by {b_by} ({b_ms / r['ms']:.1%} of it reached); max abs err "
-            f"{shown(err)}")
-        out[label] = r
+        out[label] = flash_times_at(f"whisper {label}", fns, q, k, v, False)
     return out
+
+
+def flash_mixtral_times(*fns) -> dict:
+    """``flash_times_at`` one rank's heads of mixtral-8x22b's prefill on
+    (1, 4) (``scripts/torch_four_cards.py`` part (e)): B 2, S 4,096, 12
+    query and 2 KV heads of 128, causal, the config's window (4,096, every
+    earlier key)."""
+    from repro_torch.models.base import get_config
+
+    cfg, ranks = get_config("mixtral_8x22b"), 4
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn((2, 4096, h // ranks, cfg.head_dim), device="cuda",
+                           generator=gen).bfloat16()
+               for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+    return flash_times_at("mixtral-8x22b (1, 4) rank", fns, q, k, v, True, cfg.window)
 
 
 def ssd_kernel_times(ssd_cuda, ssd_plain, ssd_bf16ops, ssd_fb) -> dict:
@@ -3542,8 +3579,8 @@ def main(argv=None) -> int:
     # 10. LM kernel times at the paths' shapes
     log(f"[10] LM kernels at the paths' shapes: flash (B in {LM_BATCHES}, S=4096, H=16, "
         f"Hkv=1, D=256, window 2048), rglru (B in {LM_BATCHES}, S=4096, N=4096), ssd (B=8, "
-        f"S=32768, H=32, P=64, N=128), flash at an olmoe continuation and whisper's encoder "
-        f"and cross-attention; ms, CUDA events")
+        f"S=32768, H=32, P=64, N=128), flash at an olmoe continuation, whisper's encoder "
+        f"and cross-attention and a (1, 4) rank of mixtral-8x22b; ms, CUDA events")
     lm_times = lm_kernel_times(flash_attention_cuda, flash_attention_sync_cuda,
                                chunked_attention_ref, flash_flops_bytes, rglru_cuda,
                                rglru_serial_cuda, rglru_ref, rglru_flops_bytes)
@@ -3551,9 +3588,10 @@ def main(argv=None) -> int:
                                        ssd_flops_bytes)
     lm_times["flash_attention"]["continuation"] = flash_continuation_times(
         flash_attention_cuda, chunked_attention_ref, chunked_attention_f32_ref, flash_flops_bytes)
-    lm_times["flash_attention"]["whisper"] = flash_whisper_times(
-        flash_attention_cuda, chunked_attention_ref, chunked_attention_f32_ref,
-        flash_flops_bytes)
+    flash_fns = (flash_attention_cuda, chunked_attention_ref, chunked_attention_f32_ref,
+                 flash_flops_bytes)
+    lm_times["flash_attention"]["whisper"] = flash_whisper_times(*flash_fns)
+    lm_times["flash_attention"]["mixtral"] = flash_mixtral_times(*flash_fns)
     for kname, r in lm_times.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {kname:15s} kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}, library {lib}, "

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """The port across the cards of one host: the analytics mesh on four cards,
-the train, prefill and decode programs on (4, 1) and (1, 4) NCCL meshes, and
-internvl2-76b prefilled at full size on (1, 4).
+the train, prefill and decode programs on (4, 1) and (1, 4) NCCL meshes,
+internvl2-76b prefilled at full size on (1, 4), and mixtral-8x22b served at
+full size on (1, 4).
 
-    python3 scripts/torch_four_cards.py --world 4    # four cards: parts (a)-(d)
-    python3 scripts/torch_four_cards.py --world 1    # one card: the rendezvous,
-                                                     # the init and part (b) at (1, 1)
+    python3 scripts/torch_four_cards.py --world 4    # four cards: parts (a)-(e)
+    python3 scripts/torch_four_cards.py --world 1    # one card: the rendezvous, the
+                                                     # init, parts (b) and (e) at (1, 1)
 
 The script is its own launcher: it starts ``--world`` ranks of itself
 (``--worker``), each with the environment ``torch.distributed.run`` gives
@@ -60,23 +61,36 @@ gate exits 1 at its end):
     Bit-equality and the ``sharding_fallback`` events are readings.
 (d) internvl2-76b through ``build_prefill_program`` on (1, 4), B 2 x S
     4,096 (3,840 tokens after the config's 256 stub patches): at 2 layers of
-    full width, the leaf-wise init bit-equal to ``init_params`` and the
-    logits within ``REL_L2`` of the unsharded port on one card (the
-    tempered copy gated, the seeded init a reading, as in (c)); at all 80
-    layers (70.55B parameters, seeded through ``init_params_sharded``),
-    logits finite, 80 flash launches a rank, a peak a card under 80 GB and
-    at least ``PEAK_FLOOR`` of the dry run's.  Readings: init s, prefill ms
-    (the first call, then one more), tokens/s, the NCCL share of device
-    time.
+    full width, the leaf-wise init bit-equal to ``init_params``, and the
+    logits and every cache leaf within ``REL_L2`` of the unsharded port on
+    the rank's card (the tempered copy gated, the seeded init a reading, as
+    in (c)), each kernel launched as often as there; at all 80 layers
+    (70.55B parameters, seeded through ``init_params_sharded``), logits
+    finite, 80 flash launches a rank (the unsharded port's a layer), a peak
+    a card under 80 GB and within ``PEAK_FLOOR`` of the dry run's both
+    ways.  Readings: init s and its peak, prefill ms (the first call, then
+    one more), tokens/s, rank 0's busy, idle and NCCL ms of one more.
+(e) mixtral-8x22b as (d), with ``build_decode_program`` too, B 2 x S
+    4,096, its 8 experts split on "model" (2 a rank, their partial
+    combines summed in f32): at 2 layers one decode step from the cache is
+    held against the unsharded port's beside the logits and cache; at all
+    56 layers (140.63B parameters) ``MOE_DECODE_STEPS`` decode steps follow
+    the second prefill, and the flash launches a prefill are 112 a rank
+    (56 layers x the config's 2 row chunks).  More readings: ms a decode
+    step, token-choices dropped by capacity (``moe_ffn.dropped``).  Part
+    (e) runs in ranks of its own, started after the others', with
+    ``PYTORCH_CUDA_ALLOC_CONF`` = ``ALLOC_CONF["e"]``.
 
 At ``--world 1`` (one card, as ``chip_smoke.py``'s phase 22 runs it) the
-rank joins a one-rank group through the same rendezvous, and part (b) runs
-at (1, 1) for 2 steps; a line says which four-card parts were not run and
-why.  ``--parts`` picks parts at ``--world 1`` only (b, c and d2, part (d)
-at 2 layers), for debugging on one card.  ``--cpu`` rehearses parts (b)-(d)
-on gloo ranks on the CPU at the configs' reduced widths (2 yi-6b layers,
-sequences of 32, internvl2-76b at 3 layers; no peak or launch gate), as a
-four-card change is tried before it takes the cards:
+rank joins a one-rank group through the same rendezvous; part (b) runs at
+(1, 1) for 2 steps and part (e) at 2 layers (e2) at (1, 1), bit-equal to
+the unsharded port (a (1, 1) run of (c)-(e) is gated bit for bit); a line
+says which four-card parts were not run and why.  ``--parts`` picks parts at ``--world 1`` only (b, c, d2 and e2, parts
+(d) and (e) at 2 layers), for debugging on one card.  ``--cpu`` rehearses
+parts (b)-(e) on gloo ranks on the CPU at the configs' reduced widths (2
+yi-6b layers, sequences of 32, internvl2-76b and mixtral-8x22b at 3
+layers; no peak or launch gate), as a four-card change is tried before it
+takes the cards:
 
     OMP_NUM_THREADS=2 python3 scripts/torch_four_cards.py --world 4 --cpu
 
@@ -122,9 +136,18 @@ SERVE = (("recurrentgemma_9b", 1), ("mamba2_370m", 8))   # (arch, units)
 SERVE_BATCH, SERVE_SEQ = 4, 4096
 VLM_ARCH, VLM_GATE_UNITS, VLM_BATCH, VLM_SEQ = "internvl2_76b", 2, 2, 4096
 VLM_UNITS = None            # None: the config's depth (80)
+MOE_ARCH, MOE_GATE_UNITS, MOE_BATCH, MOE_SEQ = "mixtral_8x22b", 2, 2, 4096
+MOE_UNITS = None            # None: the config's depth (56)
+MOE_DECODE_STEPS = 4        # (e) at full depth: decode steps from the prefill's cache
 REDUCED = False             # the configs' reduced widths (--cpu)
 RANK_TIMEOUT = 1500         # seconds for all ranks together
-PARTS = {1: ("b",), 4: ("a", "b", "c", "d")}
+PARTS = {1: ("b", "e2"), 4: ("a", "b", "c", "d", "e")}
+# Part (e) at full depth runs in ranks of its own whose allocator grows its
+# segments in place: at 65.49 GiB of weights a card, the third 21 GiB
+# expert leaf of the init found 19.19 GiB free on each H100 80GB HBM3 beside
+# 7.52 GiB of cached pieces (torch 2.11's default allocator).
+ALLOC_CONF = {"e": "expandable_segments:True"}
+ONE_CARD_PARTS = ("b", "c", "d2", "e2")   # --parts at --world 1
 
 
 FAILED: list = []           # the gates this process found unmet
@@ -187,10 +210,12 @@ def config(arch: str, units=None):
 def rehearse() -> None:
     """``--cpu``'s sizes: the configs' reduced widths, short sequences, a
     few layers."""
-    global REDUCED, TRAIN_UNITS, TRAIN_SEQ, SERVE, SERVE_SEQ, VLM_SEQ, VLM_UNITS
+    global REDUCED, TRAIN_UNITS, TRAIN_SEQ, SERVE, SERVE_SEQ, VLM_SEQ, VLM_UNITS, \
+        MOE_SEQ, MOE_UNITS
     REDUCED, TRAIN_UNITS, TRAIN_SEQ = True, 2, 32
     SERVE, SERVE_SEQ = (("recurrentgemma_9b", 1), ("mamba2_370m", 2)), 32
     VLM_SEQ, VLM_UNITS = 16, 3
+    MOE_SEQ, MOE_UNITS = 32, 3
 
 
 def meshes(world: int) -> list:
@@ -473,6 +498,11 @@ def predictions(world: int, parts) -> dict:
                               ShapeCell("d", "prefill", VLM_SEQ, VLM_BATCH),
                               mesh_shape={"data": 1, "model": world})
         out[f"d(1, {world})"] = rec["memory"]["peak_bytes_per_chip"]
+    if "e" in parts:
+        rec = dryrun.run_cell(config(MOE_ARCH, MOE_UNITS),
+                              ShapeCell("e", "prefill", MOE_SEQ, MOE_BATCH),
+                              mesh_shape={"data": 1, "model": world})
+        out[f"e(1, {world})"] = rec["memory"]["peak_bytes_per_chip"]
     return out
 
 
@@ -668,22 +698,14 @@ def serve_variant(cfg, specs, transform, tokens, nxt, dev, world, rank, counters
     """One set of weights of part (c) on each mesh of ``meshes(world)``."""
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import lm
     from repro_torch.models.base import ShapeCell
     from repro_torch.models.params import init_params, init_params_sharded
 
     memory_mark(dev)
-    params = transform(init_params(specs, SEED, device=dev))
-    counters.reset()
-    want_logits, want_cache, clen = lm.prefill(cfg, params, tokens, SERVE_SEQ)
-    want_launch = counters.read()
-    counters.reset()
-    want_step, _ = lm.decode_step(cfg, params, {k: v.clone() for k, v in want_cache.items()},
-                                  clen, nxt)
-    want_dec = counters.read()
-    del params
+    batch = {"tokens": tokens}
+    ref = unsharded(cfg, transform(init_params(specs, SEED, device=dev)), batch, SERVE_SEQ,
+                    nxt, counters)
     rec = {}
-    kernels = ("flash_attention", "rglru", "ssd")
     for shape in meshes(world):
         name = str(shape)
         mesh = make_host_mesh(model_parallel=shape[1], device=dev.type)
@@ -694,171 +716,264 @@ def serve_variant(cfg, specs, transform, tokens, nxt, dev, world, rank, counters
                 cfg, ShapeCell("c", "decode", SERVE_SEQ, SERVE_BATCH), mesh)
             params = transform(init_params_sharded(specs, SEED, pprog.mesh,
                                                    pprog.in_placements[0]))
-            counters.reset()
-            sync(dev)
-            t0 = time.perf_counter()
-            logits, cache, pclen = pprog.run(params, {"tokens": tokens})
-            logits = full(logits)
-            sync(dev)
-            t_prefill = time.perf_counter() - t0
-            got = counters.read()
-            errs = {"logits": rel_l2(logits, want_logits)}
-            same = torch.equal(logits, want_logits) and int(pclen) == int(clen)
-            for k, v in want_cache.items():
-                leaf = full(cache[k])
-                errs[k] = rel_l2(leaf, v)
-                same = same and torch.equal(leaf, v)
-            counters.reset()
-            sync(dev)
-            t0 = time.perf_counter()
-            step_logits, _ = dprog.run(params, cache, pclen, nxt)
-            step_logits = full(step_logits)
-            sync(dev)
-            t_decode = time.perf_counter() - t0
-            dec = counters.read()
-            errs["decode_logits"] = rel_l2(step_logits, want_step)
-            same_step = torch.equal(step_logits, want_step)
-        worst = max(errs.items(), key=lambda kv: kv[1])
-        finite = bool(torch.isfinite(logits).all() and torch.isfinite(step_logits).all())
-        rec[name] = {"prefill_bit_equal": same, "decode_bit_equal": same_step,
-                     "worst": worst, "logits_rel_l2": errs["logits"],
-                     "decode_rel_l2": errs["decode_logits"], "launches": got,
-                     "unsharded_launches": want_launch, "decode_launches": dec,
-                     "prefill_ms": t_prefill * 1e3, "decode_ms": t_decode * 1e3,
-                     "fallback_events": events}
-        log(f"  (c) rank {rank} {cfg.name} at {cfg.num_layers} layers, {label}, on {name}: "
-            f"prefill bit-equal {same}, decode bit-equal {same_step}, worst {worst[0]} at "
-            f"{worst[1]:.3e} (logits {errs['logits']:.3e}, decode "
-            f"{errs['decode_logits']:.3e}); launches {got} (unsharded {want_launch}), "
-            f"decode {dec}; prefill {t_prefill * 1e3:.1f} ms, decode "
-            f"{t_decode * 1e3:.1f} ms (first calls); fallback events "
-            f"{[e.get('detail') for e in events]}")
-        gate(finite, f"(c) {cfg.name} {label} {name}: non-finite logits")
-        if gated:
-            gate(worst[1] <= REL_L2,
-                 f"(c) {cfg.name} {label} {name}: {worst} beyond {REL_L2}")
-        gate(dev.type != "cuda" or not (
-            any(got[k] != want_launch[k] for k in kernels)
-            or any(dec[k] != want_dec[k] for k in kernels)
-            or got["plain_on_cuda"] or dec["plain_on_cuda"]
-            or not any(got[k] for k in kernels)),
-            f"(c) {cfg.name} {label} {name} rank {rank}: launches {got}, decode {dec}; the "
-            f"unsharded port {want_launch}, {want_dec}")
-        del params, cache, logits, step_logits
+            r = rec[name] = against(ref, pprog, dprog, params, batch, nxt, counters, dev)
+        r["fallback_events"] = events
+        gate_against(r, dev, f"(c) rank {rank} {cfg.name} at {cfg.num_layers} layers, "
+                             f"{label}, on {name}", gated, shape == (1, 1))
+        del params
     return rec
 
 
-def vlm_part(dev, world: int, rank: int, counters: Counters, full_depth: bool) -> dict:
-    """Part (d): internvl2-76b on (1, world), first at 2 layers against the
-    unsharded port, then at full depth."""
+def unsharded(cfg, params, batch, seq, nxt, counters) -> dict:
+    """The unsharded port on this rank's card, what a program's run is held
+    against: ``lm.prefill`` and, with ``nxt``, one ``lm.decode_step`` from
+    a copy of its cache; the launches and the dropped token-choices."""
+    from repro_torch.layers.moe import moe_ffn
+    from repro_torch.models import lm
+
+    counters.reset()
+    moe_ffn.dropped = 0
+    logits, cache, clen = lm.prefill(cfg, params, batch["tokens"], seq,
+                                     **{k: v for k, v in batch.items() if k != "tokens"})
+    ref = {"logits": logits, "cache": cache, "clen": int(clen), "launches": counters.read(),
+           "dropped": int(moe_ffn.dropped)}
+    if nxt is not None:
+        counters.reset()
+        ref["step"], _ = lm.decode_step(cfg, params, {k: v.clone() for k, v in cache.items()},
+                                        clen, nxt)
+        ref["decode_launches"] = counters.read()
+    return ref
+
+
+def against(ref, pprog, dprog, params, batch, nxt, counters, dev) -> dict:
+    """The prefill program's logits and every cache leaf and, with
+    ``dprog``, one decode step from that cache, on ``params``, against
+    ``ref`` (``unsharded``): bit-equality, relative L2 distances and the
+    worst of them, finiteness, launches and dropped token-choices on both
+    sides, and the calls' host ms."""
+    from repro_torch.layers.moe import moe_ffn
+
+    counters.reset()
+    moe_ffn.dropped = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    logits, cache, clen = pprog.run(params, batch)
+    logits = full(logits)
+    sync(dev)
+    rec = {"prefill_ms": (time.perf_counter() - t0) * 1e3, "launches": counters.read(),
+           "unsharded_launches": ref["launches"], "dropped": int(moe_ffn.dropped),
+           "unsharded_dropped": ref["dropped"]}
+    errs = {"logits": rel_l2(logits, ref["logits"])}
+    same = torch.equal(logits, ref["logits"]) and int(clen) == ref["clen"]
+    for k, v in ref["cache"].items():
+        leaf = full(cache[k])
+        errs[k] = rel_l2(leaf, v)
+        same = same and torch.equal(leaf, v)
+    finite = bool(torch.isfinite(logits).all())
+    if dprog is not None:
+        counters.reset()
+        sync(dev)
+        t0 = time.perf_counter()
+        step, _ = dprog.run(params, cache, clen, nxt)
+        step = full(step)
+        sync(dev)
+        errs["decode_logits"] = rel_l2(step, ref["step"])
+        finite = finite and bool(torch.isfinite(step).all())
+        rec.update(decode_ms=(time.perf_counter() - t0) * 1e3,
+                   decode_launches=counters.read(),
+                   unsharded_decode_launches=ref["decode_launches"],
+                   decode_bit_equal=torch.equal(step, ref["step"]),
+                   decode_rel_l2=errs["decode_logits"])
+    rec.update(prefill_bit_equal=same, logits_rel_l2=errs["logits"],
+               worst=max(errs.items(), key=lambda kv: kv[1]), finite=finite)
+    return rec
+
+
+LM_KERNELS = ("flash_attention", "rglru", "ssd")
+
+
+def gate_against(r: dict, dev, what: str, gated: bool, one_rank: bool) -> None:
+    """Log ``against``'s record and gate it: finite; on one rank bit for bit
+    (the program is then the unsharded port's ops); else, where ``gated``,
+    the worst distance within ``REL_L2``; on the card each LM kernel launched
+    as often as the unsharded port launches it, some kernel at all, and no
+    plain version."""
+    decode = "decode_launches" in r
+    dist, runs, ms = ((f", decode {r['decode_rel_l2']:.3e}", f", decode {r['decode_launches']}",
+                       f", decode {r['decode_ms']:.1f} ms") if decode else ("", "", ""))
+    log(f"  {what}: prefill bit-equal {r['prefill_bit_equal']}, decode bit-equal "
+        f"{r.get('decode_bit_equal')}, worst {r['worst'][0]} at {r['worst'][1]:.3e} (logits "
+        f"{r['logits_rel_l2']:.3e}{dist}); launches {r['launches']} (unsharded "
+        f"{r['unsharded_launches']}){runs}; token-choices dropped {r['dropped']} (unsharded "
+        f"{r['unsharded_dropped']}); prefill {r['prefill_ms']:.1f} ms{ms} (first calls); "
+        f"fallback events {[e.get('detail') for e in r['fallback_events']]}")
+    gate(r["finite"], f"{what}: non-finite logits")
+    if one_rank:
+        gate(r["prefill_bit_equal"] and r.get("decode_bit_equal", True),
+             f"{what}: not bit-equal to the unsharded port ({r['worst']})")
+    elif gated:
+        gate(r["worst"][1] <= REL_L2, f"{what}: {r['worst']} beyond {REL_L2}")
+    pairs = [(r["launches"], r["unsharded_launches"])]
+    if decode:
+        pairs.append((r["decode_launches"], r["unsharded_decode_launches"]))
+    gate(dev.type != "cuda" or (
+        all(got[k] == want[k] for got, want in pairs for k in LM_KERNELS)
+        and not any(got["plain_on_cuda"] for got, _ in pairs)
+        and any(r["launches"][k] for k in LM_KERNELS)),
+        f"{what}: launches {pairs} (the program's, the unsharded port's)")
+
+
+def vlm_batch(cfg, dev):
+    """Part (d)'s batch: text tokens after the config's stub patches; no
+    decode."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (VLM_BATCH, VLM_SEQ - cfg.num_patches),
+                           device=dev, generator=gen, dtype=torch.int32)
+    patches = (0.02 * torch.randn((VLM_BATCH, cfg.num_patches, cfg.d_model), device=dev,
+                                  generator=gen)).to(torch.bfloat16)
+    return {"tokens": tokens, "patches": patches}, None
+
+
+def moe_batch(cfg, dev):
+    """Part (e)'s batch and the tokens of its ``MOE_DECODE_STEPS`` decode
+    steps."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ), device=dev,
+                           generator=gen, dtype=torch.int32)
+    nxt = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_DECODE_STEPS), device=dev,
+                        generator=gen, dtype=torch.int32)
+    return {"tokens": tokens}, nxt
+
+
+def model_part(part: str, arch: str, gate_units: int, units, seq: int, make_batch, dev,
+               world: int, rank: int, counters: Counters, full_depth: bool) -> dict:
+    """Parts (d) and (e): ``arch`` at full width on (1, world) through the
+    prefill program, and the decode program where ``make_batch`` gives the
+    decode steps' tokens.  First at ``gate_units`` units against the
+    unsharded port on this rank's card: the leaf-wise init bit-equal to
+    ``init_params``, then for each of ``variants`` ``against``'s comparison,
+    gated by ``gate_against`` (the last variant).  Then at ``units`` (None:
+    the config's depth): the init's seconds and peak, two prefills, the
+    decode steps from the second's cache, the peak since the init, and rank
+    0's profile of one more prefill."""
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import lm
+    from repro_torch.layers.moe import moe_ffn
     from repro_torch.models.base import ShapeCell
     from repro_torch.models.params import init_params, init_params_sharded, num_params
 
     mesh = make_host_mesh(model_parallel=world, device=dev.type)
-    cell = ShapeCell("d", "prefill", VLM_SEQ, VLM_BATCH)
-    cfg2 = config(VLM_ARCH, VLM_GATE_UNITS)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    tokens = torch.randint(0, cfg2.vocab_size, (VLM_BATCH, VLM_SEQ - cfg2.num_patches),
-                           device=dev, generator=gen, dtype=torch.int32)
-    patches = (0.02 * torch.randn((VLM_BATCH, cfg2.num_patches, cfg2.d_model), device=dev,
-                                  generator=gen)).to(torch.bfloat16)
-    batch = {"tokens": tokens, "patches": patches}
-    out = {}
+    cfg2 = config(arch, gate_units)
+    batch, nxt = make_batch(cfg2, dev)
+    B = batch["tokens"].shape[0]
 
-    # at 2 layers: the init, then the logits against the unsharded port for
-    # each of ``variants`` (the last gated)
+    def programs(cfg):
+        pprog = steps.build_prefill_program(cfg, ShapeCell(part, "prefill", seq, B), mesh)
+        return pprog, None if nxt is None else steps.build_decode_program(
+            cfg, ShapeCell(part, "decode", seq, B), mesh)
+
+    # at gate_units: the init, then each variant against the unsharded port
     memory_mark(dev)
     specs = steps.model_specs(cfg2)
-    prog = steps.build_prefill_program(cfg2, cell, mesh)
-    params = init_params_sharded(specs, SEED, prog.mesh, prog.in_placements[0])
+    with fallbacks() as events:
+        pprog, dprog = programs(cfg2)
+        params = init_params_sharded(specs, SEED, pprog.mesh, pprog.in_placements[0])
     want = init_params(specs, SEED, device=dev)
     unequal = [k for k in want if not torch.equal(full(params[k]), want[k])]
-    gate(not unequal, f"(d) the leaf-wise init departs from init_params in {unequal[:5]}")
-    out["init_bit_equal_leaves"] = len(want) - len(unequal)
+    gate(not unequal, f"({part}) the leaf-wise init departs from init_params in {unequal[:5]}")
+    out = {"init_bit_equal_leaves": len(want) - len(unequal)}
+    log(f"  ({part}) rank {rank} {cfg2.name} at {cfg2.num_layers} layers on (1, {world}): "
+        f"{out['init_bit_equal_leaves']} of {len(want)} leaves bit-equal to init_params")
     runs = variants(specs)
+    first = None if nxt is None else nxt[:, :1]
     for label, transform in runs:
-        with fallbacks() as events:
-            counters.reset()
-            logits, _, _ = prog.run(transform(params), batch)
-            logits = full(logits)
-            got = counters.read()
-        counters.reset()
-        want_logits, _, _ = lm.prefill(cfg2, transform(want), tokens, VLM_SEQ,
-                                       patches=patches)
-        want_launch = counters.read()
-        err = rel_l2(logits, want_logits)
-        same = torch.equal(logits, want_logits)
-        out[label] = {"layers": cfg2.num_layers, "logits_rel_l2": err, "bit_equal": same,
-                      "launches": got, "unsharded_launches": want_launch,
-                      "fallback_events": events}
-        log(f"  (d) rank {rank} {cfg2.name} at {cfg2.num_layers} layers, {label}, on (1, "
-            f"{world}): {out['init_bit_equal_leaves']} of {len(want)} leaves bit-equal to "
-            f"init_params; logits relative L2 {err:.3e} (bit-equal {same}); launches {got} "
-            f"(unsharded {want_launch})")
-        gate(bool(torch.isfinite(logits).all()), f"(d) {label}: non-finite logits")
-        if label == runs[-1][0]:
-            gate(err <= REL_L2, f"(d) at {cfg2.num_layers} layers, {label}: logits {err:.3e} "
-                                f"from the unsharded port (limit {REL_L2})")
-        gate(dev.type != "cuda" or (got["flash_attention"] == want_launch["flash_attention"]
-                                    and not got["plain_on_cuda"]),
-             f"(d) at {cfg2.num_layers} layers rank {rank}: launches {got}")
-        del logits, want_logits
+        ref = unsharded(cfg2, transform(want), batch, seq, first, counters)
+        with fallbacks() as more:
+            r = out[label] = against(ref, pprog, dprog, transform(params), batch, first,
+                                     counters, dev)
+        del ref
+        r.update(layers=cfg2.num_layers, fallback_events=events + more)
+        gate_against(r, dev, f"({part}) rank {rank} {cfg2.name} at {cfg2.num_layers} layers, "
+                             f"{label}, on (1, {world})", label == runs[-1][0], world == 1)
     del params, want
+    memory_mark(dev)
     if not full_depth:
         return out
 
     # at full depth
-    cfg = config(VLM_ARCH, VLM_UNITS)
+    cfg = config(arch, units)
     specs = steps.model_specs(cfg)
     before = memory_mark(dev)
     with fallbacks() as events:
-        prog = steps.build_prefill_program(cfg, cell, mesh)
-        sync(dev)
+        pprog, dprog = programs(cfg)
+        reset_peak(dev)
         t0 = time.perf_counter()
-        params = init_params_sharded(specs, SEED, prog.mesh, prog.in_placements[0])
+        params = init_params_sharded(specs, SEED, pprog.mesh, pprog.in_placements[0])
         sync(dev)
         t_init = time.perf_counter() - t0
+        init_peak = peak_since(dev, before)
         reset_peak(dev)
-        walls, launches = [], []
+        walls, launches, finite = [], [], True
+        moe_ffn.dropped = 0
         for _ in range(2):
+            cache = None  # the first call's cache freed before the second
             counters.reset()
             sync(dev)
             t0 = time.perf_counter()
-            logits, cache, _ = prog.run(params, batch)
+            logits, cache, clen = pprog.run(params, batch)
             logits = full(logits)
             sync(dev)
             walls.append(time.perf_counter() - t0)
             launches.append(counters.read())
-            finite = bool(torch.isfinite(logits).all())
-            del logits, cache
+            finite = finite and bool(torch.isfinite(logits).all())
+        dropped = int(moe_ffn.dropped)
+        counters.reset()
+        steps_ms = []
+        for t in range(0 if nxt is None else nxt.shape[1]):
+            sync(dev)
+            t0 = time.perf_counter()
+            logits, cache = dprog.run(params, cache, clen + t, nxt[:, t:t + 1])
+            logits = full(logits)
+            sync(dev)
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+            finite = finite and bool(torch.isfinite(logits).all())
+        dec = counters.read()
         peak = peak_since(dev, before)
-        prof = device_profile(lambda: prog.run(params, batch),
+        del logits, cache
+        prof = device_profile(lambda: pprog.run(params, batch),
                               rank == 0 and dev.type == "cuda")
     del params
     memory_mark(dev)
-    want_flash = cfg.num_layers if dev.type == "cuda" else 0
-    tokens_per_s = VLM_BATCH * VLM_SEQ / walls[1]
+    # as many flash launches a layer as the unsharded port's at gate_units
+    # (mixtral's prefill takes its 2 rows in 2 chunks: 2 a layer)
+    want_flash = (out[runs[-1][0]]["unsharded_launches"]["flash_attention"]
+                  * cfg.num_layers // cfg2.num_layers)
+    tokens_per_s = B * seq / walls[1]
+    decode_ms = sum(steps_ms[1:]) / (len(steps_ms) - 1) if len(steps_ms) > 1 else None
     out["full"] = {"layers": cfg.num_layers, "params": num_params(specs), "init_s": t_init,
-                   "first_ms": walls[0] * 1e3, "prefill_ms": walls[1] * 1e3,
-                   "tokens_per_s": tokens_per_s, "peak_bytes": peak, "launches": launches,
-                   "finite": finite, "profile": prof, "fallback_events": events}
-    log(f"  (d) rank {rank} {cfg.name} at {cfg.num_layers} layers on (1, {world}), "
-        f"{num_params(specs):,} parameters: init {t_init:.2f} s, prefill "
-        f"{walls[0] * 1e3:.1f} ms first, then {walls[1] * 1e3:.1f} ms ({tokens_per_s:.1f} "
-        f"tokens/s); peak {(peak or 0) / 2 ** 30:.2f} GiB; launches {launches[-1]}; finite "
-        f"{finite}")
+                   "init_peak_bytes": init_peak, "first_ms": walls[0] * 1e3,
+                   "prefill_ms": walls[1] * 1e3, "tokens_per_s": tokens_per_s,
+                   "decode_ms": steps_ms, "decode_ms_per_step": decode_ms,
+                   "peak_bytes": peak, "launches": launches, "decode_launches": dec,
+                   "dropped": dropped, "finite": finite, "profile": prof,
+                   "fallback_events": events}
+    log(f"  ({part}) rank {rank} {cfg.name} at {cfg.num_layers} layers on (1, {world}), "
+        f"{num_params(specs):,} parameters: init {t_init:.2f} s (peak "
+        f"{(init_peak or 0) / 2 ** 30:.2f} GiB); prefill {walls[0] * 1e3:.1f} ms first, then "
+        f"{walls[1] * 1e3:.1f} ms ({tokens_per_s:.1f} tokens/s); decode "
+        f"{[round(x, 1) for x in steps_ms]} ms a step; peak since the init "
+        f"{(peak or 0) / 2 ** 30:.2f} GiB; launches {launches[-1]}, decode {dec}; "
+        f"token-choices dropped {dropped} in the two prefills; finite {finite}")
     if prof is not None:
-        log(f"  (d) rank 0 profiled prefill: {prof['wall_ms']:.1f} ms wall, busy "
+        log(f"  ({part}) rank 0 profiled prefill: {prof['wall_ms']:.1f} ms wall, busy "
             f"{prof['busy_ms']:.1f} ms (idle {prof['idle_share']:.1%}), NCCL "
             f"{prof['nccl_total_ms']:.2f} ms {prof['nccl_ms']} = "
             f"{prof['nccl_share_of_kernel_ms']:.1%} of kernel time")
-    gate(finite, f"(d) at {cfg.num_layers} layers: non-finite logits")
-    gate(not any(r["flash_attention"] != want_flash or r["plain_on_cuda"] for r in launches),
-         f"(d) at {cfg.num_layers} layers rank {rank}: launches {launches} (want "
-         f"{want_flash} flash a call)")
+    gate(finite, f"({part}) at {cfg.num_layers} layers: non-finite logits")
+    gate(not any(r["flash_attention"] != want_flash or r["plain_on_cuda"] for r in launches)
+         and not dec["plain_on_cuda"],
+         f"({part}) at {cfg.num_layers} layers rank {rank}: launches {launches}, decode {dec} "
+         f"(want {want_flash} flash a prefill call)")
     return out
 
 
@@ -891,7 +1006,11 @@ def worker(args) -> int:
     if "c" in parts:
         out["c"] = serve_part(dev, world, rank, counters)
     if "d" in parts or "d2" in parts:
-        out["d"] = vlm_part(dev, world, rank, counters, full_depth="d" in parts)
+        out["d"] = model_part("d", VLM_ARCH, VLM_GATE_UNITS, VLM_UNITS, VLM_SEQ, vlm_batch, dev,
+                              world, rank, counters, full_depth="d" in parts)
+    if "e" in parts or "e2" in parts:
+        out["e"] = model_part("e", MOE_ARCH, MOE_GATE_UNITS, MOE_UNITS, MOE_SEQ, moe_batch, dev,
+                              world, rank, counters, full_depth="e" in parts)
     out["failed"] = FAILED
     with open(os.path.join(args.out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f, default=str)
@@ -908,15 +1027,18 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch_ranks(world: int, parts, out_dir: str, extra=()) -> list:
+def launch_ranks(world: int, parts, out_dir: str, extra=(), alloc_conf=None) -> list:
     """``world`` ranks of this script, started as ``torch.distributed.run``
-    starts them; each rank's log is printed; a rank that fails ends them
-    all.  Returns each rank's results."""
+    starts them (with ``PYTORCH_CUDA_ALLOC_CONF`` = ``alloc_conf`` where
+    given); each rank's log is printed; a rank that fails ends them all.
+    Returns each rank's results."""
     port = str(free_port())
     procs, logs = [], []
     for r in range(world):
         env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
                    LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+        if alloc_conf:
+            env["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
         logf = open(os.path.join(out_dir, f"rank{r}.log"), "w")
         logs.append(logf)
         procs.append(subprocess.Popen(
@@ -963,14 +1085,14 @@ def launch_ranks(world: int, parts, out_dir: str, extra=()) -> list:
 def check_peaks(results: list, predicted: dict) -> dict:
     """Each rank's measured peak against the dry run's prediction: at least
     ``PEAK_FLOOR`` of it and it at least ``PEAK_FLOOR`` of the measured one;
-    part (d)'s also under ``HBM_LIMIT``."""
+    parts (d)'s and (e)'s also under ``HBM_LIMIT``."""
     out = {}
     for key, pred in predicted.items():
         part, shape = key[0], key[1:]
         if part == "b":
             peaks = [r["b"][shape]["peak_bytes"] for r in results]
         else:
-            peaks = [r["d"]["full"]["peak_bytes"] for r in results]
+            peaks = [r[part]["full"]["peak_bytes"] for r in results]
         ratios = [p / pred for p in peaks]
         out[key] = {"predicted": pred, "measured": peaks, "measured_over_predicted": ratios}
         log(f"  peak a card {key}: measured {[round(p / 2 ** 30, 2) for p in peaks]} GiB, "
@@ -978,7 +1100,7 @@ def check_peaks(results: list, predicted: dict) -> dict:
             f"{[round(x, 4) for x in ratios]}")
         gate(min(ratios) >= PEAK_FLOOR and pred >= PEAK_FLOOR * max(peaks),
              f"{key}: measured peaks {peaks} against the dry run's {pred}")
-        gate(part != "d" or max(peaks) < HBM_LIMIT,
+        gate(part == "b" or max(peaks) < HBM_LIMIT,
              f"{key}: a peak {max(peaks)} bytes reaches {HBM_LIMIT}")
     return out
 
@@ -1002,20 +1124,24 @@ def launched(results: list) -> dict:
                 for m in rec.values():
                     add(m["launches"])
                     add(m["decode_launches"])
-        if "d" in r:
-            for label in ("seeded", "tempered"):
-                add(r["d"][label]["launches"])
-            for row in r["d"].get("full", {}).get("launches", []):
-                add(row)
+        for part in ("d", "e"):
+            if part in r:
+                for label in ("seeded", "tempered"):
+                    add(r[part][label]["launches"])
+                    add(r[part][label].get("decode_launches", {}))
+                rows = r[part].get("full", {})
+                for row in rows.get("launches", []) + [rows.get("decode_launches", {})]:
+                    add(row)
     return total
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--world", type=int, default=4, choices=(1, 4),
-                    help="cards (ranks): 4, parts (a)-(d); 1, part (b) at (1, 1)")
+                    help="cards (ranks): 4, parts (a)-(e); 1, parts (b) and (e) at 2 "
+                         "layers (e2) at (1, 1)")
     ap.add_argument("--parts", default=None,
-                    help="at --world 1 only: a comma list of b, c and d2")
+                    help=f"at --world 1 only: a comma list of {', '.join(ONE_CARD_PARTS)}")
     ap.add_argument("--cpu", action="store_true",
                     help="a rehearsal of the ranks' parts on gloo ranks on the CPU at the "
                          "configs' reduced widths (not the cell: no card, no timing gate)")
@@ -1040,16 +1166,16 @@ def main(argv=None) -> int:
               f"torch sees {visible}", file=sys.stderr)
         return 2
     if args.parts is None:
-        parts = ("b", "c", "d") if args.cpu else PARTS[args.world]
+        parts = ("b", "c", "d", "e") if args.cpu else PARTS[args.world]
     elif args.world != 1:
         print("torch_four_cards: --parts is for --world 1; --world 4 runs every part",
               file=sys.stderr)
         return 2
     else:
         parts = tuple(args.parts.split(","))
-        if not set(parts) <= {"b", "c", "d2"}:
-            print(f"torch_four_cards: --parts takes b, c and d2, got {args.parts}",
-                  file=sys.stderr)
+        if not set(parts) <= set(ONE_CARD_PARTS):
+            print(f"torch_four_cards: --parts takes {', '.join(ONE_CARD_PARTS)}, got "
+                  f"{args.parts}", file=sys.stderr)
             return 2
     sys.path.insert(0, SRC)
     from repro_torch.kernels import _build
@@ -1062,7 +1188,7 @@ def main(argv=None) -> int:
     log(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    skipped = sorted(set(PARTS[4]) - {p[0] for p in parts})
+    skipped = sorted(set(PARTS[4]) - set(parts))
     if skipped:
         log(f"[four cards] not run: parts {skipped} (--world {args.world}: "
             f"{'the run asked for one card' if visible >= 4 else f'{visible} card(s) visible'}; "
@@ -1091,8 +1217,16 @@ def main(argv=None) -> int:
         out_dir = tempfile.mkdtemp(prefix="four_cards_")
         try:
             t0 = time.perf_counter()
-            results = launch_ranks(args.world, rank_parts, out_dir,
-                                   ("--cpu",) if args.cpu else ())
+            results = []
+            for group in ([p for p in rank_parts if p not in ALLOC_CONF],
+                          [p for p in rank_parts if p in ALLOC_CONF]):
+                if not group:
+                    continue
+                got = launch_ranks(args.world, group, out_dir, ("--cpu",) if args.cpu else (),
+                                   ALLOC_CONF.get(group[0]))
+                results = got if not results else [
+                    {**a, **b, "failed": a["failed"] + b["failed"]}
+                    for a, b in zip(results, got)]
             log(f"[four cards] ranks done in {time.perf_counter() - t0:.1f} s")
         finally:
             shutil.rmtree(out_dir, ignore_errors=True)

@@ -126,28 +126,28 @@ def _contracted(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 class _MatmulF32(torch.autograd.Function):
-    """``a @ b`` of bf16 matrices on the card with an f32 result (the tensor
-    cores' f32 accumulator, ``out_dtype``); the gradients are the bf16
-    products a plain ``a @ b`` forms."""
+    """``a @ b`` of bf16 matrices (or batches of them) on the card with an
+    f32 result (the tensor cores' f32 accumulator, ``out_dtype``); the
+    gradients are the bf16 products a plain ``a @ b`` forms."""
 
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        return torch.mm(a, b, out_dtype=torch.float32)
+        return (torch.bmm if a.ndim == 3 else torch.mm)(a, b, out_dtype=torch.float32)
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
         g = g.to(a.dtype)
-        return (g @ b.T if ctx.needs_input_grad[0] else None,
-                a.T @ g if ctx.needs_input_grad[1] else None)
+        return (g @ b.transpose(-1, -2) if ctx.needs_input_grad[0] else None,
+                a.transpose(-1, -2) @ g if ctx.needs_input_grad[1] else None)
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` with an f32 result, the products summed in f32: bf16 on the
-    card (and fake tensors, which stand for the card's in the dry run)
-    through ``_MatmulF32``, elsewhere widened to f32 first (exact for
-    bf16)."""
+    """``a @ b`` (2-D, or 3-D batches) with an f32 result, the products
+    summed in f32: bf16 on the card (and fake tensors, which stand for the
+    card's in the dry run) through ``_MatmulF32``, elsewhere widened to f32
+    first (exact for bf16)."""
     from ..kernels import is_fake
 
     if (a.is_cuda or is_fake(a)) and a.dtype == b.dtype == torch.bfloat16:

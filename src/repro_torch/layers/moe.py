@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import Partial
 
 from ..dist.context import act_placements, constrain, dtensor_mesh, local_region, shard_start
-from .common import _activate
+from .common import _activate, _mm_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,7 +103,8 @@ def moe_ffn(
     the token groups on the data-parallel axes ("batch", as the reference
     pins them): the routing with every expert, replicated on "model"; the
     experts split on "model" where the expert count divides it, each shard
-    running its own experts on every token and the partial sums added.
+    running its own experts on every token and the partial sums formed and
+    added in f32, rounded once to x's dtype (``_experts``).
     The load-balance loss takes its counts over the whole batch."""
     B, S, D = x.shape
     Tg = min(spec.group_size, S)
@@ -129,11 +130,12 @@ def moe_ffn(
     e0 = 0 if mesh is None else shard_start(mesh, pe, 0, spec.num_experts)[0]
     py = None if mesh is None else tuple(Partial() if pl.is_shard() else q
                                          for pl, q in zip(pe, pg))
-    y = local_region(lambda *a: _experts(*a, spec, cap, e0),
+    split = py is not None and any(p.is_partial() for p in py)
+    y = local_region(lambda *a: _experts(*a, spec, cap, e0, split),
                      (xt, expert, slot, keep, gate, w_gate, w_up, w_down),
                      (pg, pr, pr, pr, pr, pe, pe, pe), py)
     if mesh is not None:  # back to x's layout: groups split where rows are not
-        y = y.redistribute(mesh, grid.placements)
+        y = y.redistribute(mesh, grid.placements).to(x.dtype)
     return y.reshape(B, S, D), load_balance(counts, psum, G * Tg, spec)
 
 
@@ -148,10 +150,14 @@ def _route(xt: torch.Tensor, gate_w: torch.Tensor, spec: MoESpec, cap: int):
 
 
 def _experts(xt, expert, slot, keep, gate, w_gate, w_up, w_down, spec: MoESpec,
-             cap: int, e0: int) -> torch.Tensor:
+             cap: int, e0: int, partial: bool = False) -> torch.Tensor:
     """The FFN of experts ``e0 .. e0 + w_gate.shape[0]`` on a (G, Tg, D)
     token grid routed by ``_route``: each token's weighted sum of the rows
-    those experts give it, (G, Tg, D) in xt's dtype."""
+    those experts give it, (G, Tg, D) in xt's dtype, or in f32 where it is
+    one shard's ``partial`` sum: the k weighted rows are then added in f32,
+    so that the shards' partials, added in f32 and rounded once, give what
+    one card's single product over the k rows gives (DTensor would round
+    each partial to x's dtype and add them in it)."""
     G, Tg, D = xt.shape
     k = spec.top_k
     El = w_gate.shape[0]
@@ -171,6 +177,8 @@ def _experts(xt, expert, slot, keep, gate, w_gate, w_up, w_down, spec: MoESpec,
     # takes them; a dropped choice weighs 0 (its row index is any valid one).
     w = torch.where(mine, gate, 0.0).to(xt.dtype).reshape(G * Tg, 1, k)
     rows = ye[torch.where(mine.reshape(G * Tg, k), dest, 0)]     # (G*Tg,k,D)
+    if partial:  # the k products summed in f32, no (G*Tg, k, D) f32 copy on the card
+        return _mm_f32(w, rows).reshape(G, Tg, D)
     return torch.bmm(w, rows).reshape(G, Tg, D)
 
 

@@ -91,11 +91,25 @@ def _unit_slices(spec: ParamSpec) -> Optional[ParamSpec]:
                                fan_in_axis=fan)
 
 
-def _draw(gen: torch.Generator, spec: ParamSpec, device: torch.device) -> torch.Tensor:
+def _draw(gen: torch.Generator, spec: ParamSpec, device: torch.device,
+          keep=None) -> torch.Tensor:
+    """``spec``'s leaf drawn from ``gen``: whole, or past
+    ``SLICED_DRAW_BYTES`` one unit at a time into one tensor allocated at
+    the first unit and written in place.  ``keep(draw, unit)`` maps each
+    draw (one unit of the leaf when ``unit``) to what is kept of it: this
+    rank's shard on a mesh, the draw itself off one."""
+    keep = keep or (lambda t, unit: t)
     unit = _unit_slices(spec)
     if unit is None:
-        return _init_leaf(gen, spec, device)
-    return torch.stack([_init_leaf(gen, unit, device) for _ in range(spec.shape[0])])
+        return keep(_init_leaf(gen, spec, device), False)
+    out = None
+    for i in range(spec.shape[0]):
+        part = keep(_init_leaf(gen, unit, device), True)
+        if out is None:
+            out = part.new_empty((spec.shape[0], *part.shape))
+        out[i] = part
+        del part  # freed before the next unit is drawn
+    return out
 
 
 def init_params(specs: Specs, seed: int = 0, device: DeviceLike = None) -> Params:
@@ -116,7 +130,8 @@ def init_params_sharded(specs: Specs, seed: int, mesh,
     ``init_params``'s order from one generator seeded with ``seed`` on its
     own card (the CPU on a gloo mesh), keeps its shard and frees the draw
     before the next, so the values are ``init_params``'s bit for bit and no
-    card holds more than the shards and one draw.  No collective runs."""
+    card holds more than the shards and one draw (``_draw``).  No collective
+    runs."""
     from torch.distributed.tensor import DTensor, Shard
 
     dev = torch.device(mesh.device_type)
@@ -125,15 +140,12 @@ def init_params_sharded(specs: Specs, seed: int, mesh,
     gen = torch.Generator(device=dev).manual_seed(seed)
     out: Params = {}
     for k, s in sorted(specs.items()):
-        unit, pl = _unit_slices(s), tuple(placements[k])
-        if unit is None:
-            local = _shard(_init_leaf(gen, s, dev), mesh, pl)
-        else:  # the layers axis is never split: a unit's placements are dims - 1
-            if any(p.is_shard(0) for p in pl):
+        pl, upl = tuple(placements[k]), None
+        if _unit_slices(s) is not None:  # the layers axis is never split: a unit's
+            if any(p.is_shard(0) for p in pl):  # placements are dims - 1
                 raise ValueError(f"{k}: a leaf drawn unit by unit is split on its layers axis")
             upl = tuple(Shard(p.dim - 1) if p.is_shard() else p for p in pl)
-            local = torch.stack([_shard(_init_leaf(gen, unit, dev), mesh, upl)
-                                 for _ in range(s.shape[0])])
+        local = _draw(gen, s, dev, lambda t, unit: _shard(t, mesh, upl if unit else pl))
         out[k] = DTensor.from_local(local, mesh, pl, run_check=False, shape=s.shape,
                                     stride=torch.empty(s.shape, device="meta").stride())
     return out

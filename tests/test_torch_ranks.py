@@ -8,19 +8,22 @@ them (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and a free
 * ``models/params.py`` ``init_params_sharded`` at (2, 1) and (1, 2) on a
   narrowed internvl2-76b (2 layers, the reduced widths): every leaf's
   ``full_tensor()`` bit-equal to ``init_params``, each rank holding only
-  its shard; again with every stacked leaf drawn unit by unit.
+  its shard; again with every stacked leaf drawn unit by unit, whose
+  values (one process) equal the units drawn in order and stacked.
 * The (1, 2) prefill program on those weights, in f32, against the JAX
   package's ``repro.models.lm.prefill`` on the same numpy weights
   (``params_from_numpy``'s carry): logits and every cache leaf within
   rtol = atol = 2e-4, ``tests/test_torch_lm.py``'s tolerance for the
   unsharded port in f32 (summation order only); and in bf16, for reduced
   mamba2-370m, recurrentgemma-9b and yi-6b, the (1, 2) program bit-equal
-  to the unsharded port's ``prefill``.
+  to the unsharded port's ``prefill``, and likewise for reduced
+  mixtral-8x22b and olmoe-1b-7b with their experts split over the ranks.
 * ``launch/train.py`` on two ranks: the loss falls, only rank 0 prints and
   writes checkpoints, and ``--resume`` continues from them on both ranks.
 * ``scripts/torch_four_cards.py --world 4`` without CUDA exits 2 with one
-  line; with ``--cpu`` it rehearses its ranks' parts on four gloo ranks;
-  it imports nothing of JAX.
+  line; with ``--cpu`` it rehearses its ranks' parts on four gloo ranks,
+  and ``--world 1 --cpu --parts e2`` part (e) at 2 layers on one; it
+  imports nothing of JAX.
 
 Each rank is joined with its own timeout, then killed.
 """
@@ -186,6 +189,28 @@ def test_sharded_init_equals_init_params(dp, mp, sliced, tmp_path):
     assert len(got["split"]) >= 4, got["split"]
 
 
+def test_unit_draws_equal_the_stacked_units(monkeypatch):
+    """``init_params`` with every stacked leaf drawn unit by unit into one
+    tensor equals the units drawn in the same order and stacked."""
+    import repro_torch.models.params as params_mod
+
+    monkeypatch.setattr(params_mod, "SLICED_DRAW_BYTES", 0)
+    specs = model_specs(_narrow_internvl2())
+    got = params_mod.init_params(specs, SEED, device="cpu")
+    gen = torch.Generator().manual_seed(SEED)
+    units = 0
+    for k, s in sorted(specs.items()):
+        unit = params_mod._unit_slices(s)
+        if unit is None:
+            want = params_mod._init_leaf(gen, s, torch.device("cpu"))
+        else:
+            units += 1
+            want = torch.stack([params_mod._init_leaf(gen, unit, torch.device("cpu"))
+                                for _ in range(s.shape[0])])
+        assert got[k].dtype == want.dtype and torch.equal(got[k], want), k
+    assert units > 0
+
+
 def test_model_split_prefill_matches_jax(tmp_path):
     """The (1, 2) prefill program against ``repro.models.lm.prefill`` on the
     same weights (``init_params`` in f32, equal to the ranks' leaf-wise
@@ -242,12 +267,16 @@ BF16_WORKER = textwrap.dedent("""
 """).format(SEED=SEED)
 
 
-@pytest.mark.parametrize("arch", ["mamba2_370m", "recurrentgemma_9b", "yi_6b"])
+@pytest.mark.parametrize("arch", ["mamba2_370m", "recurrentgemma_9b", "yi_6b",
+                                  "mixtral_8x22b", "olmoe_1b_7b"])
 def test_model_split_prefill_is_bit_equal_in_bf16(arch, tmp_path):
     """The (1, 2) prefill program on bf16 weights bit-equal to the unsharded
-    port at 2 units: the vocab-split lookup summed at once and the
+    port at 2 units: the vocab-split lookup summed at once, the
     row-parallel products summed in f32 (``layers/common.py``
-    ``_contracted``), so no bf16 rounding is added by the split."""
+    ``_contracted``) and, for the MoE configs (reduced: 8 experts top-2,
+    4 a rank; mixtral's window 16), the experts' partial combines summed
+    in f32 (``layers/moe.py`` ``_experts``), so no bf16 rounding is added
+    by the split."""
     out = tmp_path / "bf16.pt"
     _launch(["-c", BF16_WORKER, arch, str(out)], 2)
     got = torch.load(out)
@@ -317,19 +346,46 @@ def test_four_card_script_without_cuda_exits_2_with_one_line():
 
 def test_four_card_script_rehearses_on_four_gloo_ranks():
     """``--world 4 --cpu``: the script's ranks on four gloo processes at the
-    configs' reduced widths, parts (b)-(d) with their gates (the launch and
+    configs' reduced widths, parts (b)-(e) with their gates (the launch and
     peak gates need the card); it exits 0 and its last line says so."""
     out = subprocess.run([sys.executable, str(SCRIPT), "--world", "4", "--cpu"],
                          env=_env(), text=True, capture_output=True, timeout=600)
     assert out.returncode == 0, (out.stdout + out.stderr)[-4000:]
     summary = json.loads(out.stdout.strip().splitlines()[-1])["four_cards"]
-    assert summary["failed"] == [] and summary["parts"] == ["b", "c", "d"]
+    assert summary["failed"] == [] and summary["parts"] == ["b", "c", "d", "e"]
     ranks = summary["ranks"]
     assert [r["rendezvous"]["rank"] for r in ranks] == [0, 1, 2, 3]
     lead = ranks[0]
     for mesh in ("(4, 1)", "(1, 4)"):
         assert lead["b"][mesh]["beyond_limit"] == {}
     assert lead["d"]["init_bit_equal_leaves"] > 0 and lead["d"]["full"]["finite"]
+    moe = lead["e"]
+    assert moe["init_bit_equal_leaves"] > 0 and moe["full"]["finite"]
+    assert moe["tempered"]["worst"][1] <= 2e-2     # the script's REL_L2
+    assert len(moe["full"]["decode_ms"]) == 4
+
+
+def test_four_card_script_runs_part_e_at_2_layers_on_one_gloo_rank():
+    """``--world 1 --cpu --parts e2``: part (e) at 2 layers on a (1, 1) mesh
+    (``chip_smoke.py``'s phase 22 runs it so on one card): the leaf-wise
+    init, and the prefill, cache and one decode step bit-equal to the
+    unsharded port for each set of weights; part (e) at full depth is
+    named among the parts not run."""
+    out = subprocess.run([sys.executable, str(SCRIPT), "--world", "1", "--cpu",
+                          "--parts", "e2"], env=_env(), text=True, capture_output=True,
+                         timeout=SPAWN_TIMEOUT)
+    assert out.returncode == 0, (out.stdout + out.stderr)[-4000:]
+    summary = json.loads(out.stdout.strip().splitlines()[-1])["four_cards"]
+    assert summary["failed"] == [] and summary["parts"] == ["e2"]
+    assert "e" in summary["skipped"]
+    moe = summary["ranks"][0]["e"]
+    assert moe["init_bit_equal_leaves"] == len(model_specs(
+        dataclasses.replace(get_config("mixtral_8x22b").reduced(),
+                            segments=(Segment(("moe",), 2),))))
+    for label in ("seeded", "tempered"):
+        assert moe[label]["prefill_bit_equal"] and moe[label]["decode_bit_equal"], label
+        assert moe[label]["dropped"] == moe[label]["unsharded_dropped"]
+    assert "full" not in moe
 
 
 def test_four_card_script_imports_no_jax():

@@ -34,7 +34,8 @@ from repro_torch.models.params import init_params
 from repro_torch.train.optimizer import AdamWConfig, init_state
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-ARCHS = ["yi_6b", "olmoe_1b_7b", "mamba2_370m", "recurrentgemma_9b", "whisper_medium"]
+ARCHS = ["yi_6b", "olmoe_1b_7b", "mamba2_370m", "recurrentgemma_9b", "whisper_medium",
+         "mixtral_8x22b"]
 ADAMW = AdamWConfig(lr=1e-3, warmup_steps=2)
 B, S = 4, 32
 REL_L2 = 2e-2
