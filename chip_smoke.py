@@ -98,7 +98,10 @@ exits 2 with one line on stderr that says which):
    encoder (1,500 x 1,500) and cross-attention (224 x 1,500) shapes at B 8,
    and at one (1, 4) rank's heads of mixtral-8x22b's prefill (B 2, S 4,096,
    12 and 2 heads of 128, causal, window 4,096: SDPA with ``is_causal``),
-   each beside its plain version, SDPA and its bound;
+   and at the last (1, 4) rank's query rows of chatglm3-6b's training core
+   (B 4, 512 rows at ``q_offset`` 1,536 over 2,048 keys, 32 and 2 heads of
+   128, causal: SDPA with the lower-right causal bias), each beside its
+   plain version, SDPA and its bound;
 11. the serving path (the main path, part 4) at mamba2-370m's full width
    and depth (368,178,688 bf16 parameters from ``--seed``, 48 SSM layers):
    the same entry points over prompts of 32,768 tokens (``prefill_32k``'s
@@ -2859,41 +2862,57 @@ def flash_continuation_times(flash_cuda, flash_plain, flash_f32, flash_fb) -> di
     return out
 
 
-def flash_times_at(what: str, fns, q, k, v, causal: bool, window: int = 0) -> dict:
+def flash_times_at(what: str, fns, q, k, v, causal: bool, window: int = 0,
+                   q_offset: int = 0) -> dict:
     """The flash kernel on ``q``, ``k``, ``v`` ((B, S, heads, D), bf16, a
-    window that reaches every key): held against the plain version in f32,
-    its time beside the plain version's on the same inputs,
-    ``scaled_dot_product_attention``'s (``is_causal``: the same function
-    with no mask) and the bound.  ``fns``: the kernel, the plain version,
-    its f32 form and the flops and bytes."""
+    window that reaches every key; with ``q_offset`` the last rows of a
+    causal core, ``q_offset + Sq = Sk``): held against the plain version in
+    f32, its time beside the plain version's on the same inputs,
+    ``scaled_dot_product_attention``'s (``is_causal``, or at an offset the
+    lower-right causal bias: the same function with no dense mask) and the
+    bound of this call's live pairs.  ``fns``: the kernel, the plain
+    version, its f32 form and the flops and bytes."""
     import torch.nn.functional as F
 
     flash_cuda, flash_plain, flash_f32, flash_fb = fns
     (B, Sq, H, D), (Sk, Hkv) = q.shape, k.shape[1:3]
     if window and window < Sk:
         raise ValueError(f"window {window} < {Sk} keys: SDPA would need a mask")
+    if q_offset and not (causal and q_offset + Sq == Sk):
+        raise ValueError(f"q_offset {q_offset}: SDPA's lower-right causal bias needs a "
+                         f"causal core whose rows end at the last of the {Sk} keys")
+    off = dict(q_offset=q_offset)
     err = check_close(f"flash {what} at B={B} Sq={Sq} Sk={Sk}",
-                      flash_cuda(q, k, v, causal, window), flash_f32(q, k, v, causal, window),
-                      BF16_TOL)
+                      flash_cuda(q, k, v, causal, window, **off),
+                      flash_f32(q, k, v, causal, window, **off), BF16_TOL)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if q_offset:
+        from torch.nn.attention.bias import causal_lower_right
+
+        mask = dict(attn_mask=causal_lower_right(Sq, Sk))
+    else:
+        mask = dict(is_causal=causal)
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                              enable_gqa=Hkv != H)
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=Hkv != H, **mask)
 
-    b_ms, b_by = bound(*flash_fb(B, Sq, Sk, H, Hkv, D, causal, window), "bfloat16")
+    b_ms, b_by = bound(*flash_fb(B, Sq, Sk, H, Hkv, D, causal, window, **off), "bfloat16")
     r = {"shape": f"B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} D={D} "
                   f"{'causal' if causal else 'not causal'}"
-                  f"{f', window {window}' if window else ''}",
+                  f"{f', window {window}' if window else ''}"
+                  f"{f', q_offset {q_offset}' if q_offset else ''}",
          "max_abs_err": err[0],
-         "ms": cuda_ms(lambda: flash_cuda(q, k, v, causal, window), reps=KERNEL_REPS),
-         "plain_ms": cuda_ms(lambda: flash_plain(q, k, v, causal, window), reps=2),
+         "ms": cuda_ms(lambda: flash_cuda(q, k, v, causal, window, **off), reps=KERNEL_REPS),
+         "plain_ms": cuda_ms(lambda: flash_plain(q, k, v, causal, window, **off), reps=2),
          "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(sdpa, reps=KERNEL_REPS)}
+    # the yardstick computes the same function (logged, not a gate of the port)
+    r["library_max_abs_err"] = (sdpa().transpose(1, 2).float()
+                                - flash_f32(q, k, v, causal, window, **off)).abs().max().item()
     log(f"  flash_attention {what} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
         f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f} "
         f"({r['library_ms'] / r['ms']:.2f}x), "
         f"bound {b_ms:.4f} by {b_by} ({b_ms / r['ms']:.1%} of it reached); max abs err "
-        f"{shown(err)}")
+        f"{shown(err)}, SDPA's {r['library_max_abs_err']:.3e}")
     return r
 
 
@@ -2926,6 +2945,24 @@ def flash_mixtral_times(*fns) -> dict:
                            generator=gen).bfloat16()
                for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
     return flash_times_at("mixtral-8x22b (1, 4) rank", fns, q, k, v, True, cfg.window)
+
+
+def flash_row_split_times(*fns) -> dict:
+    """``flash_times_at`` the last rank's rows of chatglm3-6b's training core
+    on (1, 4) (``scripts/torch_four_cards.py`` part (b), ``layers/
+    attention.py`` ``_row_split``): B 4, the last 512 of 2,048 query rows
+    (``q_offset`` 1,536) over all 2,048 keys, 32 query and 2 KV heads of
+    128, causal: the rank with the most keys."""
+    from repro_torch.models.base import get_config
+
+    cfg, ranks, B, S = get_config("chatglm3_6b"), 4, 4, 2048
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    q = torch.randn((B, S // ranks, cfg.num_heads, cfg.head_dim), device="cuda",
+                    generator=gen).bfloat16()
+    k, v = (torch.randn((B, S, cfg.num_kv_heads, cfg.head_dim), device="cuda",
+                        generator=gen).bfloat16() for _ in range(2))
+    return flash_times_at("chatglm3-6b (1, 4) last rank's rows", fns, q, k, v, True,
+                          q_offset=S - S // ranks)
 
 
 def ssd_kernel_times(ssd_cuda, ssd_plain, ssd_bf16ops, ssd_fb) -> dict:
@@ -3580,7 +3617,8 @@ def main(argv=None) -> int:
     log(f"[10] LM kernels at the paths' shapes: flash (B in {LM_BATCHES}, S=4096, H=16, "
         f"Hkv=1, D=256, window 2048), rglru (B in {LM_BATCHES}, S=4096, N=4096), ssd (B=8, "
         f"S=32768, H=32, P=64, N=128), flash at an olmoe continuation, whisper's encoder "
-        f"and cross-attention and a (1, 4) rank of mixtral-8x22b; ms, CUDA events")
+        f"and cross-attention, a (1, 4) rank of mixtral-8x22b and the last rank's rows of "
+        f"chatglm3-6b's training core on (1, 4); ms, CUDA events")
     lm_times = lm_kernel_times(flash_attention_cuda, flash_attention_sync_cuda,
                                chunked_attention_ref, flash_flops_bytes, rglru_cuda,
                                rglru_serial_cuda, rglru_ref, rglru_flops_bytes)
@@ -3592,6 +3630,7 @@ def main(argv=None) -> int:
                  flash_flops_bytes)
     lm_times["flash_attention"]["whisper"] = flash_whisper_times(*flash_fns)
     lm_times["flash_attention"]["mixtral"] = flash_mixtral_times(*flash_fns)
+    lm_times["flash_attention"]["row_split"] = flash_row_split_times(*flash_fns)
     for kname, r in lm_times.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {kname:15s} kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}, library {lib}, "

@@ -40,17 +40,30 @@ gate exits 1 at its end):
     with its batch in 4 microbatches parts from ``train_step`` by up to 1.7
     relative L2 after the second step, ``scripts/torch_train_floor.py``, so
     no state comparison could tell a fault from the init's chaos).  Rank 0 gathers the state to the host,
-    frees it, then runs ``train_step`` on its one card, and beside it
-    ``train_step`` with the batch in as many microbatches as the mesh has
-    data ranks (the floor: summation order alone): the loss and every leaf
-    within ``REL_L2`` relative L2, or within ``NOISE_RATIO`` x the floor's
-    distance where that is larger.  Each rank launches the flash kernel 16
+    frees it, then runs ``train_step`` on its one card, and beside it the
+    floors (``reference_steps``): for a mesh with data ranks
+    ``train_step`` with the batch in as many microbatches (summation order
+    alone), for a mesh split on "model" the same steps in f32 (how far bf16
+    rounding alone moves them): the loss and every leaf within ``REL_L2``
+    relative L2, or within ``NOISE_RATIO`` x the floor's distance where
+    that is larger.  Each rank launches the flash kernel 16
     times a step and no plain version on the card.  The peak a card is
     held against the dry run's (``launch/dryrun.py`` ``run_cell(...,
     mesh_shape=...)``, in the launcher): at least ``PEAK_FLOOR`` of it, and
     it at least ``PEAK_FLOOR`` of the measured one.  Readings: ms a step,
     NCCL kernels' device ms by kind on the mesh's one axis of size 4
-    (``torch.profiler`` on rank 0, one more step), the idle share.
+    (``torch.profiler`` on the last rank, one more step), the idle share.
+    Then, on (1, 4) only and under the key ``SPLIT_ARCH`` of (b)'s record,
+    chatglm3-6b at full width and ``SPLIT_UNITS`` (4) of 28 layers, with
+    the same batch, steps and gates: its 2 KV heads do not divide "model",
+    so each rank runs the attention core on its S / 4 = 512 query rows at
+    ``q_offset`` = 512 x rank (``layers/attention.py`` ``_row_split``),
+    2 x 4 x 3 = 24 flash launches a rank.  More readings: the last rank's
+    (the most keys a row) flash kernels' device ms in its profiled step
+    against one card's ``train_step`` (every row); the worst leaf's
+    elements whose sign departs from ``train_step``'s, and where they sit
+    among its ``|m|``.  Every flash call's query rows and offset
+    are gated on every run of (b).
 (c) the prefill and decode programs for recurrentgemma-9b at one (rglru,
     rglru, attn) unit and mamba2-370m at 8 layers, B 4 x S 4,096, on the
     same two meshes: logits, every cache leaf and one decode step's logits
@@ -85,8 +98,10 @@ At ``--world 1`` (one card, as ``chip_smoke.py``'s phase 22 runs it) the
 rank joins a one-rank group through the same rendezvous; part (b) runs at
 (1, 1) for 2 steps and part (e) at 2 layers (e2) at (1, 1), bit-equal to
 the unsharded port (a (1, 1) run of (c)-(e) is gated bit for bit); a line
-says which four-card parts were not run and why.  ``--parts`` picks parts at ``--world 1`` only (b, c, d2 and e2, parts
-(d) and (e) at 2 layers), for debugging on one card.  ``--cpu`` rehearses
+says which four-card parts were not run and why.  ``--parts`` picks parts:
+at ``--world 1`` of b, c, d2 and e2 (parts (d) and (e) at 2 layers), for
+debugging on one card; at ``--world 4`` of a-e, to rerun what a change
+touched.  ``--cpu`` rehearses
 parts (b)-(e) on gloo ranks on the CPU at the configs' reduced widths (2
 yi-6b layers, sequences of 32, internvl2-76b and mixtral-8x22b at 3
 layers; no peak or launch gate), as a four-card change is tried before it
@@ -132,6 +147,9 @@ ANALYTICS_QUERIES = ("CQ3", "CQ4", "CQ2", "TPC-Q6-like")
 CALIBRATION_FILES = (1, 4, 16, 64, 256, 1024, 2048, 3072)   # chip_smoke.py phase 4's
 TRAIN_ARCH, TRAIN_UNITS, TRAIN_BATCH, TRAIN_SEQ = "yi_6b", 8, 4, 2048
 TRAIN_STEPS = {1: 2, 4: 3}  # by world size
+# (b) on (1, 4) only: a config whose KV heads (2) do not divide "model", so
+# that each rank runs the attention core on its S / 4 query rows
+SPLIT_ARCH, SPLIT_UNITS = "chatglm3_6b", 4
 SERVE = (("recurrentgemma_9b", 1), ("mamba2_370m", 8))   # (arch, units)
 SERVE_BATCH, SERVE_SEQ = 4, 4096
 VLM_ARCH, VLM_GATE_UNITS, VLM_BATCH, VLM_SEQ = "internvl2_76b", 2, 2, 4096
@@ -210,9 +228,9 @@ def config(arch: str, units=None):
 def rehearse() -> None:
     """``--cpu``'s sizes: the configs' reduced widths, short sequences, a
     few layers."""
-    global REDUCED, TRAIN_UNITS, TRAIN_SEQ, SERVE, SERVE_SEQ, VLM_SEQ, VLM_UNITS, \
-        MOE_SEQ, MOE_UNITS
-    REDUCED, TRAIN_UNITS, TRAIN_SEQ = True, 2, 32
+    global REDUCED, TRAIN_UNITS, TRAIN_SEQ, SPLIT_UNITS, SERVE, SERVE_SEQ, VLM_SEQ, \
+        VLM_UNITS, MOE_SEQ, MOE_UNITS
+    REDUCED, TRAIN_UNITS, TRAIN_SEQ, SPLIT_UNITS = True, 2, 32, 2
     SERVE, SERVE_SEQ = (("recurrentgemma_9b", 1), ("mamba2_370m", 2)), 32
     VLM_SEQ, VLM_UNITS = 16, 3
     MOE_SEQ, MOE_UNITS = 32, 3
@@ -278,9 +296,10 @@ def fallbacks():
 
 
 def device_profile(fn, on: bool):
-    """``fn()`` under ``torch.profiler`` when ``on`` (rank 0 on the card):
+    """``fn()`` under ``torch.profiler`` when ``on`` (one rank on the card):
     host wall ms, device-busy ms (the union of kernel intervals), idle share
-    and NCCL kernels' device ms by collective; None when off or when the
+    the flash kernel's and NCCL kernels' device ms (these by collective);
+    None when off or when the
     profiler saw no device kernel."""
     if not on:
         fn()
@@ -294,13 +313,15 @@ def device_profile(fn, on: bool):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans, nccl = [], {}
+    spans, nccl, flash = [], {}, 0.0
     for e in prof.events():  # kernels only: the "nccl:*" annotations span them
         if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False) \
                 or ":" in e.name.split("(")[0]:
             continue
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
+        if "flash_fwd_kernel" in e.name:
+            flash += (end - start) / 1e3
         if e.name.lower().startswith("nccl"):
             m = re.match(r"nccl(?:Dev)?Kernel_([A-Za-z]+)", e.name)
             kind = m.group(1) if m else e.name.split("(")[0]
@@ -318,7 +339,8 @@ def device_profile(fn, on: bool):
     busy = (busy + cur_e - cur_s) / 1e3
     kernel_ms = sum(e - s for s, e in spans) / 1e3
     return {"wall_ms": wall * 1e3, "busy_ms": busy, "idle_share": 1 - busy / (wall * 1e3),
-            "kernel_ms": kernel_ms, "nccl_ms": nccl, "nccl_total_ms": sum(nccl.values()),
+            "kernel_ms": kernel_ms, "flash_ms": flash, "nccl_ms": nccl,
+            "nccl_total_ms": sum(nccl.values()),
             "nccl_share_of_kernel_ms": sum(nccl.values()) / kernel_ms}
 
 
@@ -488,11 +510,12 @@ def predictions(world: int, parts) -> dict:
 
     out = {}
     if "b" in parts:
-        cfg = config(TRAIN_ARCH, TRAIN_UNITS)
-        for shape in meshes(world):
-            rec = dryrun.run_cell(cfg, ShapeCell("b", "train", TRAIN_SEQ, TRAIN_BATCH),
+        for arch, shape in train_runs(world):
+            rec = dryrun.run_cell(config(*arch),
+                                  ShapeCell("b", "train", TRAIN_SEQ, TRAIN_BATCH),
                                   mesh_shape={"data": shape[0], "model": shape[1]})
-            out[f"b{shape}"] = rec["memory"]["peak_bytes_per_chip"]
+            key = f"b{shape}" if arch[0] == TRAIN_ARCH else f"b {arch[0]}{shape}"
+            out[key] = rec["memory"]["peak_bytes_per_chip"]
     if "d" in parts:
         rec = dryrun.run_cell(config(VLM_ARCH, VLM_UNITS),
                               ShapeCell("d", "prefill", VLM_SEQ, VLM_BATCH),
@@ -508,157 +531,303 @@ def predictions(world: int, parts) -> dict:
 
 # -- the ranks --------------------------------------------------------------------
 
+def train_runs(world: int) -> list:
+    """Part (b)'s ((arch, units), (data, model)) runs: ``TRAIN_ARCH`` on
+    each mesh of ``meshes(world)``, and ``SPLIT_ARCH`` on (1, world) where
+    there is more than one rank."""
+    runs = [((TRAIN_ARCH, TRAIN_UNITS), shape) for shape in meshes(world)]
+    return runs + ([((SPLIT_ARCH, SPLIT_UNITS), (1, world))] if world > 1 else [])
+
+
+def core_rows(cfg, shape, seq: int) -> int:
+    """The query rows of each flash call of a rank on a (data, model) mesh:
+    S / model where the training core splits its rows
+    (``layers/attention.py`` ``row_split_applies``), else S."""
+    from repro_torch.layers.attention import row_split_applies
+
+    return seq // shape[1] if row_split_applies(shape[1], cfg.num_kv_heads, seq) else seq
+
+
 def train_part(dev, world: int, rank: int, counters: Counters) -> dict:
-    """Part (b) on each mesh of ``meshes(world)``; rank 0 holds the program's
-    gathered state against ``train_step`` on its own card."""
+    """Part (b): each arch's runs (``train_runs``), then rank 0 holds their
+    gathered states against ``train_step`` on its own card; ``TRAIN_ARCH``'s
+    records by mesh, ``SPLIT_ARCH``'s under a key of its own."""
     import torch.distributed as dist
 
+    out = {}
+    for arch in dict.fromkeys(a for a, _ in train_runs(world)):
+        runs = {}
+        for a, shape in train_runs(world):
+            if a == arch:
+                runs.update(train_arch(dev, world, rank, counters, *arch, shape))
+        if rank == 0:  # train_step on this one card, the programs' state freed
+            kept = {name: run.pop("_kept") for name, run in runs.items()}
+            runs.update(reference_steps(*arch, kept, runs, dev))
+            del kept
+            memory_mark(dev)
+        dist.barrier()
+        if arch[0] == TRAIN_ARCH:
+            out.update(runs)
+        else:
+            out[arch[0]] = runs
+    return out
+
+
+def train_arch(dev, world: int, rank: int, counters: Counters, arch: str, units: int,
+               shape) -> dict:
+    """One run of part (b): ``arch`` at ``units`` units on the (data, model)
+    mesh ``shape``; rank 0 keeps the gathered state (``_kept``) for
+    ``reference_steps``."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.train import synthetic_batches
     from repro_torch.models.base import ShapeCell
     from repro_torch.models.params import init_params, init_params_sharded
     from repro_torch.train.optimizer import AdamWConfig, init_state
 
-    cfg = config(TRAIN_ARCH, TRAIN_UNITS)
+    cfg = config(arch, units)
     nsteps = TRAIN_STEPS.get(world, 3)
     cell = ShapeCell("b", "train", TRAIN_SEQ, TRAIN_BATCH)
-    adamw = AdamWConfig()
     specs = steps.model_specs(cfg)
-    data = synthetic_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
-    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
-               for _ in range(nsteps)]
+    batches = train_batches(cfg, nsteps, dev)
     want_flash = 2 * cfg.num_layers * nsteps if dev.type == "cuda" else 0
-    out, kept = {}, {}
-    for shape in meshes(world):
-        name = str(shape)
-        mesh = make_host_mesh(model_parallel=shape[1], device=dev.type)
-        with fallbacks() as events:
-            prog = steps.build_train_program(cfg, cell, mesh, adamw=adamw)
-            before = memory_mark(dev)
-            t0 = time.perf_counter()
-            params = init_params_sharded(specs, SEED, mesh, prog.in_placements[0].params)
-            sync(dev)
-            t_init = time.perf_counter() - t0
-            want = init_params(specs, SEED, device=dev)
-            unequal = [k for k in want if not torch.equal(full(params[k]), want[k])]
-            del want
-            gate(not unequal, f"(b) {name}: the leaf-wise init departs from init_params "
-                              f"in {unequal[:5]}")
-            state = init_state(tempered(params))
-            del params
-            state, = prog.distribute(state)
-            reset_peak(dev)
-            counters.reset()
-            walls, losses = [], []
-            for batch in batches:
+    rows = core_rows(cfg, shape, TRAIN_SEQ)
+    name = str(shape)
+    mesh = make_host_mesh(model_parallel=shape[1], device=dev.type)
+    flash_calls, plain_flash = [], fa_ops.flash_attention
+
+    def recorded(q, *args, q_offset=0, **kw):
+        flash_calls.append((q.shape[1], q_offset))
+        return plain_flash(q, *args, q_offset=q_offset, **kw)
+
+    with fallbacks() as events:
+        prog = steps.build_train_program(cfg, cell, mesh, adamw=AdamWConfig())
+        before = memory_mark(dev)
+        t0 = time.perf_counter()
+        params = init_params_sharded(specs, SEED, mesh, prog.in_placements[0].params)
+        sync(dev)
+        t_init = time.perf_counter() - t0
+        want = init_params(specs, SEED, device=dev)
+        unequal = [k for k in want if not torch.equal(full(params[k]), want[k])]
+        del want
+        gate(not unequal, f"(b) {arch} {name}: the leaf-wise init departs from init_params "
+                          f"in {unequal[:5]}")
+        state = init_state(tempered(params))
+        del params
+        state, = prog.distribute(state)
+        reset_peak(dev)
+        counters.reset()
+        walls, losses = [], []
+        fa_ops.flash_attention = recorded
+        try:
+            for i, batch in enumerate(batches):
                 sync(dev)
                 t0 = time.perf_counter()
                 state, metrics = prog.run(state, batch)
                 losses.append(full(metrics["loss"]).item())
                 walls.append(time.perf_counter() - t0)
-            got = counters.read()
-            peak = peak_since(dev, before)
-        gate(not got["plain_on_cuda"] and got["flash_attention"] == want_flash,
-             f"(b) {name} rank {rank}: launches {got} (want {want_flash} flash, no plain "
-             f"version on the card)")
-        # the state to the host, leaf by leaf; rank 0 keeps it
-        kept[name] = {}
-        for p in ("params", "m", "v"):
-            for k, v in getattr(state, p).items():
-                leaf = full(v)
-                if rank == 0:  # a copy: the profiled step below updates the state in place
-                    kept[name][f"{p}/{k}"] = leaf.to("cpu", copy=True)
-                del leaf
-        prof = device_profile(lambda: full(prog.run(state, batches[0])[1]["loss"]),
-                              rank == 0 and dev.type == "cuda")
-        del state, metrics
-        memory_mark(dev)
-        ms = 1e3 * sum(walls[1:]) / max(len(walls) - 1, 1)
-        out[name] = {"losses": losses, "first_ms": walls[0] * 1e3, "ms_per_step": ms,
-                     "peak_bytes": peak, "init_s": t_init, "launches": got,
-                     "fallback_events": events, "profile": prof,
-                     "nccl_axis": axis_of(shape)}
-        log(f"  (b) rank {rank} {name}: losses {[round(x, 5) for x in losses]}, first step "
-            f"{walls[0] * 1e3:.1f} ms, then {ms:.1f} ms a step; peak "
-            f"{(peak or 0) / 2 ** 30:.2f} GiB; init {t_init:.2f} s; launches {got}; "
-            f"fallback events {len(events)}")
-        if prof is not None:
-            log(f"  (b) rank 0 {name} one more step profiled: {prof['wall_ms']:.1f} ms wall, "
-                f"busy {prof['busy_ms']:.1f} ms (idle {prof['idle_share']:.1%}), NCCL on "
-                f"'{axis_of(shape)}' {prof['nccl_total_ms']:.2f} ms {prof['nccl_ms']}")
-    if rank == 0:  # train_step on this one card, the programs' state freed
-        out.update(reference_steps(cfg, specs, batches, adamw, kept, out, dev))
-        del kept
-        memory_mark(dev)
+                if i == 0:  # every rank gathers; rank 0 keeps it
+                    first = first_update(state, full)
+        finally:
+            fa_ops.flash_attention = plain_flash
+        got = counters.read()
+        peak = peak_since(dev, before)
+    gate(not got["plain_on_cuda"] and got["flash_attention"] == want_flash,
+         f"(b) {arch} {name} rank {rank}: launches {got} (want {want_flash} flash, no plain "
+         f"version on the card)")
+    start = rank % shape[1] * rows if rows < TRAIN_SEQ else 0
+    gate(len(flash_calls) == 2 * cfg.num_layers * nsteps
+         and set(flash_calls) == {(rows, start)},
+         f"(b) {arch} {name} rank {rank}: flash calls (query rows, q_offset) "
+         f"{sorted(set(flash_calls))} x {len(flash_calls)} (want ({rows}, {start}) x "
+         f"{2 * cfg.num_layers * nsteps})")
+    # the state to the host, leaf by leaf; rank 0 keeps it
+    kept = {}
+    for p in ("params", "m", "v"):
+        for k, v in getattr(state, p).items():
+            leaf = full(v)
+            if rank == 0:  # a copy: the profiled step below updates the state in place
+                kept[f"{p}/{k}"] = leaf.to("cpu", copy=True)
+            del leaf
+    prof = device_profile(lambda: full(prog.run(state, batches[0])[1]["loss"]),
+                          rank == world - 1 and dev.type == "cuda")
+    del state, metrics
+    memory_mark(dev)
+    ms = 1e3 * sum(walls[1:]) / max(len(walls) - 1, 1)
+    rec = {"losses": losses, "first_ms": walls[0] * 1e3, "ms_per_step": ms,
+           "peak_bytes": peak, "init_s": t_init, "launches": got,
+           "flash_rows": rows, "flash_q_offset": start, "flash_calls": len(flash_calls),
+           "fallback_events": events, "profile": prof, "nccl_axis": axis_of(shape)}
+    log(f"  (b) {arch} rank {rank} {name}: losses {[round(x, 5) for x in losses]}, first step "
+        f"{walls[0] * 1e3:.1f} ms, then {ms:.1f} ms a step; peak "
+        f"{(peak or 0) / 2 ** 30:.2f} GiB; init {t_init:.2f} s; launches {got}, flash on "
+        f"{rows} query rows at q_offset {start}; fallback events {len(events)}")
+    if prof is not None:
+        log(f"  (b) {arch} rank {rank} {name} one more step profiled: {prof['wall_ms']:.1f} ms "
+            f"wall, busy {prof['busy_ms']:.1f} ms (idle {prof['idle_share']:.1%}), flash "
+            f"{prof['flash_ms']:.3f} ms, NCCL on '{axis_of(shape)}' "
+            f"{prof['nccl_total_ms']:.2f} ms {prof['nccl_ms']}")
     dist.barrier()
-    return out
+    if rank == 0:
+        rec.update(_kept=kept, _first=first)
+    return {name: rec}
 
 
-def reference_steps(cfg, specs, batches, adamw, kept: dict, runs: dict, dev) -> dict:
+def train_batches(cfg, nsteps: int, dev) -> list:
+    from repro_torch.launch.train import synthetic_batches
+
+    data = synthetic_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    return [{k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+            for _ in range(nsteps)]
+
+
+def reference_steps(arch: str, units: int, kept: dict, runs: dict, dev) -> dict:
     """Rank 0's one-card references for part (b): ``train_step`` from the
-    same tempered init, and beside it ``train_step`` with the batch in as
-    many microbatches as a mesh has data ranks (its gradients summed in that
-    grouping: the floor of what summation order alone moves, a leaf at a
-    time).  Each kept program state is gated leaf by leaf: within
-    ``REL_L2``, or within ``NOISE_RATIO`` x the floor where that is larger;
-    the loss likewise."""
+    same tempered init, and the floors of each kept program state, a leaf
+    at a time: for a mesh with data ranks, the distance from it of
+    ``train_step`` with the batch in as many microbatches (summation order
+    alone); for a mesh split on "model", each parameter's sign floor
+    (``sign_floor``: the part of its update carried by elements whose
+    gradient average is within the program's measured rounding of it).
+    Each kept state is gated leaf by leaf: within ``REL_L2``, or within
+    ``NOISE_RATIO`` x its floor where that is larger; the loss likewise.
+    Readings: the worst leaf's elements whose sign departs from
+    ``train_step``'s, where they sit among its ``|m|``, and, for a
+    parameter kept after the first step (``first_update``), the same of the
+    first update.  For ``SPLIT_ARCH`` one more ``train_step`` is profiled
+    (its flash kernels' device ms: the whole core's rows)."""
     from repro_torch.launch import steps
     from repro_torch.models.params import init_params
-    from repro_torch.train.optimizer import init_state
+    from repro_torch.train.optimizer import AdamWConfig, init_state
 
-    groups = sorted({int(name.strip("()").split(",")[0]) for name in kept} - {1})
-    cfgs = {1: cfg, **{dp: dataclasses.replace(cfg, train_microbatches=dp) for dp in groups}}
-    states = {dp: init_state(tempered(init_params(specs, SEED, device=dev))) for dp in cfgs}
-    losses = {dp: [] for dp in cfgs}
-    walls = []
-    for batch in batches:
-        for dp, c in cfgs.items():
+    cfg = config(arch, units)
+    specs, adamw = steps.model_specs(cfg), AdamWConfig()
+    nsteps = len(next(iter(runs.values()))["losses"])
+    batches = train_batches(cfg, nsteps, dev)
+    shapes = {name: tuple(int(x) for x in name.strip("()").split(",")) for name in kept}
+
+    def run(c):
+        state = init_state(tempered(init_params(specs, SEED, device=dev)))
+        start = {k: v.to("cpu", copy=True) for k, v in state.params.items()}
+        losses, walls, first = [], [], {}
+        for i, batch in enumerate(batches):
             sync(dev)
             t0 = time.perf_counter()
-            states[dp], metrics = steps.train_step(c, states[dp], batch, adamw)
-            losses[dp].append(metrics["loss"].item())
-            if dp == 1:
-                walls.append(time.perf_counter() - t0)
-        del metrics
-    flat = {dp: {f"{p}/{k}": v for p in ("params", "m", "v")
-                 for k, v in getattr(st, p).items()} for dp, st in states.items()}
-    ref = flat[1]
-    floors = {dp: {k: rel_l2(flat[dp][k], ref[k]) for k in ref} for dp in groups}
-    loss_floor = {dp: max(abs(a - b) / abs(b) for a, b in zip(losses[dp], losses[1]))
-                  for dp in groups}
-    out = {"train_step": {"losses": losses[1],
+            state, metrics = steps.train_step(c, state, batch, adamw)
+            losses.append(metrics["loss"].item())
+            walls.append(time.perf_counter() - t0)
+            if i == 0:
+                first = first_update(state, full)
+        return state, start, losses, walls, first
+
+    def leaves(state) -> dict:
+        return {f"{p}/{k}": v for p in ("params", "m", "v") for k, v in getattr(state, p).items()}
+
+    state, start, ref_losses, walls, ref_first = run(cfg)
+    ref = leaves(state)
+    out = {"train_step": {"losses": ref_losses,
                           "ms_per_step": 1e3 * sum(walls[1:]) / max(len(walls) - 1, 1)},
-           "floors": {str(dp): {"losses": losses[dp], "loss_rel_err": loss_floor[dp],
-                                "worst": max(floors[dp].items(), key=lambda kv: kv[1]),
-                                "above_rel_l2": sum(e > REL_L2 for e in floors[dp].values())}
-                      for dp in groups}}
-    for dp in groups:
-        log(f"  (b) one-card floor, train_step with {dp} microbatches against 1: losses "
-            f"{[round(x, 6) for x in losses[dp]]}, {out['floors'][str(dp)]['above_rel_l2']} "
-            f"of {len(ref)} leaves above {REL_L2}, worst {out['floors'][str(dp)]['worst']}")
-    for name, leaves in kept.items():
-        dp = int(name.strip("()").split(",")[0])
-        floor = floors.get(dp, dict.fromkeys(ref, 0.0))
-        errs = {k: rel_l2(leaves[k], ref[k]) for k in ref}
+           "floors": {}}
+    floors, loss_floors = {}, {}
+    for dp in sorted({dp for dp, _ in shapes.values()} - {1}):  # one state beside ref's
+        other, _, losses, _, _ = run(dataclasses.replace(cfg, train_microbatches=dp))
+        floors[dp] = {k: rel_l2(v, ref[k]) for k, v in leaves(other).items()}
+        del other
+        memory_mark(dev)
+        loss_floors[dp] = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        out["floors"][str(dp)] = {"losses": losses, "loss_rel_err": loss_floors[dp],
+                                  "worst": max(floors[dp].items(), key=lambda kv: kv[1]),
+                                  "above_rel_l2": sum(e > REL_L2 for e in floors[dp].values())}
+        log(f"  (b) {arch} one-card floor, train_step with {dp} microbatches against 1: losses "
+            f"{[round(x, 6) for x in losses]}, {out['floors'][str(dp)]['above_rel_l2']} of "
+            f"{len(ref)} leaves above {REL_L2}, worst {out['floors'][str(dp)]['worst']}")
+    for name, got in kept.items():
+        dp, mp = shapes[name]
+        floor = dict(floors.get(dp, dict.fromkeys(ref, 0.0)))
+        if mp > 1:
+            signs = {k: sign_floor(got, ref, start, k) for k in ref if k.startswith("params/")}
+            floor.update({k: max(floor[k], f) for k, f in signs.items()})
+            runs[name]["sign_floors"] = {k: f for k, f in signs.items() if f}
+        loss_limit = max(REL_L2, NOISE_RATIO * loss_floors.get(dp, 0.0))
+        errs = {k: rel_l2(got[k], ref[k]) for k in ref}
         limits = {k: max(REL_L2, NOISE_RATIO * floor[k]) for k in ref}
         beyond = {k: (errs[k], limits[k]) for k in ref if errs[k] > limits[k]}
         worst = max(errs.items(), key=lambda kv: kv[1])
-        same = sum(torch.equal(ref[k], leaves[k].to(ref[k].device)) for k in ref)
-        loss_err = max(abs(a - b) / abs(b) for a, b in zip(runs[name]["losses"], losses[1]))
-        loss_limit = max(REL_L2, NOISE_RATIO * loss_floor.get(dp, 0.0))
-        runs[name].update(worst_leaf=worst, bit_equal_leaves=same, leaves=len(ref),
+        same = sum(torch.equal(ref[k], got[k].to(ref[k].device)) for k in ref)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(runs[name]["losses"], ref_losses))
+        leaf = worst[0].split("/", 1)[1]
+        signs = {"final": sign_departures(got[worst[0]], ref[worst[0]], ref["m/" + leaf])}
+        first = runs[name].pop("_first", {})
+        if worst[0].startswith("params/") and leaf in first:
+            signs["first_update"] = sign_departures(first[leaf][0], ref_first[leaf][0],
+                                                    ref_first[leaf][1])
+        runs[name].update(worst_leaf=worst, worst_limit=limits[worst[0]],
+                          lifted_limits={k: (errs[k], v) for k, v in limits.items() if v > REL_L2},
+                          bit_equal_leaves=same, leaves=len(ref),
                           within_rel_l2=sum(e <= REL_L2 for e in errs.values()),
-                          beyond_limit=beyond, loss_rel_err=loss_err)
-        log(f"  (b) {name} against train_step on one card (losses "
-            f"{[round(x, 5) for x in losses[1]]}): {same} of {len(ref)} leaves bit-equal, "
+                          beyond_limit=beyond, loss_rel_err=loss_err, worst_signs=signs)
+        log(f"  (b) {arch} {name} against train_step on one card (losses "
+            f"{[round(x, 5) for x in ref_losses]}): {same} of {len(ref)} leaves bit-equal, "
             f"{runs[name]['within_rel_l2']} within {REL_L2}, worst {worst[0]} at "
-            f"{worst[1]:.3e}; loss {loss_err:.3e}")
+            f"{worst[1]:.3e} (limit {limits[worst[0]]:.3e}), its signs {signs}; limits above "
+            f"{REL_L2}: {runs[name]['lifted_limits']}; loss {loss_err:.3e}")
         gate(not beyond and loss_err <= loss_limit,
-             f"(b) {name}: the program departs from train_step beyond the limit "
-             f"({REL_L2}, or {NOISE_RATIO} x the {dp}-microbatch floor): {beyond}, loss "
-             f"{loss_err:.3e} (limit {loss_limit:.3e})")
+             f"(b) {arch} {name}: the program departs from train_step beyond the limit "
+             f"({REL_L2}, or {NOISE_RATIO} x the floor): {beyond}, loss {loss_err:.3e} "
+             f"(limit {loss_limit:.3e})")
+    if arch == SPLIT_ARCH:
+        prof = device_profile(lambda: steps.train_step(cfg, state, batches[0], adamw)[1]
+                              ["loss"].item(), dev.type == "cuda")
+        out["train_step"]["profile"] = prof
+        if prof is not None:
+            log(f"  (b) {arch} one more train_step on one card profiled: {prof['wall_ms']:.1f} "
+                f"ms wall, busy {prof['busy_ms']:.1f} ms, flash {prof['flash_ms']:.3f} ms")
     return out
+
+
+FIRST_UPDATE_NUMEL = 1 << 16   # parameters this small are kept after the first step
+
+
+def first_update(state, gather) -> dict:
+    """name -> (parameter, m) on the host after the first step, for every
+    parameter of at most ``FIRST_UPDATE_NUMEL`` elements (the norms: their
+    zero init makes the first update a sign per element)."""
+    return {k: (gather(v).to("cpu", copy=True), gather(state.m[k]).to("cpu", copy=True))
+            for k, v in state.params.items() if v.numel() <= FIRST_UPDATE_NUMEL}
+
+
+def sign_floor(got: dict, ref: dict, start: dict, key: str) -> float:
+    """A parameter's sign floor for a program split on "model": the
+    relative L2 size of the part of ``train_step``'s update (its value less
+    ``start``, the init) carried by elements whose ``|m|`` is within
+    ``NOISE_RATIO`` x the program's departure from it on this leaf (its
+    RMS; the m leaf is itself gated).  Adam's update there is a sign the
+    rounding decides; reversing all of them moves the leaf by twice this,
+    which ``NOISE_RATIO`` allows."""
+    leaf = key.split("/", 1)[1]
+    m_ref = ref["m/" + leaf]
+    noise = (got["m/" + leaf].to(m_ref.device).float() - m_ref.float()).square().mean().sqrt()
+    unsettled = m_ref.float().abs() <= NOISE_RATIO * noise
+    update = ref[key].float() - start[leaf].to(m_ref.device).float()
+    return float(update[unsettled].norm() / ref[key].float().norm().clamp(min=1e-30))
+
+
+def sign_departures(got: torch.Tensor, want: torch.Tensor, m: torch.Tensor) -> dict:
+    """The elements of ``got`` whose sign departs from ``want``'s, and where
+    they sit among the one-card ``|m|`` of the same leaf (the gradients'
+    moving average): their quantiles there (0: the smallest)."""
+    got, m = got.to(want.device), m.to(want.device)
+    flipped = (torch.sign(got) != torch.sign(want)).flatten()
+    order = m.abs().flatten().float().argsort()
+    quantile = torch.empty_like(order, dtype=torch.float64)
+    quantile[order] = torch.arange(order.numel(), device=order.device,
+                                   dtype=torch.float64) / order.numel()
+    at = quantile[flipped]
+    return {"flipped": int(flipped.sum()), "of": flipped.numel(),
+            "quantile_max": float(at.max()) if at.numel() else None,
+            "quantile_median": float(at.median()) if at.numel() else None}
 
 
 def variants(specs) -> list:
@@ -1089,8 +1258,10 @@ def check_peaks(results: list, predicted: dict) -> dict:
     out = {}
     for key, pred in predicted.items():
         part, shape = key[0], key[1:]
-        if part == "b":
-            peaks = [r["b"][shape]["peak_bytes"] for r in results]
+        if part == "b":  # "b(1, 4)" (TRAIN_ARCH) or "b chatglm3_6b(1, 4)"
+            arch, _, mesh = shape.partition("(")
+            peaks = [(r["b"][arch.strip()] if arch.strip() else r["b"])["(" + mesh]["peak_bytes"]
+                     for r in results]
         else:
             peaks = [r[part]["full"]["peak_bytes"] for r in results]
         ratios = [p / pred for p in peaks]
@@ -1116,7 +1287,8 @@ def launched(results: list) -> dict:
                 total[k] = total.get(k, 0) + n
 
     for r in results:
-        for rec in r.get("b", {}).values():
+        b = r.get("b", {})
+        for rec in [*b.values(), *b.get(SPLIT_ARCH, {}).values()]:
             if "launches" in rec:  # a mesh's run (not rank 0's one-card references)
                 add(rec["launches"])
         for arch in r.get("c", {}).values():
@@ -1141,7 +1313,8 @@ def main(argv=None) -> int:
                     help="cards (ranks): 4, parts (a)-(e); 1, parts (b) and (e) at 2 "
                          "layers (e2) at (1, 1)")
     ap.add_argument("--parts", default=None,
-                    help=f"at --world 1 only: a comma list of {', '.join(ONE_CARD_PARTS)}")
+                    help=f"a comma list of parts: at --world 1 of {', '.join(ONE_CARD_PARTS)}, "
+                         f"at --world 4 of {', '.join(PARTS[4])} (default: every part)")
     ap.add_argument("--cpu", action="store_true",
                     help="a rehearsal of the ranks' parts on gloo ranks on the CPU at the "
                          "configs' reduced widths (not the cell: no card, no timing gate)")
@@ -1167,15 +1340,12 @@ def main(argv=None) -> int:
         return 2
     if args.parts is None:
         parts = ("b", "c", "d", "e") if args.cpu else PARTS[args.world]
-    elif args.world != 1:
-        print("torch_four_cards: --parts is for --world 1; --world 4 runs every part",
-              file=sys.stderr)
-        return 2
     else:
         parts = tuple(args.parts.split(","))
-        if not set(parts) <= set(ONE_CARD_PARTS):
-            print(f"torch_four_cards: --parts takes {', '.join(ONE_CARD_PARTS)}, got "
-                  f"{args.parts}", file=sys.stderr)
+        allowed = ONE_CARD_PARTS if args.world == 1 else PARTS[4]
+        if not set(parts) <= set(allowed):
+            print(f"torch_four_cards: --parts at --world {args.world} takes "
+                  f"{', '.join(allowed)}, got {args.parts}", file=sys.stderr)
             return 2
     sys.path.insert(0, SRC)
     from repro_torch.kernels import _build
@@ -1190,9 +1360,10 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     skipped = sorted(set(PARTS[4]) - set(parts))
     if skipped:
-        log(f"[four cards] not run: parts {skipped} (--world {args.world}: "
-            f"{'the run asked for one card' if visible >= 4 else f'{visible} card(s) visible'}; "
-            f"the four-card parts need --world 4 and four cards)")
+        why = (f"--parts {args.parts}" if args.world == 4 else
+               f"--world 1: {'the run asked for one card' if visible >= 4 else f'{visible} card(s) visible'}; "
+               f"the four-card parts need --world 4 and four cards")
+        log(f"[four cards] not run: parts {skipped} ({why})")
     summary = {"world": args.world, "device": name, "smi": smi, "parts": list(parts),
                "skipped": skipped}
     if not args.cpu:

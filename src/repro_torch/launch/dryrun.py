@@ -7,9 +7,13 @@ model=8) meshes of ``launch/mesh.py``, the cell's production program
 process group of 256 (512) ranks (``torch.testing._internal.distributed
 .fake_pg``: every collective returns at once) and ``FakeTensorMode``: each
 tensor has a shape, a dtype and a device but no memory.  The run is rank
-0's.  A serving cell whose rows divide "data" but not "pod" x "data" runs
-on the multi mesh's pod-local submesh (``steps.serving_mesh``), and its
-record's ``program_mesh`` says so; ``fallback_events`` counts the
+0's, at the busiest place on the mesh (``busiest_model_rank``): the first
+where every rank does the same work, the last on "model" in a training
+cell whose attention core splits its query rows on "model" (its causal
+rows see the most keys; the record's ``model_rank`` says so).  A serving
+cell whose rows divide "data" but not "pod" x "data" runs on the multi
+mesh's pod-local submesh (``steps.serving_mesh``), and its record's
+``program_mesh`` says so; ``fallback_events`` counts the
 ``sharding_fallback`` events sent while the cell is built and run.  A
 dispatch mode below DTensor sees every op on the local shards (DTensor
 returns to it as local ops and functional collectives) and records, per
@@ -68,11 +72,11 @@ from ..dist.context import mesh_axes
 from ..dist.roofline import Roofline
 from ..dist.sharding import on_fallback
 from ..kernels import COSTS
+from ..layers.attention import row_split_applies
 from ..models.base import ARCH_IDS, SHAPES, ShapeCell, cell_supported, get_config
 from ..models.config import ModelConfig
 from ..models.params import num_params
-from .mesh import (HBM_BW, HBM_BYTES, IB_BW, NVLINK_BW, PEAK_FLOPS_BF16, make_production_mesh,
-                   production_shape)
+from .mesh import HBM_BW, HBM_BYTES, IB_BW, NVLINK_BW, PEAK_FLOPS_BF16, production_shape
 from .steps import build_cell_program, map_placed, model_specs
 
 RESULTS_DIR = pathlib.Path(__file__).resolve().parents[3] / "torch_dryrun"
@@ -283,13 +287,42 @@ def _fake_args(prog, device: str):
     return tuple(map_placed(make, a, p) for a, p in zip(prog.args, prog.in_placements))
 
 
+def busiest_model_rank(cfg: ModelConfig, cell: ShapeCell, shape: Dict[str, int]) -> int:
+    """The "model" coordinate with the most work in ``cell`` on a mesh of
+    ``shape`` (axis name -> size): the last in a training cell whose
+    attention core splits its rows on "model" (``row_split_applies``), its
+    contiguous causal rows seeing the most keys; else 0 (the shares are the
+    same)."""
+    model = shape.get("model", 1)
+    if cell.kind == "train" and row_split_applies(model, cfg.num_kv_heads, cell.seq_len):
+        return model - 1
+    return 0
+
+
+def _mesh(shape: Dict[str, int], device: str, model_rank: int):
+    """The mesh of ``shape`` (``init_device_mesh``'s layout) with this
+    process, rank 0, at ``model_rank`` on "model": the ranks rolled along
+    "model" where that is not 0.  A rolled mesh does not compare equal to
+    the plain one, so nothing DTensor keeps by mesh passes from one layout's
+    fake world to the other's, whose groups are named otherwise."""
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+    names = tuple(shape)
+    if not model_rank:
+        return init_device_mesh(device, tuple(shape.values()), mesh_dim_names=names)
+    ranks = torch.arange(math.prod(shape.values())).reshape(tuple(shape.values()))
+    return DeviceMesh(device, ranks.roll(model_rank, dims=names.index("model")),
+                      mesh_dim_names=names)
+
+
 def run_cell(arch: Union[str, ModelConfig], shape: Union[str, ShapeCell],
              multi_pod: bool = False, mesh_shape: Optional[Dict[str, int]] = None) -> dict:
     """The record of one cell: ``arch`` an id or a config, ``shape`` a name
     of ``SHAPES`` or a cell, on the production mesh (``mesh_shape``: axis
-    name -> size, another mesh)."""
+    name -> size, another mesh), as its busiest rank runs it
+    (``busiest_model_rank``; the record says which where it is not the
+    first)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.distributed.device_mesh import init_device_mesh
 
     cfg = get_config(arch) if isinstance(arch, str) else arch
     cell = SHAPES[shape] if isinstance(shape, str) else shape
@@ -297,11 +330,13 @@ def run_cell(arch: Union[str, ModelConfig], shape: Union[str, ShapeCell],
     mesh_name = "multi" if multi_pod else "single"
     if mesh_shape is not None:
         mesh_name = "x".join(f"{k}{v}" for k, v in mesh_shape.items())
-    head = {"arch": arch_name, "shape": cell.name, "mesh": mesh_name}
+    shape_ = mesh_shape or production_shape(multi_pod)
+    model_rank = busiest_model_rank(cfg, cell, shape_)
+    head = {"arch": arch_name, "shape": cell.name, "mesh": mesh_name,
+            **({"model_rank": model_rank} if model_rank else {})}
     skip = cell_supported(cfg, cell)
     if skip:
         return {**head, "status": "skipped", "reason": skip}
-    shape_ = mesh_shape or production_shape(multi_pod)
     nchips = math.prod(shape_.values())
     device = "cuda" if torch.cuda.is_available() else "cpu"
 
@@ -310,9 +345,7 @@ def run_cell(arch: Union[str, ModelConfig], shape: Union[str, ShapeCell],
     dropped, moe_ffn.dropped = moe_ffn.dropped, 0  # no fake tensor outlives the run
     t0 = time.time()
     with fake_world(nchips), _fallbacks() as fallbacks:
-        mesh = (make_production_mesh(multi_pod=multi_pod, device_type=device)
-                if mesh_shape is None else
-                init_device_mesh(device, tuple(shape_.values()), mesh_dim_names=tuple(shape_)))
+        mesh = _mesh(shape_, device, model_rank)
         prog = build_cell_program(cfg, cell, mesh)
         counter = _CellCounter(prog.mesh)  # a serving program's pod-local submesh
         with FakeTensorMode():

@@ -19,7 +19,14 @@ on both devices, as the reference computes it outside any Pallas kernel.
 GQA reads KV head ``h // (H / Hkv)``; KV heads are never repeated in
 memory.  On DTensors both run on the local shards (``local_region``): batch
 on the data-parallel axes, heads on "model" only where the KV heads divide
-it (sharding q's heads alone would break the local head-to-KV map).
+it (sharding q's heads alone would break the local head-to-KV map).  Where
+they do not, a differentiated ``chunked_attention`` splits the query rows
+on "model" instead, as the reference stores ``_flash_fwd``'s residuals on
+"seq_model": each rank runs ``_Flash`` on its contiguous block of rows at
+its own ``q_offset`` over the whole k and v (``_row_split``), so q, the
+output and the lse are kept split and dk, dv come back as each rank's
+partial sums.  Serving (no grad, or a ``kv_valid_len``) keeps the whole
+core on every rank.
 """
 from __future__ import annotations
 
@@ -29,7 +36,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from ..dist.context import act_placements, dtensor_mesh, local_region, mesh_axes
+from ..dist.context import (act_placements, dtensor_mesh, local_region, mesh_axes,
+                            shard_start)
 from ..kernels import is_fake
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.flash_attention.ref import NEG_INF
@@ -165,6 +173,28 @@ def _core_placements(mesh, q: torch.Tensor, k: torch.Tensor) -> tuple:
             act_placements(mesh, k.shape, "batch", None, heads, None))
 
 
+def row_split_applies(model: int, kv_heads: int, sq: int) -> bool:
+    """Whether a differentiated core on a mesh whose "model" axis has
+    ``model`` ranks splits its ``sq`` query rows on "model" (``_row_split``):
+    the KV heads do not divide "model" and the rows do."""
+    return model > 1 and kv_heads % model != 0 and sq % model == 0
+
+
+def _wants_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+
+
+def _row_split(mesh, q, k, v, spec: AttnSpec, q_offset: int):
+    """``_Flash`` with q's rows split on "model" (the output laid out the
+    same way), k and v whole on every "model" rank: each rank's rows
+    ``[r0, r0 + Sq / M)`` see their keys at ``q_offset + r0``."""
+    pq = act_placements(mesh, q.shape, "batch", "seq_model", None, None)
+    pk = act_placements(mesh, k.shape, "batch", None, None, None)
+    r0, _ = shard_start(mesh, pq, 1, q.shape[1])
+    return local_region(lambda ql, kl, vl: _Flash.apply(ql, kl, vl, spec, q_offset + r0),
+                        (q, k, v), (pq, pk, pk), pq)
+
+
 def chunked_attention(
     q: torch.Tensor,                 # (B, Sq, H, D)
     k: torch.Tensor,                 # (B, Sk, Hkv, D)
@@ -180,11 +210,14 @@ def chunked_attention(
     raises, since the kernel's output would carry no history)."""
     mesh = dtensor_mesh(q, k, v)
     if mesh is not None:
+        if (row_split_applies(mesh_axes(mesh).get("model", 1), k.shape[2], q.shape[1])
+                and kv_valid_len is None and _wants_grad(q, k, v)):
+            return _row_split(mesh, q, k, v, spec, q_offset)
         pq, pk = _core_placements(mesh, q, k)
         pb = act_placements(mesh, q.shape[:1], "batch")
         return local_region(chunked_attention, (q, k, v, spec, q_offset, kv_valid_len),
                             (pq, pk, pk, None, None, pb), pq)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    if _wants_grad(q, k, v):
         if kv_valid_len is None:
             return _Flash.apply(q, k, v, spec, q_offset)
         if q.device.type == "cuda":
