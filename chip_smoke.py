@@ -22,8 +22,8 @@ exits 2 with one line on stderr that says which):
    narrow kernel's edges (``narrow_parity``): G in {1, 5, 32, 33, 2,048,
    12,288}, V in {1, 3}, keys and values from row 0 or 1 (one offset from a
    16-byte boundary) or at different offsets, N a multiple of 4 or not, N
-   in {1, 2, 3, 5, 7}; each call one launch (``torch.profiler``: one kernel,
-   no fill before it) and its workspace left zero;
+   in {1, 2, 3, 5, 7}; each call one launch (``one_call_on_card``: one
+   kernel, no fill before it) and its workspace left zero;
 4. single-query path (the main path, part 1): for CQ3, CQ4, CQ2 and
    TPC-Q6-like, ``measure_cost_model`` on the card at batch sizes that
    span the plans' batches (``CALIBRATION_FILES``), ``Planner("single")``
@@ -290,11 +290,25 @@ exits 2 with one line on stderr that says which):
    unsharded port, the same flash launches; and a line that names the
    parts not run.  A failure there fails the smoke.
 
+23. the example twins (after phase 22, the main path, part 11), each run
+   as a user runs it, ``PYTHONPATH=src`` and no ``--device``, in a process
+   of its own: ``examples/torch_deadline_analytics.py --scale 1.0 --files
+   4500`` (CQ3 at the paper's scale: calibration, the ``single`` plan,
+   ``run_plan`` on the card, the aggregate equal to the plain version's
+   one-shot on the host) and ``examples/torch_multi_query_serving.py
+   --full`` (yi-6b at 32 layers: ``calibrate``, three jobs under LLF, every
+   job met and every prompt processed); each exits 0, the first through
+   segagg's ``cuda`` route with the cluster-table scatter launched, the
+   second with 32 flash launches a prefill call; their lines and seconds
+   are logged.
+
 Phases 12-15 count their launches apart from phases 4-5 (phase 6's counts)
 and the serving paths; the result line carries them under
 ``launches_by_phase`` (flash's ``launches`` is phases 9, 16, 18, 19 (19c
-and 19d), 20 (20e), 21 (the programs' runs in 21a and 21c) and 22 (its
-programs' runs on every rank) together; ``rglru_bwd`` is 20e's).
+and 19d), 20 (20e), 21 (the programs' runs in 21a and 21c), 22 (its
+programs' runs on every rank) and 23 (the serving twin) together; the
+segagg kernels' is phases 4-5, 22 and 23 (the analytics twin);
+``rglru_bwd`` is 20e's).
 
 Each parity line prints the largest absolute error and its worst ratio to
 the ``torch.allclose`` limit ``atol + rtol |want|`` (the check passes up to
@@ -422,6 +436,12 @@ PEAK_FLOOR = 0.75           # 21b: predicted / measured peak at least this
 # 16.64 GiB); with it split on "model" the peak must stay below this.
 TRAIN_4K_WHOLE_PEAK = 17_861_699_346
 FOUR_CARDS_TIMEOUT = 900    # phase 22: seconds for scripts/torch_four_cards.py
+# Phase 23: the analytics twin at the paper's Section 7.1 scale, and the
+# seconds each twin may take
+TWIN_ANALYTICS_ARGS = ("--scale", "1.0", "--files", "4500")
+TWIN_TIMEOUT = 300
+TWIN_SEQ = 64               # the serving twin's prompt length (examples/torch_multi_query_serving.py)
+TWIN_FLASH_BATCHES = (1, 16)  # phase 10: its smallest and largest prefill buckets
 # 19a: the kernel's lse against the f32 reference's (the same f32 logits
 # summed in another order) and dq, dk, dv against flash_bwd fed the f32
 # reference's output and lse (bf16 gradients, and delta = rowsum(dO O) from
@@ -569,11 +589,9 @@ def narrow_parity(fn, work, fits, segagg_ref, rows: int) -> int:
     keys from row 1 beside values from row 0 (the element path); then N in
     {1, 2, 3, 5, 7} from rows 0-3; a (G, V) table that does not ``fits``
     is left out.  After each call the stream's workspace
-    (``work()``) must be zero again.  Then one call under ``torch.profiler``
-    must show one kernel on the card, the narrow one.  Returns the cases."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    (``work()``) must be zero again.  Then one call must run one kernel on
+    the card, the narrow one, and count one launch (``one_call_on_card``).
+    Returns the cases."""
     gen = torch.Generator().manual_seed(7)
 
     def check(what, keys, vals, g):
@@ -615,15 +633,72 @@ def narrow_parity(fn, work, fits, segagg_ref, rows: int) -> int:
     vals = torch.rand((rows, 1), generator=gen).cuda()
     fn(keys, vals, 5)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn(keys, vals, 5)
-        torch.cuda.synchronize()
-    on_card = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if len(on_card) != 1 or "segagg_narrow" not in on_card[0]:
-        raise AssertionError(f"segagg_narrow: one call ran {on_card} on the card")
+    how, on_card, launched = one_call_on_card(lambda: fn(keys, vals, 5), fn)
+    # a graph's nodes carry no names: there the wrapper's count names the kernel
+    one = (on_card == ["kernel"] if how == "graph"
+           else len(on_card) == 1 and "segagg_narrow" in on_card[0])
+    if not one or launched != 1:
+        raise AssertionError(f"segagg_narrow: one call ran {on_card} on the card ({how}), "
+                             f"{launched} launches counted")
     log(f"  parity segagg_narrow         {cases} cases (N 1-7 too): counts equal, float rel "
-        f"err {worst:.3e}; one call = one kernel on the card ({on_card[0][:60]})")
+        f"err {worst:.3e}; one call = one kernel on the card ({how}: {on_card[0][:60]})")
     return cases
+
+
+def one_call_on_card(call, wrapper, tries: int = 3) -> tuple[str, list, int]:
+    """What one ``call()`` runs on the card, and the launches ``wrapper``
+    counted in it: ``("profiler", [kernel names], n)`` from the first of
+    ``tries`` ``torch.profiler`` sessions that records any device activity;
+    where none does (CUPTI can deliver nothing in a session), ``("graph",
+    [node types], n)``, the call captured once into a CUDA graph and the
+    graph's device nodes read through the driver (kernel, memcpy, memset;
+    the nodes carry no kernel names).  ``call`` must have run once before, so
+    that nothing it makes once (a stream's workspace) falls in the record."""
+    import ctypes
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        before = wrapper.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        on_card = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if on_card:
+            return "profiler", on_card, wrapper.launches - before
+    log(f"  the profiler recorded no device activity in {tries} sessions; "
+        f"reading one call from a CUDA graph instead")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # once on the capture stream, for what it makes once
+        call()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    before = wrapper.launches
+    with torch.cuda.graph(graph, stream=stream):
+        call()
+    launched = wrapper.launches - before
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if count.value and cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = {0: "kernel", 1: "memcpy", 2: "memset"}  # CUgraphNodeType; the rest do no work
+    on_card = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        if kind.value in kinds:
+            on_card.append(kinds[kind.value])
+    del graph
+    torch.cuda.synchronize()
+    return "graph", on_card, launched
 
 
 def zipf_parity(kernels, segagg_ref, zipf_keys, rows: int, g: int) -> None:
@@ -2679,6 +2754,61 @@ def four_cards_path() -> dict:
     return summary["launches"]
 
 
+# -- phase 23 ----------------------------------------------------------------
+
+def example_twins_path() -> dict:
+    """Phase 23: the example twins as a user runs them (``examples/torch_*.py``,
+    ``PYTHONPATH=src``, no ``--device``: the card), each in a process group
+    of its own: the analytics twin at the paper's scale
+    (``TWIN_ANALYTICS_ARGS``), the serving twin at yi-6b's full width
+    (``--full``).  Each must exit 0 through the kernels its path runs (the
+    launch counts it prints: segagg's route ``cuda`` and the cluster-table
+    scatter for CQ3; 32 flash launches a prefill call); their lines are
+    logged.  Returns their launches by kernel."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src")}
+    launches = {}
+    for script, argv in (("torch_deadline_analytics.py", TWIN_ANALYTICS_ARGS),
+                         ("torch_multi_query_serving.py", ("--full",))):
+        log(f"[23] examples/{script} {' '.join(argv)}")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, os.path.join(root, "examples", script), *argv],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                env=env, cwd=root, start_new_session=True)
+        try:
+            out, _ = proc.communicate(timeout=TWIN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+            raise AssertionError(f"phase 23: {script} did not finish within {TWIN_TIMEOUT} s")
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+        for line in out.strip().splitlines():
+            log(f"  | {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 23: {script} exited {proc.returncode}")
+        got = re.search(r"^kernel launches: (\{.*\}) in ", out, re.M)
+        if got is None:
+            raise AssertionError(f"phase 23: {script} printed no launch counts")
+        counts = json.loads(got.group(1))
+        if script.startswith("torch_deadline"):
+            if "segagg route: cuda" not in out or counts["segagg_scatter"] <= 0:
+                raise AssertionError(f"phase 23: CQ3 at the paper's scale must run on the "
+                                     f"card through the cluster-table scatter: {counts}")
+        elif counts["flash_attention"] <= 0 or counts["flash_attention"] % 32:
+            raise AssertionError(f"phase 23: yi-6b's prefill calls must launch the flash "
+                                 f"kernel once a layer (32): {counts}")
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        log(f"  phase 23: {script} passed in {time.perf_counter() - t0:.1f} s; "
+            f"launches {counts}")
+    return launches
+
+
 # -- phase 14 ----------------------------------------------------------------
 
 def admission_path(args, cfg, ex, cm, engine, core, counters) -> dict:
@@ -2963,6 +3093,24 @@ def flash_row_split_times(*fns) -> dict:
                         generator=gen).bfloat16() for _ in range(2))
     return flash_times_at("chatglm3-6b (1, 4) last rank's rows", fns, q, k, v, True,
                           q_offset=S - S // ranks)
+
+
+def flash_twin_times(*fns) -> dict:
+    """``flash_times_at`` the serving twin's prefill shapes (phase 23,
+    ``examples/torch_multi_query_serving.py --full``): yi-6b's 32 query and 4
+    KV heads of 128, ``TWIN_SEQ`` tokens (one partial key tile), causal, at
+    its smallest and largest buckets (``TWIN_FLASH_BATCHES``)."""
+    from repro_torch.models.base import get_config
+
+    cfg = get_config("yi_6b")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for B in TWIN_FLASH_BATCHES:
+        q, k, v = (torch.randn((B, TWIN_SEQ, h, cfg.head_dim), device="cuda",
+                               generator=gen).bfloat16()
+                   for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+        out[B] = flash_times_at("yi-6b serving twin", fns, q, k, v, True, cfg.window)
+    return out
 
 
 def ssd_kernel_times(ssd_cuda, ssd_plain, ssd_bf16ops, ssd_fb) -> dict:
@@ -3617,8 +3765,9 @@ def main(argv=None) -> int:
     log(f"[10] LM kernels at the paths' shapes: flash (B in {LM_BATCHES}, S=4096, H=16, "
         f"Hkv=1, D=256, window 2048), rglru (B in {LM_BATCHES}, S=4096, N=4096), ssd (B=8, "
         f"S=32768, H=32, P=64, N=128), flash at an olmoe continuation, whisper's encoder "
-        f"and cross-attention, a (1, 4) rank of mixtral-8x22b and the last rank's rows of "
-        f"chatglm3-6b's training core on (1, 4); ms, CUDA events")
+        f"and cross-attention, a (1, 4) rank of mixtral-8x22b, the last rank's rows of "
+        f"chatglm3-6b's training core on (1, 4) and yi-6b's prefill in the serving twin "
+        f"(B in {TWIN_FLASH_BATCHES}, S={TWIN_SEQ}); ms, CUDA events")
     lm_times = lm_kernel_times(flash_attention_cuda, flash_attention_sync_cuda,
                                chunked_attention_ref, flash_flops_bytes, rglru_cuda,
                                rglru_serial_cuda, rglru_ref, rglru_flops_bytes)
@@ -3631,6 +3780,7 @@ def main(argv=None) -> int:
     lm_times["flash_attention"]["whisper"] = flash_whisper_times(*flash_fns)
     lm_times["flash_attention"]["mixtral"] = flash_mixtral_times(*flash_fns)
     lm_times["flash_attention"]["row_split"] = flash_row_split_times(*flash_fns)
+    lm_times["flash_attention"]["twin"] = flash_twin_times(*flash_fns)
     for kname, r in lm_times.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {kname:15s} kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}, library {lib}, "
@@ -3758,6 +3908,11 @@ def main(argv=None) -> int:
     for k, n in four_cards_path().items():
         launches[k] = launches.get(k, 0) + n
         by_phase.setdefault(k, {})["22"] = n
+
+    # 23. the example twins, as a user runs them
+    for k, n in example_twins_path().items():
+        launches[k] = launches.get(k, 0) + n
+        by_phase.setdefault(k, {})["23"] = n
 
     replaces = {"segagg_narrow": "src/repro/kernels/segagg/segagg.py:48",
                 "segagg_scatter": "src/repro/kernels/segagg/segagg.py:75",

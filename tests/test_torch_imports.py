@@ -1,6 +1,6 @@
 """Import guard of the PyTorch port: no file of ``src/repro_torch``, not
-``chip_smoke.py`` and no ``scripts/torch_*.py`` imports ``jax`` or the JAX
-package ``repro`` (an ``ast`` scan of every import statement, relative
+``chip_smoke.py``, no ``scripts/torch_*.py`` and no ``examples/torch_*.py``
+imports ``jax`` or the JAX package ``repro`` (an ``ast`` scan of every import statement, relative
 imports resolved)."""
 import ast
 import pathlib
@@ -10,7 +10,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-         + sorted((ROOT / "scripts").glob("torch_*.py")))
+         + sorted((ROOT / "scripts").glob("torch_*.py"))
+         + sorted((ROOT / "examples").glob("torch_*.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -42,6 +43,7 @@ def test_scan_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "chip_smoke.py" in names
     assert "scripts/torch_hillclimb.py" in names
+    assert "examples/torch_multi_query_serving.py" in names
     assert "src/repro_torch/kernels/segagg/ops.py" in names
     assert "src/repro_torch/serve/analytics.py" in names
     for module in ("serve/engine.py", "models/lm.py", "models/params.py",
